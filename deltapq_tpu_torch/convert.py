@@ -1,0 +1,56 @@
+"""Carry engine state across from the JAX package.
+
+``deltapq_tpu.ops.fused.FusedCompressedEngine.save`` writes an ``.npz``
+with ``codewords``, ``row_data``, ``vals``, ``meta``, ``e_max``,
+``n_valid``, ``M``, ``fmt`` and ``row_to_db``; these functions build the
+port's engine from those arrays, on the same tiles, so the two engines
+can be held against each other.
+
+The JAX file does not record its precision (its ``load`` rebuilds at
+bf16); the port's own ``save`` adds ``precision`` and ``load`` honours
+it.  Both functions take ``precision=None`` by default: the file's own
+precision, or int16 (the only one the port has) for a file without one.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping, Optional
+
+import numpy as np
+
+from .ops.fused import FusedCompressedEngine
+from .ops.stream_tiles import StreamTiles
+
+
+def engine_state_from_numpy(d: Mapping[str, np.ndarray],
+                            precision: Optional[str] = None,
+                            device="cpu") -> FusedCompressedEngine:
+    """Port engine from the arrays a JAX (or port) ``save`` wrote.
+    ``precision=None`` takes the file's own, else int16."""
+    fmt = str(d["fmt"]) if "fmt" in d else "slots"
+    if fmt != "stream":
+        raise NotImplementedError(f"tile format {fmt!r} is not ported "
+                                  f"(stream is)")
+    if precision is None:
+        precision = str(d["precision"]) if "precision" in d else "int16"
+    tiles = StreamTiles(row_data=np.asarray(d["row_data"]),
+                        vals=np.asarray(d["vals"]),
+                        meta=np.asarray(d["meta"], np.int32),
+                        n_valid=int(d["n_valid"]), M=int(d["M"]),
+                        e_max=int(d["e_max"]))
+    rtd = np.asarray(d["row_to_db"])
+    return FusedCompressedEngine.from_tiles(
+        np.asarray(d["codewords"], np.float32), tiles,
+        row_to_db=rtd if len(rtd) else None, precision=precision,
+        device=device)
+
+
+def load_jax_engine(path: str, precision: Optional[str] = None,
+                    device="cpu") -> FusedCompressedEngine:
+    """Read an engine ``.npz`` (``np.savez`` appends the suffix)."""
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    with np.load(path, allow_pickle=False) as z:
+        return engine_state_from_numpy(dict(z), precision=precision,
+                                       device=device)

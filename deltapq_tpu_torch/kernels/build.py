@@ -1,0 +1,129 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels have a plain C interface and are bound with ``ctypes``:
+``nvcc`` compiles every source in ``csrc/`` into one shared library for
+Hopper (``sm_90a``) at first use, into ``_build/<hash>/`` inside the
+package, where ``<hash>`` covers the sources and the flags, so a stale
+library is never loaded after a source changes.  Nothing is built when
+the module is imported; the CPU tests import it freely.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an
+exception, so a refused launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libdeltapq_kernels.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signatures: every pointer and the stream are ``c_void_p`` (a plain
+#: int would be cut to 32 bits), every size ``c_int``.
+SIGNATURES = {
+    # q, cw, nrm, row_data, vals, meta, u, mins, codes_out,
+    # B, Dg, nT, n_valid, M, K, Ds, stream
+    "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    # tab, cand, out, B, M, K, S, stream
+    "rerank_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float      # nvcc wall time; 0.0 when a cached library loaded
+    log: str            # nvcc's output (``-Xptxas -v`` register report)
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(p for p in CSRC_DIR.iterdir()
+                  if p.suffix in (".cu", ".cuh"))
+
+
+def nvcc_path() -> str:
+    cand = shutil.which("nvcc")
+    if cand is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the "
+                           "CUDA kernels cannot be built on this host")
+    return cand
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(force: bool = False) -> BuildInfo:
+    """Compile ``csrc/*.cu`` into the hashed build directory (or reuse
+    a library already built from the same sources and flags)."""
+    out_dir = BUILD_DIR / _digest()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "nvcc.log"
+    if lib.exists() and not force:
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildInfo(lib, 0.0, log)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)          # atomic: concurrent builds agree
+    return BuildInfo(lib, secs, log)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` code from a launch."""
+    if err != 0:
+        msg = library().kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: error {err} "
+                           f"({msg})")

@@ -1,0 +1,410 @@
+"""The compressed-stream query engine (int16 scan, stream tiles).
+
+Counterpart of ``deltapq_tpu/ops/fused.py`` for the path the benchmark
+headlines: ``FusedCompressedEngine(precision="int16", fmt="stream")``
+over stream tiles in DeltaTree-DFS order.  Each batch:
+
+1. ``adc_table`` (exact f32 tables) and the host-side int16 quantization
+   of the centered queries (``_mins_query_args``, NumPy as in the JAX
+   package, so the kernel operand is bit-identical between packages);
+2. ``fused_stream_mins``: the CUDA stream kernel decodes the tiles, runs
+   the two-digit scan and returns 32-row subtile minima plus the decoded
+   codes;
+3. ``fused_select_esc``: unit selection, exact rerank (CUDA rerank
+   kernel), the exactness certificate, the escalation ladder (ns, 2ns,
+   8ns, cap) and the terminal exact scan.  The JAX package's
+   ``lax.cond`` rungs become host checks of ``ok.all()``;
+4. scan rows -> database ids through ``row_to_db``.
+
+Reported distances are exact f32 ADC distances, bit-equal to
+``adc_query_topk`` over the same table.  Not ported yet: the bf16 and
+int8 precisions, M > 8, the slot-tile format and the other tiers.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .adc import adc_query_topk, adc_table
+from .stream_tiles import TILE, StreamTiles, build_stream_tiles
+from . import fused_kernels as fk
+
+
+def _pad_queries(queries: np.ndarray, d_pad: int, b_mult: int = 128
+                 ) -> Tuple[np.ndarray, int]:
+    q = np.asarray(queries, np.float32)
+    b = q.shape[0]
+    b_pad = -(-b // b_mult) * b_mult
+    out = np.zeros((b_pad, d_pad), np.float32)
+    out[:b, :q.shape[1]] = q
+    return out, b
+
+
+def _row_ids_i32(ids) -> np.ndarray:
+    """Row-id map for the device-side gather: i32 on device; ids must
+    stay below 2^31 (split larger indexes into chunks)."""
+    a = np.asarray(ids)
+    if len(a) and int(a.max()) >= 2 ** 31:
+        raise ValueError(
+            f"row id {int(a.max())} overflows the engine's i32 id map "
+            f"(cap 2^31); split the index into chunks")
+    return a.astype(np.int32)
+
+
+def _pool_for(ns_total: int) -> int:
+    """Min-pool factor for the selection epilogue: the candidate unit is
+    SUB*pool rows, coarser as N grows (the fence stays valid at any
+    pool; a coarser fence only costs escalations)."""
+    if ns_total <= 32768:        # <= 1M rows
+        return 1
+    if ns_total <= 131072:       # <= 4M rows
+        return 2
+    if ns_total <= 1048576:      # <= 32M rows
+        return 4
+    return 8
+
+
+def _default_n_sub(top_k: int, n_units: int, unit: int) -> int:
+    """Candidate unit count: ~50x over-provision of top_k rows (at
+    least 512 rows), bounded to the database."""
+    want = -(-max(50 * top_k, 512) // unit)
+    return int(max(2, min(want, max(n_units - 1, 1))))
+
+
+def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
+                     rungs, pool, err_r=None, scale2=None,
+                     final_exact=False):
+    """Selection + escalation: ``rungs`` is an ascending tuple of
+    candidate-unit counts; rung 1 always runs, and each later rung runs
+    only while some query's certificate still fails (one host check of
+    ``ok.all()`` per rung).  With ``final_exact`` the queries that fail
+    every rung take the terminal full exact scan over the decoded codes,
+    so results are exact by construction.  Returns (d, rows, ok, ok1):
+    ``ok`` the final certificate, ``ok1`` the first-shot one."""
+    mins_bn = fk.pool_mins_nb(mins_nb, pool)
+    if scale2 is not None:
+        mins_bn = mins_bn * scale2
+
+    def rung(ns):
+        return fk.select_rerank(mins_bn, q2, table, codes_dev, n_valid,
+                                top_k, ns, pool, prepooled=True,
+                                err_r=err_r)
+
+    d, rows, ok = rung(rungs[0])
+    ok1 = ok
+    for ns in rungs[1:]:
+        if bool(ok.all()):
+            break
+        d, rows, ok = rung(ns)
+    if final_exact and not bool(ok.all()):
+        # biggest scan tile (<= 16384 rows) dividing the padded rows
+        tile_n = TILE
+        while (tile_n * 2 <= 16384
+               and codes_dev.shape[0] % (tile_n * 2) == 0):
+            tile_n *= 2
+        d_s, r_s = adc_query_topk(table, codes_dev, n_valid, top_k,
+                                  tile_n)
+        d = torch.where(ok[:, None], d, d_s)
+        rows = torch.where(ok[:, None], rows, r_s)
+    return d, rows, ok, ok1
+
+
+#: adaptive certificate calibration: grow the first rung when the
+#: measured first-shot pass rate falls below GROW_BELOW
+ADAPT_GROW_BELOW = 0.35
+ADAPT_TARGET = 0.6
+
+
+def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
+                            top_k, n_sub=None, err_r=None, scale2=None,
+                            engine=None):
+    """Select + rerank with the full ladder (ns, 2ns, 8ns, cap) and the
+    terminal exact scan.  The first rung comes from ``n_sub``, else
+    ``engine.ns_hint`` (per-index calibration), else
+    ``_default_n_sub``; ``ns_hint`` doubles when the first-shot rate
+    collapses.  The cap rung's rows shrink as B grows (its [B, S]
+    intermediates).  Returns (d, rows, first-shot certified fraction)."""
+    ns_total = mins_nb.shape[0]
+    pool = _pool_for(ns_total)
+    n_units = -(-ns_total // pool)
+    unit = fk.SUB * pool
+    hint = getattr(engine, "ns_hint", None) if engine is not None \
+        else None
+    ns = n_sub or hint or _default_n_sub(top_k, n_units, unit)
+    ns = min(ns, max(n_units - 1, 1))
+    b_cols = int(mins_nb.shape[1])
+    cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
+    ns_cap = min(max(n_units - 1, 1), max(ns, cap_rows // unit))
+    rungs = tuple(dict.fromkeys(
+        [ns, min(ns * 2, ns_cap), min(ns * 8, ns_cap), ns_cap]))
+    d, rows, ok, ok1 = fused_select_esc(
+        mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
+        err_r=err_r, scale2=scale2, final_exact=True)
+    first_frac = float(ok1.to(torch.float32).mean())
+    if (engine is not None and n_sub is None
+            and first_frac < ADAPT_GROW_BELOW and ns < ns_cap):
+        engine.ns_hint = min(ns * 2, ns_cap)
+    return d, rows, first_frac
+
+
+def _int16_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
+                           scale: float) -> float:
+    """Max over codes of the exact L2 norm of the int16 codeword
+    quantization error (step scale/128): the codeword side of the
+    certificate radius."""
+    cw = np.asarray(codewords, np.float32)
+    M, K, Ds = cw.shape
+    cwc = cw - mu[:M * Ds].reshape(M, 1, Ds)
+    A = np.clip(np.rint(cwc * (128.0 / scale)), -16256, 16256)
+    err = cwc - (scale / 128.0) * A
+    per_mk = np.sum(err * err, axis=2)             # [M, K]
+    return float(np.sqrt(per_mk.max(axis=1).sum()))
+
+
+def _setup_precision(self, codewords: np.ndarray, precision: str):
+    """Codebook operands per precision tier (int16 only in the port)."""
+    if precision != "int16":
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported (int16 is)")
+    cwq, self.scale = fk.quantize_blockdiag_int16(
+        codewords, center=self.mu[:self.D])
+    self.cwbd = torch.from_numpy(cwq).to(self.device)
+    self.err_c = _int16_codeword_radius(codewords, self.mu, self.scale)
+    self.compact = (fk.compact_codebook(self.cwbd, self.M, self.Ds)
+                    if self.device.type == "cuda" else None)
+
+
+def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
+    """Centered grouped-layout queries [B, G*Dg_pad] -> (kernel q
+    operand [2*G*Dg_pad, B] int8, headroom u [1, B] f32, exact query
+    rounding radius e_q [B]), on ``device``.  (The JAX function also
+    returns an ``invalid`` mask, None in every mode.)
+
+    int16: each query is quantized at ``scale * u_b`` with
+    ``u_b = max(1, max|qc_b| / (127 scale))`` (nothing clips), as dual
+    base-128 digits at step ``scale*u/128``.  Host NumPy, as in the JAX
+    package, so the operand is bit-identical between the packages."""
+    if precision != "int16":
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported (int16 is)")
+    amax = np.abs(qc).max(axis=1)
+    u = np.maximum(1.0, amax / (127.0 * scale)).astype(np.float32)
+    Aq = np.clip(np.rint(qc * (128.0 / (scale * u[:, None]))),
+                 -16256, 16256)
+    qa = np.clip(np.rint(Aq / 128.0), -127, 127)
+    qb = Aq - 128.0 * qa                              # in [-64, 64]
+    e_q = np.linalg.norm(
+        qc - (scale * u[:, None] / 128.0) * Aq,
+        axis=1).astype(np.float32)
+    qop = np.concatenate([qa, qb], axis=1).astype(np.int8)
+    return (torch.from_numpy(np.ascontiguousarray(qop.T)).to(device),
+            torch.from_numpy(u.reshape(1, -1)).to(device),
+            torch.from_numpy(e_q).to(device))
+
+
+def _quantized_query_stats(self, qop, uq, eq):
+    """(q2, err_r, scale2) of the int16 certificate domain: q2 is the
+    quantized query norm, err_r = ||e_q|| + the codeword radius + 1e-4
+    (the kernel's f32 digit-combination rounding)."""
+    s_eff = self.scale / 128.0
+    scale2 = torch.tensor(s_eff * s_eff, dtype=torch.float32,
+                          device=qop.device)
+    uqv = uq[0]
+    GD = qop.shape[0] // 2
+    Aq = (128.0 * qop[:GD].to(torch.float32)
+          + qop[GD:].to(torch.float32))
+    q2 = scale2 * uqv * uqv * torch.sum(Aq * Aq, dim=0)
+    err_r = (eq + torch.tensor(self.err_c, dtype=torch.float32)
+             + torch.tensor(1e-4, dtype=torch.float32))
+    return q2, err_r, scale2
+
+
+class FusedCompressedEngine:
+    """Compressed tier over stream tiles; the whole decode happens inside
+    the scan kernel and the rerank reads the kernel's decoded-codes echo,
+    so no plain code array stays resident.
+
+    Build from scan-ordered codes (with ``row_to_db`` mapping scan rows
+    to database ids), from a DeltaTree (DFS order = tile order) or from
+    pre-built tiles.  ``device`` holds every tensor of the engine.
+    """
+
+    def __init__(self, codewords, codes_scan: np.ndarray,
+                 row_to_db: Optional[np.ndarray] = None,
+                 precision: str = "int16", fmt: str = "stream",
+                 device="cpu"):
+        if fmt != "stream":
+            raise NotImplementedError(f"tile format {fmt!r} is not ported "
+                                      f"(stream is)")
+        self._init(codewords, build_stream_tiles(np.asarray(codes_scan)),
+                   row_to_db, precision, device)
+
+    def _init(self, codewords, tiles: StreamTiles, row_to_db, precision,
+              device):
+        codewords = _np_f32(codewords)
+        M, K, Ds = codewords.shape
+        if K > 256:
+            raise NotImplementedError("the stream tier requires K <= 256")
+        self.device = torch.device(device)
+        self.codewords = torch.from_numpy(codewords).to(self.device)
+        self.M, self.K, self.Ds = M, K, Ds
+        self.D = M * Ds
+        self.d_pad = -(-self.D // 128) * 128
+        self.fmt = "stream"
+        self.tiles = tiles
+        self.vals = torch.from_numpy(np.ascontiguousarray(tiles.vals)
+                                     ).to(self.device)
+        self.meta = torch.from_numpy(np.ascontiguousarray(tiles.meta)
+                                     ).to(self.device)
+        self.row_data = torch.from_numpy(
+            np.ascontiguousarray(tiles.row_data)).to(self.device)
+        self.n_valid = tiles.n_valid
+        self.mu = np.zeros(self.d_pad, np.float32)
+        self.mu[:self.D] = fk.codebook_center(codewords)
+        self.precision = precision
+        _setup_precision(self, codewords, precision)
+        self.row_to_db = (torch.from_numpy(_row_ids_i32(row_to_db)).to(
+            self.device) if row_to_db is not None else None)
+
+    @classmethod
+    def from_tree(cls, codewords, tree, precision: str = "int16",
+                  fmt: str = "stream", device="cpu"
+                  ) -> "FusedCompressedEngine":
+        codes_db = tree.decode_codes()
+        order = tree.vec_id.astype(np.int64)
+        return cls(codewords, codes_db[order], row_to_db=order,
+                   precision=precision, fmt=fmt, device=device)
+
+    @classmethod
+    def from_tiles(cls, codewords, tiles: StreamTiles,
+                   row_to_db: Optional[np.ndarray] = None,
+                   precision: str = "int16", device="cpu"
+                   ) -> "FusedCompressedEngine":
+        """Engine over pre-built stream tiles (construction = upload)."""
+        self = cls.__new__(cls)
+        self._init(codewords, tiles, row_to_db, precision, device)
+        return self
+
+    def bytes_per_vec(self) -> float:
+        return self.tiles.bytes_per_vec()
+
+    def _warmup_queries(self, b: int, seed: int = 0) -> np.ndarray:
+        """Data-like queries (a decoded row + jitter): degenerate
+        queries sit in tie pileups and would drag the warmup through
+        the terminal exact scan."""
+        rng = np.random.default_rng(seed)
+        cw = self.codewords.cpu().numpy()
+        base = cw[np.arange(self.M), 0].reshape(-1)
+        sd = float(cw.std()) or 1.0
+        q = base[None, :] + rng.normal(
+            size=(int(b), self.D)).astype(np.float32) * sd
+        return q.astype(np.float32)
+
+    def calibrate(self, top_k: int = 10, b: int = 128,
+                  target: float = ADAPT_TARGET, rounds: int = 6
+                  ) -> float:
+        """Size ``ns_hint`` (the first rung) on sampled data-like query
+        batches until the first-shot certificate rate clears ``target``.
+        Returns the final measured first-shot rate."""
+        q = self._warmup_queries(b, seed=17)
+        frac = 0.0
+        for _ in range(rounds):
+            before = getattr(self, "ns_hint", None)
+            self.query(q, top_k=top_k)
+            frac = self.last_exact_frac
+            if frac >= target:
+                break
+            if getattr(self, "ns_hint", None) in (None, before):
+                # the adaptive step did not fire: take one doubling
+                ns_total = -(-self.n_valid // fk.SUB)
+                pool = _pool_for(ns_total)
+                n_units = -(-ns_total // pool)
+                unit = fk.SUB * pool
+                cur = before or _default_n_sub(top_k, n_units, unit)
+                cap = min(max(n_units - 1, 1), max(cur, 65536 // unit))
+                if cur >= cap:
+                    break
+                self.ns_hint = min(cur * 2, cap)
+        return frac
+
+    def warmup(self, batch_sizes=(512,), top_k: int = 10,
+               calibrate: bool = True) -> None:
+        """Calibrate the first rung, then run one batch of each size."""
+        if calibrate:
+            self.calibrate(top_k=top_k)
+        for b in batch_sizes:
+            self.query(self._warmup_queries(b), top_k=top_k)
+
+    # The three stages of ``query``, separate so a caller can time each.
+
+    def prepare(self, queries: np.ndarray):
+        """Stage 1: exact tables + int16 query operands.  Returns
+        (table, qop, uq, eq, b)."""
+        q, b = _pad_queries(queries, self.d_pad)
+        table = adc_table(self.codewords,
+                          torch.from_numpy(q[:, :self.D]).to(self.device))
+        qc_np = q - self.mu[None, :]            # centered scan domain
+        qk = fk.pack_query_grouped(qc_np[:, :self.D], self.M, self.Ds)
+        qop, uq, eq = _mins_query_args(qk, self.precision, self.scale,
+                                       self.device)
+        return table, qop, uq, eq, b
+
+    def scan(self, qop, uq):
+        """Stage 2: the stream kernel -> (mins [NS, B], codes echo)."""
+        return fk.fused_stream_mins(
+            qop, self.cwbd, self.row_data, self.vals, self.meta,
+            self.n_valid, self.M, u=uq, compact=self.compact)
+
+    def select(self, table, qop, uq, eq, mins, codes_echo, b: int,
+               top_k: int = 10, n_sub: Optional[int] = None):
+        """Stage 3: selection, rerank, ladder, terminal scan and the id
+        map.  Returns (dists [b, top_k], ids [b, top_k]) on the device."""
+        q2, err_r, scale2 = _quantized_query_stats(self, qop, uq, eq)
+        d, rows, frac = _select_with_escalation(
+            mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
+            err_r=err_r, scale2=scale2, engine=self)
+        self.last_exact_frac = frac
+        if self.row_to_db is not None:
+            mapped = self.row_to_db[torch.clamp(rows, 0, self.n_valid - 1)]
+            rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
+        return d[:b], rows[:b]
+
+    def query(self, queries: np.ndarray, top_k: int = 10,
+              n_sub: Optional[int] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-k: (dists [B, top_k] f32, ids [B, top_k] int64)."""
+        table, qop, uq, eq, b = self.prepare(queries)
+        mins, codes_echo = self.scan(qop, uq)
+        d, rows = self.select(table, qop, uq, eq, mins, codes_echo, b,
+                              top_k, n_sub)
+        return d.cpu().numpy(), rows.cpu().numpy()
+
+    def save(self, path: str) -> None:
+        """Persist the stream tiles, mapping and precision (the JAX
+        package's layout plus ``precision``)."""
+        np.savez(path, vals=self.tiles.vals, meta=self.tiles.meta,
+                 e_max=self.tiles.e_max, row_data=self.tiles.row_data,
+                 n_valid=self.n_valid, M=self.M, fmt=self.fmt,
+                 precision=self.precision,
+                 codewords=self.codewords.cpu().numpy(),
+                 row_to_db=(self.row_to_db.cpu().numpy()
+                            if self.row_to_db is not None
+                            else np.zeros(0, np.int32)))
+
+    @classmethod
+    def load(cls, path: str, device="cpu") -> "FusedCompressedEngine":
+        """Reopen a saved engine at its saved precision (a file without
+        ``precision`` -- one the JAX package wrote -- loads at int16,
+        see ``convert.load_jax_engine``)."""
+        from ..convert import load_jax_engine
+
+        return load_jax_engine(path, device=device)
+
+
+def _np_f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(a, np.float32)

@@ -1,0 +1,459 @@
+"""Fused scan kernels and the selection epilogue, in PyTorch + CUDA.
+
+Counterpart of ``deltapq_tpu/ops/fused_pallas.py`` (the one module of
+the port whose name differs: its kernels are CUDA C++, not Pallas).
+
+Two hand-written Hopper kernels, each with a plain PyTorch version in
+this module and a launch count:
+
+* ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
+  ``_stream_mins_kernel``): decode stream tiles, int16 two-digit scan,
+  32-row subtile minima and the decoded-codes echo.
+* ``rerank_table_sums`` -> ``csrc/rerank.cu`` (replaces
+  ``_rerank_kernel``): exact ascending-m f32 table sums.
+
+Each wrapper takes the plain version for a tensor on the CPU and, for a
+CUDA tensor, launches its kernel or raises: there is no fallback.
+
+The distance decomposition, the int16 digit arithmetic and the
+exactness certificate are the JAX package's; see the docstrings there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from .adc import no_tf32
+
+TILE = 1024   # rows per stream tile
+SUB = 32      # rows per subtile-min
+#: tiles per chunk of the plain stream scan (bounds its [rows, B] work)
+REF_CHUNK_TILES = 64
+
+#: kernel launches made by the wrappers (not by the plain versions)
+LAUNCHES = {"stream_mins": 0, "rerank": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+# --------------------------------------------------------------------------
+# Host half: codebook and query operands (NumPy, as in the JAX package)
+# --------------------------------------------------------------------------
+
+def codebook_center(codewords: np.ndarray) -> np.ndarray:
+    """Global centering vector mu [D]: the concatenated per-subspace
+    centroid means (squared-L2 distances are translation-invariant)."""
+    return np.asarray(codewords, np.float32).mean(axis=1).reshape(-1)
+
+
+def group_geometry(M: int, Ds: int) -> Tuple[int, int, int]:
+    """(G groups, Mg subspaces/group, Dg_pad padded group width) of the
+    block-diagonal decode; M <= 8 is one group with D padded to 128."""
+    G = (M + 7) // 8
+    Mg = -(-M // G)
+    Dg_pad = -(-(Mg * Ds) // 128) * 128
+    return G, Mg, Dg_pad
+
+
+def pack_query_grouped(qc: np.ndarray, M: int, Ds: int) -> np.ndarray:
+    """Centered queries [B, D] f32 -> kernel layout [B, G*Dg_pad]."""
+    qc = np.asarray(qc, np.float32)
+    B, D = qc.shape
+    G, Mg, Dg_pad = group_geometry(M, Ds)
+    out = np.zeros((B, G * Dg_pad), np.float32)
+    for g in range(G):
+        lo = g * Mg * Ds
+        hi = min((g + 1) * Mg * Ds, D)
+        out[:, g * Dg_pad:g * Dg_pad + (hi - lo)] = qc[:, lo:hi]
+    return out
+
+
+def build_blockdiag_codebook(codewords: np.ndarray,
+                             center: Optional[np.ndarray] = None,
+                             dtype=np.float32) -> np.ndarray:
+    """[M, K, Ds] f32 -> grouped block-diagonal [G*Mg*K, Dg_pad] decode
+    matrix (minus ``center`` when given).  The port keeps f32: bf16
+    precision is not ported yet."""
+    M, K, Ds = codewords.shape
+    cw = np.asarray(codewords, np.float32)
+    if center is not None:
+        cw = cw - center.reshape(M, 1, Ds)
+    G, Mg, Dg_pad = group_geometry(M, Ds)
+    out = np.zeros((G * Mg * K, Dg_pad), np.float32)
+    for m in range(M):
+        g, mi = divmod(m, Mg)
+        out[(g * Mg + mi) * K:(g * Mg + mi + 1) * K,
+            mi * Ds:(mi + 1) * Ds] = cw[m]
+    return out.astype(dtype)
+
+
+def quantize_blockdiag_int16(cwbd_or_cw, center=None):
+    """Codebook -> ([MKs, 2*Dg] int8 dual-digit decode matrix, scale):
+    A = round(c*128/scale) split into a = round(A/128) in [-127, 127]
+    and b = A - 128a in [-64, 64]."""
+    if cwbd_or_cw.ndim == 3:
+        cwbd = build_blockdiag_codebook(cwbd_or_cw, center=center,
+                                        dtype=np.float32)
+    else:
+        cwbd = np.asarray(cwbd_or_cw, np.float32)
+    scale = max(float(np.abs(cwbd).max()) / 127.0, 1e-12)
+    A = np.clip(np.rint(cwbd * (128.0 / scale)), -16256, 16256)
+    a = np.clip(np.rint(A / 128.0), -127, 127)
+    b = A - 128.0 * a
+    out = np.concatenate([a, b], axis=1).astype(np.int8)
+    return out, scale
+
+
+def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The B1 kernel's codebook operands, built once per engine from the
+    int16 block-diagonal ``cwbd`` [M*K, 2*Dg] int8:
+
+    * ``cw`` [2, M, K, Ds/4] int32: the a- then b-digit planes of each
+      codeword's own Ds dims (the nonzero blocks of ``cwbd``), four
+      int8 digits per word;
+    * ``nrm`` [M, K] int64: sum over the codeword's dims of A^2,
+      A = 128a + b, exact.
+    """
+    MK, two_dg = cwbd.shape
+    K, Dg = MK // M, two_dg // 2
+    if Ds % 4:
+        raise NotImplementedError("the stream kernel needs Ds % 4 == 0")
+    dev = cwbd.device
+    cols = (torch.arange(M, device=dev)[:, None] * Ds
+            + torch.arange(Ds, device=dev)[None, :])        # [M, Ds]
+    bd = cwbd.reshape(M, K, two_dg)
+    idx = cols[:, None, :].expand(M, K, Ds)
+    a = torch.gather(bd[:, :, :Dg], 2, idx)
+    b = torch.gather(bd[:, :, Dg:], 2, idx)
+    cw = torch.stack([a, b]).contiguous().view(torch.int32)
+    A = 128 * a.to(torch.int64) + b.to(torch.int64)
+    return cw, (A * A).sum(dim=2)
+
+
+# --------------------------------------------------------------------------
+# B1: stream decode + int16 scan + subtile mins
+# --------------------------------------------------------------------------
+
+def decode_stream_tiles_torch(row_data: torch.Tensor, vals: torch.Tensor,
+                              meta: torch.Tensor, M: int) -> torch.Tensor:
+    """Plain decode of stream tiles to codes [nT*TILE, M] int64 (the
+    arithmetic of ``stream_tiles.decode_stream_tiles``, on any device)."""
+    nt, P, T = row_data.shape
+    planes = row_data.to(torch.int64)
+    bit = torch.stack([(planes[:, m // 8, :] >> (m % 8)) & 1
+                       for m in range(M)], dim=2)          # [nT, T, M]
+    rank = torch.cumsum(bit, dim=2) - bit
+    nd = bit.sum(dim=2)
+    off = torch.cumsum(nd, dim=1) - nd
+    base = meta[0].to(torch.int64) * 1024 + meta[1].to(torch.int64)
+    p = base[:, None, None] + off[:, :, None] + rank
+    flat = vals.reshape(-1)
+    v = flat[(p // 1024) * 1024 + (p % 8) * 128 + (p // 8) % 128]
+    rows = torch.arange(T, device=row_data.device)[None, :, None]
+    last = torch.where(bit == 1, rows, -1)
+    last = torch.cummax(last, dim=1).values                # row 0 is full
+    H = torch.gather(v.to(torch.int64), 1, last)
+    return H.reshape(nt * T, M)
+
+
+def fused_stream_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
+                          row_data: torch.Tensor, vals: torch.Tensor,
+                          meta: torch.Tensor, n_valid: int, M: int,
+                          u: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     float, float]:
+    """Plain PyTorch version of ``fused_stream_mins`` (int16, one group).
+
+    Returns (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre,
+    max |u*cross|); the two maxima scale the f32 round-off tolerance.
+    The digit products run as f32 matmuls with TF32 off: they are exact,
+    because every partial sum is an integer below 2^24
+    (|aa| <= 127^2*128 ~ 2.1e6 at D = 128).  Work goes in chunks of
+    ``REF_CHUNK_TILES`` tiles to bound the [rows, B] intermediates.
+    """
+    _check_stream_args(q, cwbd, row_data, M)
+    D2, B = q.shape
+    Dg = D2 // 2
+    if u is None:
+        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
+    codes = decode_stream_tiles_torch(row_data, vals, meta, M)
+    n_rows = codes.shape[0]
+    K = cwbd.shape[0] // M
+    bd = cwbd.to(torch.float32).reshape(M, K, 2 * Dg)
+    qf = q.to(torch.float32)
+    qa, qb = qf[:Dg], qf[Dg:]
+    mins = torch.empty((n_rows // SUB, B), dtype=torch.float32,
+                       device=q.device)
+    pre_max = 0.0
+    cross_max = 0.0
+    ar_m = torch.arange(M, device=q.device)
+    with no_tf32():
+        for r0 in range(0, n_rows, REF_CHUNK_TILES * TILE):
+            c = codes[r0:r0 + REF_CHUNK_TILES * TILE]
+            # block-diagonal decode: exactly one subspace is nonzero per
+            # column, so the sum over m is exact
+            x_ab = bd[ar_m[None, :], c].sum(dim=1)          # [n, 2*Dg]
+            xa, xb = x_ab[:, :Dg], x_ab[:, Dg:]
+            A = 128.0 * xa + xb
+            pre = torch.sum(A * A, dim=1, keepdim=True)
+            caa = xa @ qa
+            p2 = xa @ qb + xb @ qa
+            cbb = xb @ qb
+            cross = (16384.0 * caa + 128.0 * p2) + cbb
+            cross = cross * u
+            d = pre - 2.0 * cross
+            rows = r0 + torch.arange(c.shape[0], device=q.device)
+            d = torch.where((rows < n_valid)[:, None], d,
+                            torch.full_like(d, float("inf")))
+            mins[r0 // SUB:(r0 + c.shape[0]) // SUB] = \
+                d.reshape(-1, SUB, B).amin(dim=1)
+            pre_max = max(pre_max, float(pre.max()))
+            cross_max = max(cross_max, float(cross.abs().max()))
+    return mins, codes.to(torch.uint8), pre_max, cross_max
+
+
+def _check_stream_args(q, cwbd, row_data, M):
+    if q.dtype != torch.int8 or cwbd.dtype != torch.int8:
+        raise NotImplementedError(
+            f"only the int16 scan (int8 digit operands) is ported, got "
+            f"q {q.dtype}, cwbd {cwbd.dtype}")
+    if M > 8:
+        raise NotImplementedError("only one subspace group (M <= 8) is "
+                                  "ported")
+    if row_data.dtype != torch.uint8 or row_data.shape[1] != 1:
+        raise ValueError("row_data must be u8 [nT, 1, TILE]")
+    if cwbd.shape[1] != q.shape[0] or cwbd.shape[0] % M:
+        raise ValueError(f"cwbd {tuple(cwbd.shape)} does not match "
+                         f"q {tuple(q.shape)} and M={M}")
+
+
+def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
+                      row_data: torch.Tensor, vals: torch.Tensor,
+                      meta: torch.Tensor, n_valid: int, M: int,
+                      u: Optional[torch.Tensor] = None,
+                      compact: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stream tier int16 scan: q [2*Dg, B] int8 digit planes; cwbd [M*K, 2*Dg]
+    int8; row_data [nT, 1, TILE] u8; vals [A, 8, 128] u8; meta [2, nT]
+    i32; u [1, B] f32.  Returns (mins [nT*32, B] f32, decoded codes
+    [nT*TILE, M] u8).
+
+    On CUDA tensors this launches ``csrc/stream_mins.cu``; ``compact``
+    is ``compact_codebook(cwbd, M, Ds)`` (the kernel needs Ds, which
+    ``cwbd`` does not carry).  On CPU tensors it runs the plain version.
+    """
+    _check_stream_args(q, cwbd, row_data, M)
+    if q.device.type == "cpu":
+        return fused_stream_mins_ref(q, cwbd, row_data, vals, meta,
+                                     n_valid, M, u=u)[:2]
+    if compact is None:
+        raise ValueError("the CUDA stream kernel needs compact="
+                         "compact_codebook(cwbd, M, Ds)")
+    cw, nrm = compact
+    D2, B = q.shape
+    nt = row_data.shape[0]
+    K = cwbd.shape[0] // M
+    Ds = 4 * cw.shape[3]
+    if u is None:
+        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
+    tensors = dict(q=q, cw=cw, nrm=nrm, row_data=row_data, vals=vals,
+                   meta=meta, u=u)
+    dtypes = dict(q=torch.int8, cw=torch.int32, nrm=torch.int64,
+                  row_data=torch.uint8, vals=torch.uint8,
+                  meta=torch.int32, u=torch.float32)
+    for name, t in tensors.items():
+        if t.device != q.device or not t.is_contiguous() \
+                or t.dtype != dtypes[name]:
+            raise ValueError(f"{name}: need a contiguous {dtypes[name]} "
+                             f"tensor on {q.device}, got {t.dtype} on "
+                             f"{t.device}")
+    if (tuple(cw.shape) != (2, M, K, Ds // 4) or tuple(nrm.shape) != (M, K)
+            or M * Ds > D2 // 2 or K > 256 or row_data.shape[2] != TILE
+            or tuple(meta.shape) != (2, nt) or u.numel() != B):
+        raise ValueError("stream kernel operand shapes disagree")
+    mins = torch.empty((nt * (TILE // SUB), B), dtype=torch.float32,
+                       device=q.device)
+    codes = torch.empty((nt * TILE, M), dtype=torch.uint8, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = build.library().stream_mins_launch(
+        q.data_ptr(), cw.data_ptr(), nrm.data_ptr(), row_data.data_ptr(),
+        vals.data_ptr(), meta.data_ptr(), u.data_ptr(), mins.data_ptr(),
+        codes.data_ptr(), B, D2 // 2, nt, int(n_valid), M, K, Ds, stream)
+    build.check(err, "stream_mins")
+    LAUNCHES["stream_mins"] += 1
+    return mins, codes
+
+
+# --------------------------------------------------------------------------
+# B2: exact rerank table sums
+# --------------------------------------------------------------------------
+
+def rerank_table_sums_ref(tab_flat: torch.Tensor, cand_codes: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain version: sum_m T[b, m, code] added in ascending m from 0.0
+    (bit-equal to the plain scan)."""
+    B, MK = tab_flat.shape
+    _, M, S = cand_codes.shape
+    K = MK // M
+    acc = torch.zeros((B, S), dtype=torch.float32, device=tab_flat.device)
+    for m in range(M):
+        acc = acc + torch.gather(tab_flat[:, m * K:(m + 1) * K], 1,
+                                 cand_codes[:, m, :].to(torch.int64))
+    return acc
+
+
+def rerank_table_sums(tab_flat: torch.Tensor, cand_codes: torch.Tensor
+                      ) -> torch.Tensor:
+    """tab_flat [B, M*K] f32; cand_codes [B, M, S] u8 -> exact f32
+    distances [B, S]."""
+    B, MK = tab_flat.shape
+    Bc, M, S = cand_codes.shape
+    if Bc != B or MK % M or tab_flat.dtype != torch.float32 \
+            or cand_codes.dtype != torch.uint8:
+        raise ValueError("rerank: tab_flat [B, M*K] f32 and cand_codes "
+                         "[B, M, S] u8 required")
+    if tab_flat.device.type == "cpu":
+        return rerank_table_sums_ref(tab_flat, cand_codes)
+    if cand_codes.device != tab_flat.device or MK > 12288 \
+            or not (tab_flat.is_contiguous()
+                    and cand_codes.is_contiguous()):
+        raise ValueError("rerank: contiguous operands on one device, "
+                         "M*K <= 12288 required")
+    out = torch.empty((B, S), dtype=torch.float32, device=tab_flat.device)
+    stream = torch.cuda.current_stream(tab_flat.device).cuda_stream
+    err = build.library().rerank_launch(
+        tab_flat.data_ptr(), cand_codes.data_ptr(), out.data_ptr(),
+        B, M, MK // M, S, stream)
+    build.check(err, "rerank")
+    LAUNCHES["rerank"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Selection epilogue
+# --------------------------------------------------------------------------
+
+def _fence_margin(fence: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """bf16-domain error allowance for the certificate (bf16 mode)."""
+    return 0.02 * (torch.abs(fence) + q2 + 1.0)
+
+
+def pool_mins_nb(mins_nb: torch.Tensor, pool: int) -> torch.Tensor:
+    """Min-pool kernel-layout mins [NS, B] by ``pool`` along NS, then
+    transpose -> [B, NS/pool]."""
+    NS, B = mins_nb.shape
+    pad = (-NS) % pool
+    if pad:
+        mins_nb = torch.cat(
+            [mins_nb, torch.full((pad, B), float("inf"),
+                                 dtype=mins_nb.dtype,
+                                 device=mins_nb.device)], dim=0)
+    if pool == 1:
+        return mins_nb.t().contiguous()
+    return mins_nb.reshape(-1, pool, B).amin(dim=1).t().contiguous()
+
+
+def _smallest(x: torch.Tensor, k: int):
+    """(values, indices) of the k smallest along the last axis,
+    ascending (``lax.top_k`` of the negation)."""
+    return torch.topk(x, k, dim=-1, largest=False, sorted=True)
+
+
+def _select_units(mins: torch.Tensor, n_sub: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pick the ``n_sub`` candidate units and the exactness fence from
+    pooled mins [B, NU]: every unit not in ``sub_ids`` has min >= fence.
+    Large NU runs the two-level exact selection (coarse groups of 16,
+    then units inside the selected groups)."""
+    B, NU = mins.shape
+    C = 16
+    nc = min(max(4 * n_sub, 64), NU // C - 1)
+    if NU <= 16384 or nc < 1 or nc * C <= n_sub:
+        v, sub_ids = _smallest(mins, n_sub + 1)
+        return sub_ids[:, :n_sub], v[:, n_sub]
+    pad = (-NU) % C
+    if pad:
+        mins = torch.cat([mins, torch.full((B, pad), float("inf"),
+                                           dtype=mins.dtype,
+                                           device=mins.device)], dim=1)
+    mc = mins.reshape(B, -1, C)                          # [B, NC, C]
+    cmins = mc.amin(dim=2)                               # [B, NC]
+    cv, cids = _smallest(cmins, nc + 1)
+    cfence = cv[:, nc]
+    cids = cids[:, :nc]
+    fine = torch.gather(mc, 1, cids[:, :, None].expand(B, nc, C))
+    fv, fpos = _smallest(fine.reshape(B, nc * C), n_sub + 1)
+    ffence = fv[:, n_sub]
+    fpos = fpos[:, :n_sub]
+    sub_ids = (torch.gather(cids, 1, fpos // C) * C + fpos % C)
+    return sub_ids, torch.minimum(cfence, ffence)
+
+
+def select_rerank(mins: torch.Tensor, q2: torch.Tensor,
+                  table: torch.Tensor, codes: torch.Tensor, n_valid: int,
+                  top_k: int, n_sub: int, pool: int = 1,
+                  prepooled: bool = False,
+                  err_r: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Candidate selection + exact rerank.
+
+    mins [B, NS] subtile minima (+inf on padding); q2 [B]; table
+    [B, M, K] exact f32 ADC tables; codes [N_pad, M] u8 in scan order --
+    the scan kernel's decoded-codes echo, so no plain code array stays
+    resident.  Returns (dists [B, top_k] exact f32 ascending, rows
+    [B, top_k] scan-order row ids, ok [B] exactness certificate)."""
+    B, NS = mins.shape
+    M, K = table.shape[1], table.shape[2]
+    dev = mins.device
+    unit = SUB * pool
+    if pool > 1 and not prepooled:
+        pad = (-NS) % pool
+        if pad:
+            mins = torch.cat([mins, torch.full((B, pad), float("inf"),
+                                               dtype=mins.dtype,
+                                               device=dev)], dim=1)
+        mins = mins.reshape(B, -1, pool).amin(dim=2)
+    S = n_sub * unit
+    sub_ids, fence = _select_units(mins, n_sub)
+    rows = (sub_ids[:, :, None] * unit
+            + torch.arange(unit, device=dev)[None, None, :]).reshape(B, S)
+    # block-granular gather of the candidates' codes: B*n_sub contiguous
+    # unit-row slices of the echo
+    n_units_total = codes.shape[0] // unit
+    safe_units = torch.clamp(sub_ids, 0, n_units_total - 1)
+    cw = codes.reshape(n_units_total, unit * M)[safe_units]
+    cand = cw.reshape(B, S, M).transpose(1, 2).contiguous()  # [B, M, S]
+    exact = rerank_table_sums(table.reshape(B, M * K).contiguous(), cand)
+    exact = torch.where(rows < n_valid, exact,
+                        torch.full_like(exact, float("inf")))
+    k_eff = min(top_k, S)
+    d, pos = _smallest(exact, k_eff)
+    out_rows = torch.gather(rows, 1, pos)
+    if k_eff < top_k:
+        pad = top_k - k_eff
+        d = torch.cat([d, torch.full((B, pad), float("inf"),
+                                     dtype=d.dtype, device=dev)], dim=1)
+        out_rows = torch.cat([out_rows, torch.full(
+            (B, pad), -1, dtype=out_rows.dtype, device=dev)], dim=1)
+    if err_r is not None:
+        # quantized-domain certificate: every row of an unselected unit
+        # has true distance >= (sqrt(fence + q2) - err_r)^2
+        ft = torch.clamp_min(fence + q2, 0.0)
+        root = torch.clamp_min(torch.sqrt(ft) - err_r, 0.0)
+        ok = d[:, k_eff - 1] <= root * root
+    else:
+        ok = (d[:, k_eff - 1] - q2) <= fence - _fence_margin(fence, q2)
+    return d, out_rows, ok

@@ -1,0 +1,290 @@
+"""The port's scan kernels' plain versions, selection epilogue and engine
+against the JAX package, on the same NumPy inputs.  The JAX side runs
+as its own tests run it on the CPU (Pallas in interpret mode)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deltapq_tpu.ops import fused_pallas as jfp
+from deltapq_tpu.ops import fused as jfused
+from deltapq_tpu.ops.adc import adc_table as j_adc_table
+from deltapq_tpu_torch.convert import engine_state_from_numpy, load_jax_engine
+from deltapq_tpu_torch.ops import fused as pfused
+from deltapq_tpu_torch.ops import fused_kernels as fk
+from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
+from deltapq_tpu_torch.ops.fused import FusedCompressedEngine
+from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
+                                                decode_stream_tiles)
+from deltapq_tpu_torch.tree.build import find_edges_by_diff
+from deltapq_tpu_torch.tree.layout import build_layout
+
+from _torch_port import (assert_ids_carry_dists, assert_ids_up_to_ties,
+                         codebook, structured_codes)
+
+CONFIGS = {"m8k256": (8, 256, 4), "m4k32": (4, 32, 4)}
+N, B, TOPK = 6000, 128, 10
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def case(request, tmp_path_factory):
+    """A JAX int16 stream engine, the port's engine converted from its
+    saved state, shared queries and the JAX kernel's outputs."""
+    M, K, Ds = CONFIGS[request.param]
+    rng = np.random.default_rng(M * 1000 + K)
+    cw = codebook(rng, M, K, Ds)
+    codes = structured_codes(rng, N, M, K)
+    order = np.lexsort(codes.T[::-1])
+    jeng = jfused.FusedCompressedEngine(cw, codes[order], row_to_db=order,
+                                        precision="int16")
+    path = str(tmp_path_factory.mktemp("eng") / "jax_engine.npz")
+    jeng.save(path)
+    peng = load_jax_engine(path)
+    rows = codes[rng.integers(0, N, B)]
+    queries = (np.concatenate([cw[m][rows[:, m]] for m in range(M)], 1)
+               + rng.normal(size=(B, M * Ds)).astype(np.float32))
+    # the JAX kernel on the shared operands
+    q, b = jfused._pad_queries(queries, jeng.d_pad)
+    qk = jfp.pack_query_grouped((q - jeng.mu[None])[:, :jeng.D], M, Ds)
+    qop, _, uq, eq = jfused._mins_query_args(qk, "int16", jeng.scale)
+    jmins, jecho = jfp.fused_stream_mins(
+        qop, jeng.cwbd, jeng.row_data, jeng.vals, jeng.meta,
+        jnp.int32(jeng.n_valid), jeng.tiles.e_max, M, u=uq, int16=True)
+    return dict(M=M, K=K, Ds=Ds, cw=cw, codes=codes, order=order,
+                jeng=jeng, peng=peng, queries=queries, qk=qk,
+                qop=np.array(qop), uq=np.array(uq), eq=np.array(eq),
+                jmins=np.array(jmins), jecho=np.array(jecho))
+
+
+def test_host_operands_equal(case):
+    M, K, Ds, cw = case["M"], case["K"], case["Ds"], case["cw"]
+    mu = jfp.codebook_center(cw)
+    assert np.array_equal(fk.codebook_center(cw), mu)
+    assert fk.group_geometry(M, Ds) == jfp.group_geometry(M, Ds)
+    assert np.array_equal(fk.build_blockdiag_codebook(cw, mu),
+                          jfp.build_blockdiag_codebook(cw, mu, np.float32))
+    a, sa = fk.quantize_blockdiag_int16(cw, center=mu)
+    b, sb = jfp.quantize_blockdiag_int16(cw, center=mu)
+    assert sa == sb and np.array_equal(a, b)
+    peng, jeng = case["peng"], case["jeng"]
+    assert peng.scale == jeng.scale and peng.err_c == jeng.err_c
+    assert np.array_equal(peng.cwbd.numpy(), np.asarray(jeng.cwbd))
+    q, _ = pfused._pad_queries(case["queries"], peng.d_pad)
+    qk = fk.pack_query_grouped((q - peng.mu[None])[:, :peng.D], M, Ds)
+    assert np.array_equal(qk, case["qk"])
+    qop, uq, eq = pfused._mins_query_args(qk, "int16", peng.scale, "cpu")
+    assert np.array_equal(qop.numpy(), case["qop"])
+    assert np.array_equal(uq.numpy(), case["uq"])
+    assert np.array_equal(eq.numpy(), case["eq"])
+
+
+def test_stream_mins_plain_matches_jax_kernel(case):
+    peng = case["peng"]
+    qop = torch.from_numpy(case["qop"])
+    uq = torch.from_numpy(case["uq"])
+    mins, echo, pre_max, cross_max = fk.fused_stream_mins_ref(
+        qop, peng.cwbd, peng.row_data, peng.vals, peng.meta, peng.n_valid,
+        case["M"], u=uq)
+    assert np.array_equal(echo.numpy(), case["jecho"])
+    jm = case["jmins"]
+    fin = np.isfinite(jm)
+    assert np.array_equal(fin, np.isfinite(mins.numpy()))
+    tol = 4e-6 * (pre_max + 2 * cross_max)
+    assert np.abs(mins.numpy()[fin] - jm[fin]).max() <= tol
+    # the wrapper takes the plain version for CPU tensors, unlaunched
+    before = fk.launch_counts()
+    m2, e2 = peng.scan(qop, uq)
+    assert fk.launch_counts() == before
+    assert torch.equal(m2, mins) and torch.equal(e2, echo)
+
+
+@pytest.mark.parametrize("Bq,M,K,S", [(16, 8, 256, 1500), (8, 4, 32, 96)])
+def test_rerank_plain_bit_equal_to_jax(Bq, M, K, S):
+    rng = np.random.default_rng(S)
+    tab = (rng.normal(size=(Bq, M * K)) * 50).astype(np.float32)
+    cand = rng.integers(0, K, size=(Bq, M, S)).astype(np.uint8)
+    want = np.asarray(jfp.rerank_table_sums(jnp.asarray(tab),
+                                            jnp.asarray(cand)))
+    got = fk.rerank_table_sums(torch.from_numpy(tab), torch.from_numpy(cand))
+    assert np.array_equal(got.numpy(), want)
+
+
+def _cert_inputs(case):
+    peng = case["peng"]
+    qop = torch.from_numpy(case["qop"])
+    uq = torch.from_numpy(case["uq"])
+    q2, err_r, scale2 = pfused._quantized_query_stats(
+        peng, qop, uq, torch.from_numpy(case["eq"]))
+    jq2, jerr, js2 = jfused._quantized_query_stats(
+        case["jeng"], jnp.asarray(case["qop"]), jnp.asarray(case["uq"]),
+        jnp.asarray(case["eq"]))
+    # the f32 sum over D of A^2 rounds in another order in each framework
+    np.testing.assert_allclose(q2.numpy(), np.asarray(jq2), rtol=1e-6)
+    assert np.array_equal(err_r.numpy(), np.asarray(jerr))
+    assert float(scale2) == float(js2)
+    q, _ = pfused._pad_queries(case["queries"], peng.d_pad)
+    table = np.array(j_adc_table(jnp.asarray(case["cw"]),
+                                   jnp.asarray(q[:, :peng.D])))
+    # both packages get the same certificate inputs from here on
+    return torch.from_numpy(np.array(jq2)), err_r, scale2, table
+
+
+def test_select_rerank_matches_jax(case):
+    q2, err_r, scale2, table = _cert_inputs(case)
+    jm = case["jmins"]
+    mins_bn = (jm.T * np.float32(scale2)).astype(np.float32)
+    n_sub, n_valid = 40, case["peng"].n_valid
+    jd, jr, jok = jfp.select_rerank(
+        jnp.asarray(mins_bn), jnp.asarray(q2.numpy()), jnp.asarray(table),
+        jnp.asarray(case["jecho"]), jnp.int32(n_valid), TOPK, n_sub,
+        prepooled=True, err_r=jnp.asarray(err_r.numpy()))
+    d, r, ok = fk.select_rerank(
+        torch.from_numpy(mins_bn), q2, torch.from_numpy(table),
+        torch.from_numpy(case["jecho"]), n_valid, TOPK, n_sub,
+        prepooled=True, err_r=err_r)
+    assert np.array_equal(d.numpy(), np.asarray(jd))
+    assert np.array_equal(ok.numpy(), np.asarray(jok))
+    scan_codes = case["jecho"][:n_valid]
+    assert_ids_carry_dists(table, scan_codes, d.numpy(), r.numpy())
+    assert_ids_up_to_ties(table, scan_codes, r.numpy(), np.asarray(jr),
+                          TOPK)
+    # the bf16-domain certificate (no radius): the fence margin
+    _, _, jok = jfp.select_rerank(
+        jnp.asarray(mins_bn), jnp.asarray(q2.numpy()), jnp.asarray(table),
+        jnp.asarray(case["jecho"]), jnp.int32(n_valid), TOPK, n_sub,
+        prepooled=True)
+    _, _, ok = fk.select_rerank(
+        torch.from_numpy(mins_bn), q2, torch.from_numpy(table),
+        torch.from_numpy(case["jecho"]), n_valid, TOPK, n_sub,
+        prepooled=True)
+    assert np.array_equal(ok.numpy(), np.asarray(jok))
+
+
+def test_ladder_and_terminal_scan_match_jax(case):
+    """A first rung too small to certify forces the later rungs and the
+    terminal exact scan; both packages must agree on every output."""
+    q2, err_r, scale2, table = _cert_inputs(case)
+    n_valid = case["peng"].n_valid
+    rungs = (1, 2, 4)
+    jd, jr, jok, jok1 = jfused.fused_select_esc(
+        jnp.asarray(case["jmins"]), jnp.asarray(q2.numpy()),
+        jnp.asarray(table), jnp.asarray(case["jecho"]), jnp.int32(n_valid),
+        TOPK, rungs, 1, err_r=jnp.asarray(err_r.numpy()),
+        scale2=jnp.float32(scale2), final_exact=True)
+    d, r, ok, ok1 = pfused.fused_select_esc(
+        torch.from_numpy(case["jmins"]), q2, torch.from_numpy(table),
+        torch.from_numpy(case["jecho"]), n_valid, TOPK, rungs, 1,
+        err_r=err_r, scale2=scale2, final_exact=True)
+    assert not bool(ok1.all())                 # the ladder did run
+    assert np.array_equal(ok1.numpy(), np.asarray(jok1))
+    assert np.array_equal(ok.numpy(), np.asarray(jok))
+    assert np.array_equal(d.numpy(), np.asarray(jd))
+    scan_codes = case["jecho"][:n_valid]
+    assert_ids_carry_dists(table, scan_codes, d.numpy(), r.numpy())
+    assert_ids_up_to_ties(table, scan_codes, r.numpy(), np.asarray(jr),
+                          TOPK)
+
+
+@pytest.mark.parametrize("NU,n_sub", [(20000, 16), (33000, 40), (900, 7)])
+def test_select_units_matches_jax(NU, n_sub):
+    """Both branches: flat top-k (NU <= 16384) and two-level."""
+    mins = np.random.default_rng(NU).normal(size=(4, NU)).astype(np.float32)
+    js, jf = jfp._select_units(jnp.asarray(mins), n_sub)
+    s, f = fk._select_units(torch.from_numpy(mins), n_sub)
+    assert np.array_equal(np.sort(s.numpy(), 1), np.sort(np.asarray(js), 1))
+    assert np.array_equal(f.numpy(), np.asarray(jf))
+
+
+def test_engine_matches_jax_engine(case):
+    jeng, peng, queries = case["jeng"], case["peng"], case["queries"]
+    jd, ji = jeng.query(queries, top_k=TOPK)
+    d, i = peng.query(queries, top_k=TOPK)
+    # table ulps differ between the frameworks' f32 matmuls
+    np.testing.assert_allclose(d, jd, rtol=1e-5, atol=1e-4)
+    codes = case["codes"]
+    table = peng.prepare(queries)[0][:len(queries)]
+    assert_ids_up_to_ties(table.numpy(), codes, i, ji, TOPK)
+    # bit-equal to the port's own exact scan over the same table
+    dr, ir = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024)),
+                            len(codes), TOPK, 1024)
+    assert np.array_equal(d, dr.numpy())
+    assert_ids_carry_dists(table.numpy(), codes, d, i)
+    assert 0.0 <= peng.last_exact_frac <= 1.0
+
+
+def test_engine_save_load_keeps_precision(case, tmp_path):
+    peng, queries = case["peng"], case["queries"]
+    path = str(tmp_path / "port_engine")
+    peng.save(path)
+    with np.load(path + ".npz") as z:
+        assert str(z["precision"]) == "int16"
+        state = dict(z)
+    back = FusedCompressedEngine.load(path)
+    assert back.precision == "int16"
+    for name in ("row_data", "vals", "meta"):
+        assert np.array_equal(getattr(back.tiles, name),
+                              getattr(peng.tiles, name))
+    d0, i0 = peng.query(queries, top_k=TOPK)
+    d1, i1 = back.query(queries, top_k=TOPK)
+    assert np.array_equal(d0, d1) and np.array_equal(i0, i1)
+    # a saved precision the port lacks is honoured, not rebuilt as int16
+    state["precision"] = np.array("bf16")
+    np.savez(str(tmp_path / "bf16_engine"), **state)
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine.load(str(tmp_path / "bf16_engine"))
+    with pytest.raises(NotImplementedError):
+        engine_state_from_numpy(state)
+
+
+def test_engine_from_tree_and_warmup(case):
+    M, K, codes, cw = case["M"], case["K"], case["codes"], case["cw"]
+    res = find_edges_by_diff(codes, K=K, method=1)
+    tree = build_layout(codes, res.edges, res.root_id, K=K, tables="skip")
+    eng = FusedCompressedEngine.from_tree(cw, tree)
+    assert np.array_equal(decode_stream_tiles(eng.tiles),
+                          codes[tree.vec_id.astype(np.int64)])
+    assert eng.bytes_per_vec() < M       # compressed below plain codes
+    assert eng.bytes_per_vec() == \
+        build_stream_tiles(codes[tree.vec_id.astype(np.int64)]
+                           ).bytes_per_vec()
+    eng.warmup(batch_sizes=(B,), top_k=TOPK)
+    assert 0.0 <= eng.last_exact_frac <= 1.0
+    d, i = eng.query(case["queries"], top_k=TOPK)
+    dr, _ = case["peng"].query(case["queries"], top_k=TOPK)
+    assert np.array_equal(d, dr)
+
+
+def test_unported_modes_raise(case):
+    cw, codes = case["cw"], case["codes"]
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine(cw, codes, precision="bf16")
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine(cw, codes, fmt="slots")
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine(cw, codes, precision="int8")
+    peng = case["peng"]
+    qop = torch.from_numpy(case["qop"])
+    # the bf16 mode's operands, and more than one subspace group
+    with pytest.raises(NotImplementedError):
+        fk.fused_stream_mins(qop.to(torch.bfloat16), peng.cwbd,
+                             peng.row_data, peng.vals, peng.meta,
+                             peng.n_valid, case["M"])
+    with pytest.raises(NotImplementedError):
+        fk.fused_stream_mins(qop, peng.cwbd, peng.row_data, peng.vals,
+                             peng.meta, peng.n_valid, 16)
+
+
+def test_calibrate_grows_a_too_small_first_rung(case):
+    """A first rung of one unit rarely certifies; calibration must grow
+    ``ns_hint`` and the results stay exact."""
+    peng = case["peng"]
+    eng = FusedCompressedEngine.from_tiles(case["cw"], peng.tiles,
+                                           row_to_db=case["order"])
+    eng.ns_hint = 1
+    eng.calibrate(top_k=TOPK)
+    assert eng.ns_hint > 1
+    d, _ = eng.query(case["queries"], top_k=TOPK)
+    dr, _ = peng.query(case["queries"], top_k=TOPK)
+    assert np.array_equal(d, dr)
