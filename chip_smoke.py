@@ -23,7 +23,24 @@ Phases, each timed:
    this phase must be > 0.  Then one batch whose rungs are forced to 1,
    2 and 4 units, so the later rungs and the terminal exact scan run
    (the timed batches certify on the first rung); it is timed and held
-   to the same checks.
+   to the same checks;
+6. kernels of the index tiers, on the same data at B=512: the bf16 mode
+   of the stream kernel on the stream tiles, the codes kernel (bf16 and
+   int16) on the scan-ordered codes, the decoded kernel on the bf16
+   decoded tiles (8192 rows a tile) and the ADC top-k kernel (top-10,
+   4096-row tiles), each against its plain version (bf16 scans within
+   2e-5 * (max pre + 2 sqrt(max pre) max ||q||), int16 within 4e-6 *
+   (max pre + 2 max|u*cross|), echoes exact, ADC top-k bit-equal) and
+   timed with CUDA events beside the plain version;
+7. index: ``DeltaPQIndex`` over phase 3's codewords and codes (no second
+   learn), five timed B=512 top-10 batches each for ``auto`` (->
+   ``fused_compressed`` at bf16), ``fused``, ``fused_codes`` and
+   ``pallas``, plus the codes tier at int16 through
+   ``FusedCodesEngine``; ``stats()``; a save/load round trip; a
+   dup_heavy index whose ``auto`` resolves to ``fused_dedup``.  Every
+   batch is held to ``adc_query_topk`` as in phase 5.  The launch counts
+   are set to 0 before each path and read after it: each path must have
+   launched its own scan kernel, and every fused tier the rerank kernel.
 
 Any failed check raises, so the script exits non-zero without the last
 line.  Its last two lines are a JSON object of per-kernel measurements
@@ -33,17 +50,21 @@ and ``{"ok": true, "device": {...}}``.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from deltapq_tpu_torch.index import DeltaPQIndex
 from deltapq_tpu_torch.kernels import build
+from deltapq_tpu_torch.ops import adc_kernels as ak
 from deltapq_tpu_torch.ops import fused_kernels as fk
-from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
+from deltapq_tpu_torch.ops.adc import adc_query_topk, adc_table, pad_codes
 from deltapq_tpu_torch.ops.encode import pq_encode
-from deltapq_tpu_torch.ops.fused import (FusedCompressedEngine,
-                                         _pool_for, _quantized_query_stats,
+from deltapq_tpu_torch.ops.fused import (FusedCodesEngine,
+                                         FusedCompressedEngine,
+                                         FusedDecodedEngine, _pool_for,
                                          fused_select_esc)
 from deltapq_tpu_torch.ops.kmeans import pq_learn
 from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
@@ -58,13 +79,25 @@ B, TOP_K = 512, 10
 N_BATCHES = 5
 S_RERANK = 65536
 TRAIN = 20000
+ADC_TILE = ak.TILE_N   # query_plain's tile for the ADC top-k kernel
+DECODED_TILE = 8192    # FusedDecodedEngine's tile
 REPLACES = {
     "stream_mins": "deltapq_tpu/ops/fused_pallas.py:522",
     "rerank": "deltapq_tpu/ops/fused_pallas.py:1096",
+    "stream_mins_bf16": "deltapq_tpu/ops/fused_pallas.py:522",
+    "codes_mins": "deltapq_tpu/ops/fused_pallas.py:428",
+    "codes_mins_int16": "deltapq_tpu/ops/fused_pallas.py:428",
+    "decoded_mins": "deltapq_tpu/ops/fused_pallas.py:131",
+    "adc_topk": "deltapq_tpu/ops/adc_pallas.py:104",
 }
 SOURCES = {
     "stream_mins": "deltapq_tpu_torch/csrc/stream_mins.cu",
     "rerank": "deltapq_tpu_torch/csrc/rerank.cu",
+    "stream_mins_bf16": "deltapq_tpu_torch/csrc/stream_mins.cu",
+    "codes_mins": "deltapq_tpu_torch/csrc/codes_mins.cu",
+    "codes_mins_int16": "deltapq_tpu_torch/csrc/codes_mins.cu",
+    "decoded_mins": "deltapq_tpu_torch/csrc/decoded_mins.cu",
+    "adc_topk": "deltapq_tpu_torch/csrc/adc_topk.cu",
 }
 
 
@@ -175,7 +208,7 @@ def main() -> int:
     kernels = {}
     with Phase("4 kernels vs plain PyTorch"):
         q = rng.normal(size=(B, D)).astype(np.float32)
-        table, qop, uq, eq, b = eng.prepare(q)
+        table, qop, uq, cert, b = eng.prepare(q)
         mins, echo = eng.scan(qop, uq)
         ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
             qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
@@ -183,14 +216,10 @@ def main() -> int:
         check(torch.equal(echo, ref_c), "B1 echo != plain decode")
         check(np.array_equal(echo[:N].cpu().numpy(), codes[order]),
               "B1 echo != decode_stream_tiles")
-        fin = torch.isfinite(ref_m)
-        check(torch.equal(fin, torch.isfinite(mins)), "B1 inf pattern")
-        err = float((mins[fin] - ref_m[fin]).abs().max())
-        tol = 4e-6 * (pre_max + 2 * cross_max)
-        log(f"B1 stream_mins: echo exact; mins max|err| {err:.6g} <= tol "
-            f"{tol:.6g} (max pre {pre_max:.6g}, max|u*cross| "
-            f"{cross_max:.6g})")
-        check(err <= tol, "B1 mins out of tolerance")
+        log(f"B1 stream_mins: echo exact (max pre {pre_max:.6g}, "
+            f"max|u*cross| {cross_max:.6g})")
+        err = mins_err(mins, ref_m, 4e-6 * (pre_max + 2 * cross_max),
+                       "B1 stream_mins")
         ms = cuda_ms(lambda: eng.scan(qop, uq), 20)
         plain_ms = cuda_ms(lambda: fk.fused_stream_mins_ref(
             qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
@@ -223,7 +252,7 @@ def main() -> int:
     with Phase("5 engine"):
         codes_db = torch.from_numpy(pad_codes(codes, 16384)).to(dev)
         codes_db64 = codes_db[:N].to(torch.int64)
-        fk.reset_launch_counts()
+        build.reset_launch_counts()
         t = time.perf_counter()
         eng.warmup(batch_sizes=(B,), top_k=TOP_K)
         torch.cuda.synchronize()
@@ -238,11 +267,11 @@ def main() -> int:
             torch.cuda.synchronize()
             t = time.perf_counter()
             ev[0].record()
-            table, qop, uq, eq, b = eng.prepare(q)
+            table, qop, uq, cert, b = eng.prepare(q)
             ev[1].record()
             mins, echo = eng.scan(qop, uq)
             ev[2].record()
-            d, ids = eng.select(table, qop, uq, eq, mins, echo, b, TOP_K)
+            d, ids = eng.select(table, cert, mins, echo, b, TOP_K)
             ev[3].record()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
@@ -252,7 +281,8 @@ def main() -> int:
         # the user entry point once: same distances as the staged run
         dq, _ = eng.query(q, top_k=TOP_K)
         check(np.array_equal(dq, d.cpu().numpy()), "query() != stages")
-        counts = fk.launch_counts()
+        counts = build.launch_counts()
+        launches = {k: counts[k] for k in ("stream_mins", "rerank")}
         split /= N_BATCHES
         wall = float(np.mean(walls))
         log(f"{tag} ms/batch (B={B}, top-{TOP_K}, N={N}): "
@@ -268,9 +298,8 @@ def main() -> int:
             f"adc_query_topk, ids equal up to audited ties")
 
         # the later rungs and the terminal exact scan, forced
-        table, qop, uq, eq, b = eng.prepare(q)
+        table, qop, uq, (q2, err_r, scale2), b = eng.prepare(q)
         mins, echo = eng.scan(qop, uq)
-        q2, err_r, scale2 = _quantized_query_stats(eng, qop, uq, eq)
         torch.cuda.synchronize()
         t = time.perf_counter()
         d, rows, ok, _ = fused_select_esc(
@@ -289,21 +318,255 @@ def main() -> int:
             f"{forced_ms:.4f} ms (host wall); distances bit-equal to "
             f"adc_query_topk, ids equal up to audited ties")
 
+    phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels)
+    # stream_mins and rerank keep their counts from phase 5's path
+    launches.update(phase7_index(dev, tag, cw, codes, codes_db, codes_db64,
+                                 rng))
+    for k in kernels:
+        check(launches.get(k, 0) > 0, f"kernel {k} was never launched on "
+                                      f"its path")
+
     log(card)
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
-             launches=counts[k], **v) for k, v in kernels.items()]}))
+             launches=launches[k], **v) for k, v in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def check_batch(table, codes_db, codes_db64, d, ids):
+def mins_err(mins, ref, tol, what):
+    """Largest |kernel - plain| over the finite subtile minima; fails
+    unless the +inf pattern is equal and the error within ``tol``."""
+    fin = torch.isfinite(ref)
+    check(torch.equal(fin, torch.isfinite(mins)), f"{what}: inf pattern")
+    err = float((mins[fin] - ref[fin]).abs().max())
+    log(f"{what}: mins max|err| {err:.6g} <= tol {tol:.6g}")
+    check(err <= tol, f"{what}: mins out of tolerance")
+    return err
+
+
+def bf16_tol(pre_max, cross_max):
+    """Two f32 sums of the same exact bf16 products in two orders: each
+    is off by at most (D-1) 2^-24 sum |terms| (< 7.6e-6 of it at D=128),
+    and sum |x^ q| <= cross_max = sqrt(max pre) max ||q||."""
+    return 2e-5 * (pre_max + 2 * cross_max)
+
+
+def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
+    """Each kernel of the index tiers against its plain version at the
+    shapes the index gives it, timed beside it."""
+    with Phase("6 kernels of the index tiers"):
+        q = rng.normal(size=(B, D)).astype(np.float32)
+
+        e = FusedCompressedEngine.from_tiles(cw, eng.tiles, row_to_db=order,
+                                             precision="bf16", device=dev)
+        table, qop, uq, cert, b = e.prepare(q)
+        mins, echo = e.scan(qop, uq)
+        args = (qop, e.cwbd, e.row_data, e.vals, e.meta, e.n_valid, M)
+        ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(*args)
+        check(torch.equal(echo, ref_c), "B1 bf16 echo != plain decode")
+        err = mins_err(mins, ref_m, bf16_tol(pre_max, cross_max),
+                       "B1 stream_mins bf16")
+        ms = cuda_ms(lambda: e.scan(qop, uq), 20)
+        plain_ms = cuda_ms(lambda: fk.fused_stream_mins_ref(*args), 2)
+        log(f"{tag} B1 bf16 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
+            f"(N={N}, B={B})")
+        kernels["stream_mins_bf16"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
+        del e, mins, echo, ref_m, ref_c
+
+        for prec, name in (("bf16", "codes_mins"),
+                           ("int16", "codes_mins_int16")):
+            e = FusedCodesEngine(cw, codes, order=order, precision=prec,
+                                 device=dev)
+            table, qop, uq, cert, b = e.prepare(q)
+            mins, echo = e.scan(qop, uq)
+            args = (qop, e.cwbd, e.codes, e.n_valid)
+            ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(*args,
+                                                                   u=uq)
+            tol = (bf16_tol(pre_max, cross_max) if prec == "bf16"
+                   else 4e-6 * (pre_max + 2 * cross_max))
+            err = mins_err(mins, ref_m, tol, f"B3 codes_mins {prec}")
+            ms = cuda_ms(lambda: e.scan(qop, uq), 20)
+            plain_ms = cuda_ms(lambda: fk.fused_codes_mins_ref(*args, u=uq),
+                               2)
+            log(f"{tag} B3 {prec} {ms:.4f} ms/call, plain {plain_ms:.4f} "
+                f"ms/call (N={N}, B={B})")
+            kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            del e, mins, echo, ref_m
+
+        t = time.perf_counter()
+        e = FusedDecodedEngine(cw, codes[order], tile=DECODED_TILE,
+                               device=dev)
+        log(f"decoded cache [{N}, {D}] bf16 + upload: "
+            f"{time.perf_counter() - t:.1f} s")
+        table, qop, uq, cert, b = e.prepare(q)
+        mins, _ = e.scan(qop, uq)
+        ref_m, pre_max, cross_max = fk.fused_decoded_mins_ref(qop, e.xt, N)
+        err = mins_err(mins, ref_m, bf16_tol(pre_max, cross_max),
+                       "B4 decoded_mins")
+        ms = cuda_ms(lambda: e.scan(qop, uq), 20)
+        plain_ms = cuda_ms(lambda: fk.fused_decoded_mins_ref(qop, e.xt, N),
+                           2)
+        log(f"{tag} B4 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
+            f"(N={N}, B={B}, tile {DECODED_TILE})")
+        kernels["decoded_mins"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms)
+        del e, mins, ref_m
+
+        codes_p = torch.from_numpy(pad_codes(codes, ADC_TILE)).to(dev)
+        tab = adc_table(cw, torch.from_numpy(q).to(dev))
+        d, i = ak.adc_topk_tiles(tab, codes_p, N, TOP_K, ADC_TILE)
+        rd, ri = ak.adc_topk_tiles_ref(tab, codes_p, N, TOP_K, ADC_TILE)
+        check(torch.equal(d, rd) and torch.equal(i, ri),
+              "B6 tile top-k not bit-equal to the plain version")
+        dm, _ = ak.adc_topk_pallas(tab, codes_p, N, TOP_K, ADC_TILE)
+        dr, _ = adc_query_topk(tab, codes_p, N, TOP_K, ADC_TILE)
+        check(torch.equal(dm, dr), "B6 merged top-k != adc_query_topk")
+        log("B6 adc_topk: tile top-k bit-equal to the plain version; "
+            "merged distances bit-equal to adc_query_topk")
+        ms = cuda_ms(lambda: ak.adc_topk_tiles(tab, codes_p, N, TOP_K,
+                                               ADC_TILE), 10)
+        plain_ms = cuda_ms(lambda: ak.adc_topk_tiles_ref(
+            tab, codes_p, N, TOP_K, ADC_TILE), 2)
+        log(f"{tag} B6 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
+            f"(N={N}, B={B}, top-{TOP_K}, tile {ADC_TILE})")
+        kernels["adc_topk"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+
+
+def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
+                   kernels=()):
+    """One untimed search (it builds the engine), then N_BATCHES timed
+    B=512 top-10 searches, each held to the plain exact scan over the
+    table the engine built (the checks launch no kernel).  The launch
+    counts are set to 0 just before the first search and read after the
+    last; each kernel in ``kernels`` must have been launched.  Returns
+    this path's launch counts."""
+    q = rng.normal(size=(B, D)).astype(np.float32)
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    index.search(q, TOP_K)
+    first = time.perf_counter() - t
+    walls, fracs = [], []
+    for _ in range(N_BATCHES):
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, ids = index.search(q, TOP_K)
+        walls.append(time.perf_counter() - t)
+        eng = index._fused_engine
+        if hasattr(eng, "prepare"):
+            table = eng.prepare(q)[0][:B]
+            fracs.append(eng.last_exact_frac)
+        else:
+            table = adc_table(cw, torch.from_numpy(q).to(cw.device))
+        check_batch(table, codes_db, codes_db64, torch.from_numpy(d).to(
+            cw.device), torch.from_numpy(ids).to(cw.device), n)
+    counts = build.launch_counts()
+    wall = float(np.mean(walls))
+    resolved = index._engine_resolved or index.engine
+    frac = (f", certified first-shot {float(np.mean(fracs)):.4f}"
+            if fracs else "")
+    log(f"{tag} index {label} (-> {resolved}): first search {first:.2f} s; "
+        f"{N_BATCHES} batches of B={B}, top-{TOP_K}: host wall "
+        f"{wall * 1e3:.4f} ms/batch -> {B / wall:.1f} QPS{frac}; distances "
+        f"bit-equal to adc_query_topk, ids equal up to audited ties")
+    log(f"  launches on the {label} path: "
+        f"{({k: v for k, v in counts.items() if v})}")
+    for k in kernels:
+        check(counts[k] > 0, f"kernel {k} never launched on the index's "
+                             f"{label} path")
+    return counts
+
+
+def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
+    """The index API on the card; returns, for each kernel of the index
+    tiers, its launch count on its own path."""
+    launches = {}
+    with Phase("7 index"):
+        t = time.perf_counter()
+        idx = DeltaPQIndex(cw, codes, device=dev)
+        log(f"DeltaPQIndex(cw, codes): tree, table-driven layout, DTC "
+            f"stream: {time.perf_counter() - t:.1f} s")
+        counts = search_batches(idx, "auto", tag, cw, codes_db, codes_db64,
+                                rng, N, ("stream_mins_bf16", "rerank"))
+        check(idx._engine_resolved == "fused_compressed"
+              and idx._fused_engine.precision == "bf16",
+              "auto did not resolve to fused_compressed at bf16")
+        launches["stream_mins_bf16"] = counts["stream_mins_bf16"]
+        for name, own in (("fused", ("decoded_mins", "rerank")),
+                          ("fused_codes", ("codes_mins", "rerank")),
+                          ("pallas", ("adc_topk",))):
+            other = DeltaPQIndex(cw, codes, engine=name, build_tree=False,
+                                 device=dev)
+            counts = search_batches(other, name, tag, cw, codes_db,
+                                    codes_db64, rng, N, own)
+            launches[own[0]] = counts[own[0]]
+            del other
+
+        # the codes tier at int16, through the engine's own entry point
+        ce = FusedCodesEngine(cw, codes, precision="int16", device=dev)
+        build.reset_launch_counts()
+        for _ in range(2):
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            d, ids = ce.query(q, top_k=TOP_K)
+            check_batch(ce.prepare(q)[0][:B], codes_db, codes_db64,
+                        torch.from_numpy(d).to(dev),
+                        torch.from_numpy(ids).to(dev))
+        counts = build.launch_counts()
+        for k in ("codes_mins_int16", "rerank"):
+            check(counts[k] > 0, f"kernel {k} never launched by "
+                                 f"FusedCodesEngine(precision='int16')")
+        launches["codes_mins_int16"] = counts["codes_mins_int16"]
+        log(f"FusedCodesEngine(precision='int16'): 2 batches exact; "
+            f"launches {({k: v for k, v in counts.items() if v})}")
+        del ce
+
+        st = idx.stats()
+        log(f"stats(): {st}")
+        check("bytes_per_vec" in st, "stats() has no bytes_per_vec")
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as path:
+            t = time.perf_counter()
+            idx.save(path)
+            back = DeltaPQIndex.load(path, device=dev)
+            log(f"save + load: {time.perf_counter() - t:.1f} s")
+        check(np.array_equal(back.tree.vec_id, idx.tree.vec_id)
+              and back._stream == idx._stream, "loaded tree differs")
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        d0, i0 = idx.search(q, TOP_K)
+        d1, i1 = back.search(q, TOP_K)
+        check(np.array_equal(d0, d1) and np.array_equal(i0, i1),
+              "the loaded index answers differently")
+        log("save/load round trip: same tree, same stream, same results")
+        del idx, back
+
+        t = time.perf_counter()
+        x = workload_vectors(N, seed=0, **WORKLOADS["dup_heavy"])
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cw_d = pq_learn(gen, x[:TRAIN], M=M, K=K, max_iters=40, n_init=1,
+                        device=dev)
+        codes_d = pq_encode(cw_d, x).cpu().numpy()
+        del x
+        idx_d = DeltaPQIndex(cw_d, codes_d, device=dev)
+        n_distinct = len(np.unique(codes_d, axis=0))
+        log(f"dup_heavy index at N={N}: {n_distinct} distinct codes (dup "
+            f"{N / n_distinct:.2f}x), learn + encode + index "
+            f"{time.perf_counter() - t:.1f} s")
+        cdb = torch.from_numpy(pad_codes(codes_d, 16384)).to(dev)
+        search_batches(idx_d, "dup_heavy auto", tag, cw_d, cdb,
+                       cdb[:N].to(torch.int64), rng, N)
+        check(idx_d._engine_resolved == "fused_dedup",
+              "dup_heavy auto did not resolve to fused_dedup")
+    return launches
+
+
+def check_batch(table, codes_db, codes_db64, d, ids, n=N):
     """Engine results against the plain exact scan over the same table:
     distances bit-equal; each id carries its reported distance; id sets
     differ only at f64-audited ties of the top-k boundary."""
-    dr, ir = adc_query_topk(table, codes_db, N, TOP_K, 16384)
+    dr, ir = adc_query_topk(table, codes_db, n, TOP_K, 16384)
     check(torch.equal(d, dr), "distances differ from adc_query_topk")
     Bq, Mq, _ = table.shape
     c = codes_db64[ids.clamp_min(0)]                       # [B, k, M]

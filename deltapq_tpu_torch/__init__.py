@@ -7,15 +7,22 @@ the JAX package wrote in Pallas becomes a hand-written CUDA kernel
 (``csrc/``, built by ``kernels/build.py`` at first use), with a plain
 PyTorch version beside it in the same module.
 
-Ported so far: the compressed-stream query path at int16 --
-``ops.fused.FusedCompressedEngine`` over stream tiles in DeltaTree-DFS
-order, with PQ learn/encode, the DeltaTree build and the tile builder.
+Ported so far: the ``index.DeltaPQIndex`` API and every tier it routes
+to on one card -- the compressed-stream engine (int16 and bf16), the
+codes, decoded and dedup tiers and ``query_plain`` -- with PQ
+learn/encode, the DeltaTree build, DFS layout and DTC serialization,
+and the tile builder.
 
-- ``deltapq_tpu_torch.ops``     ADC, k-means, encode, stream tiles,
-                                scan kernels + epilogue, the engine
-- ``deltapq_tpu_torch.tree``    DeltaTree edge finding and DFS layout
+- ``deltapq_tpu_torch.index``   ``DeltaPQIndex``: build, search, add,
+                                remove, compact, stats, save, load
+- ``deltapq_tpu_torch.ops``     ADC, k-means, encode, stream tiles, the
+                                decoded cache, scan kernels + epilogue,
+                                the ADC top-k kernel, the engines
+- ``deltapq_tpu_torch.tree``    DeltaTree edges, layout, re-rooting,
+                                DTC serialization
 - ``deltapq_tpu_torch.kernels`` nvcc build + ctypes loader
-- ``deltapq_tpu_torch.convert`` engine state from the JAX package
+- ``deltapq_tpu_torch.convert`` engine and index state from the JAX
+                                package
 """
 
 __version__ = "0.1.0"

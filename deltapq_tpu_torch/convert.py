@@ -1,15 +1,19 @@
-"""Carry engine state across from the JAX package.
+"""Carry engine and index state across from the JAX package.
 
 ``deltapq_tpu.ops.fused.FusedCompressedEngine.save`` writes an ``.npz``
 with ``codewords``, ``row_data``, ``vals``, ``meta``, ``e_max``,
-``n_valid``, ``M``, ``fmt`` and ``row_to_db``; these functions build the
-port's engine from those arrays, on the same tiles, so the two engines
-can be held against each other.
+``n_valid``, ``M``, ``fmt`` and ``row_to_db``; ``load_jax_engine`` builds
+the port's engine from those arrays, on the same tiles, so the two
+engines can be held against each other.
 
 The JAX file does not record its precision (its ``load`` rebuilds at
 bf16); the port's own ``save`` adds ``precision`` and ``load`` honours
-it.  Both functions take ``precision=None`` by default: the file's own
-precision, or int16 (the only one the port has) for a file without one.
+it.  Both engine functions take ``precision=None`` by default: the
+file's own precision, or int16 (the port's default) for a file without
+one.
+
+``deltapq_tpu.index.DeltaPQIndex.save`` writes a directory that the
+port's ``DeltaPQIndex.load`` reads as it is (``load_jax_index``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 
+from .index import DeltaPQIndex
 from .ops.fused import FusedCompressedEngine
 from .ops.stream_tiles import StreamTiles
 
@@ -54,3 +59,10 @@ def load_jax_engine(path: str, precision: Optional[str] = None,
     with np.load(path, allow_pickle=False) as z:
         return engine_state_from_numpy(dict(z), precision=precision,
                                        device=device)
+
+
+def load_jax_index(path: str, device="cpu") -> DeltaPQIndex:
+    """Open an index directory the JAX package saved (``index.npz``,
+    ``config.json``, ``compressed.dtc``, ``tree_soa.npz``): the port
+    reads that layout as it is, so this is ``DeltaPQIndex.load``."""
+    return DeltaPQIndex.load(path, device=device)

@@ -17,7 +17,8 @@
 // row (M*K f32, 8 KB at M=8, K=256) sits in shared memory, and each
 // thread takes candidates and does M shared-memory lookups.  Each block
 // walks CHUNK candidates so the table load is amortised; threads of a
-// warp read consecutive candidate bytes (coalesced).
+// warp read consecutive candidate codes (coalesced).  Codes are u8, or
+// int32 for K > 256.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,9 +28,10 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int CHUNK = 4096;     // candidates per block
 
+template <typename CodeT>
 __global__ void __launch_bounds__(THREADS)
 rerank_kernel(const float* __restrict__ tab,      // [B, M*K]
-              const uint8_t* __restrict__ cand,   // [B, M, S]
+              const CodeT* __restrict__ cand,     // [B, M, S]
               float* __restrict__ out,            // [B, S]
               int M, int K, int S) {
   extern __shared__ float tab_s[];
@@ -38,27 +40,37 @@ rerank_kernel(const float* __restrict__ tab,      // [B, M*K]
   for (int i = threadIdx.x; i < MK; i += THREADS)
     tab_s[i] = tab[(size_t)b * MK + i];
   __syncthreads();
-  const uint8_t* cb = cand + (size_t)b * M * S;
+  const CodeT* cb = cand + (size_t)b * M * S;
   const int s_end = min(S, (blockIdx.x + 1) * CHUNK);
   for (int s = blockIdx.x * CHUNK + threadIdx.x; s < s_end; s += THREADS) {
     float acc = 0.0f;
     for (int m = 0; m < M; ++m)
-      acc = __fadd_rn(acc, tab_s[m * K + cb[(size_t)m * S + s]]);
+      acc = __fadd_rn(acc, tab_s[m * K + (int)cb[(size_t)m * S + s]]);
     out[(size_t)b * S + s] = acc;
   }
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch.
+// code_bytes 1 (u8 candidates) or 4 (int32).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int rerank_launch(const void* tab, const void* cand, void* out,
-                             int B, int M, int K, int S, void* stream) {
+                             int B, int M, int K, int S, int code_bytes,
+                             void* stream) {
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const size_t smem = sizeof(float) * M * K;
   dim3 grid((S + CHUNK - 1) / CHUNK, B);
-  rerank_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tab), static_cast<const uint8_t*>(cand),
-      static_cast<float*>(out), M, K, S);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* tp = static_cast<const float*>(tab);
+  auto* op = static_cast<float*>(out);
+  if (code_bytes == 1)
+    rerank_kernel<uint8_t><<<grid, THREADS, smem, st>>>(
+        tp, static_cast<const uint8_t*>(cand), op, M, K, S);
+  else if (code_bytes == 4)
+    rerank_kernel<int32_t><<<grid, THREADS, smem, st>>>(
+        tp, static_cast<const int32_t*>(cand), op, M, K, S);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,309 @@
+// The scan tail shared by the stream kernel (stream_mins.cu) and the
+// codes kernel (codes_mins.cu): a 1024-row tile of codes in shared memory
+// -> x^ gathered from the codebook -> pre - 2 cross per (row, query) ->
+// 32-row subtile minima.
+//
+// Replaces the tail of the TPU kernels deltapq_tpu/ops/fused_pallas.py:
+// _scan_tail (its int16 and bf16 branches), which decodes codes -> x^
+// with a one-hot matmul because the TPU has no per-lane gather.  Here
+// each lane gathers its row's codeword words from shared memory.
+//
+// Two modes, each a struct with the same interface:
+//
+//   Int16Tail  codewords and queries as two base-128 int8 digits
+//              (A = 128a + b); aa, p2, bb are exact int32 __dp4a sums,
+//              cross = ((16384 aa + 128 p2) + bb) * u[b] in the JAX
+//              order with _rn intrinsics; pre = sum A^2 exact in int64
+//              from per-codeword norms, rounded once.
+//   Bf16Tail   x^ and q are bf16 values; each product of two bf16 values
+//              is exact in f32, so cross = sum x^ q is an f32 fma chain
+//              (only the order of summation differs from the matrix
+//              unit's); pre = sum over m of per-codeword f32 norms of
+//              the bf16 x^, added in ascending m.  No u factor.
+//
+// Layout of the work: one block per (tile, 64-query block), 256 threads;
+// each warp takes 32-row subtiles, a lane holds its row's x^ words in
+// registers, reads each query's operand as broadcast 16-byte shared
+// loads, and the subtile min is a warp shuffle-reduce.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace scan_tail {
+
+constexpr int TILE = 1024;
+constexpr int SUB = 32;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int QB = 64;                   // queries per block
+constexpr int MMAX = 8;                  // code bytes per row in shared memory
+constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~size_t(15);
+}
+
+// bf16 pair in one 32-bit word (element 2i low, 2i+1 high) -> f32, exact
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ float warp_min(float d) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) d = fminf(d, __shfl_xor_sync(FULL, d, o));
+  return d;
+}
+
+// The 32 rows of a warp (lane = row; x^ as bf16 pairs in xw, D <= 2*DW)
+// against QB queries held as f32 rows of 2*DW in q_s: writes the subtile
+// minimum of pre - 2 cross for query b to out[b], b < nb.  Used by the
+// bf16 tail and by the decoded kernel (decoded_mins.cu).
+template <int DW>
+__device__ __forceinline__ void bf16_subtile_mins(const unsigned (&xw)[DW],
+                                                  float pre, bool valid,
+                                                  const float* q_s,
+                                                  float* out, int nb,
+                                                  int lane) {
+  for (int b0 = 0; b0 < QB; b0 += 32) {
+    float mine = CUDART_INF_F;
+    for (int bi = 0; bi < 32; ++bi) {
+      const float4* q4 = reinterpret_cast<const float4*>(
+          q_s + (b0 + bi) * 2 * DW);
+      float acc = 0.0f;
+#pragma unroll
+      for (int w = 0; w < DW / 2; ++w) {
+        const float4 Q = q4[w];
+        acc = fmaf(bf16_lo(xw[2 * w]), Q.x, acc);
+        acc = fmaf(bf16_hi(xw[2 * w]), Q.y, acc);
+        acc = fmaf(bf16_lo(xw[2 * w + 1]), Q.z, acc);
+        acc = fmaf(bf16_hi(xw[2 * w + 1]), Q.w, acc);
+      }
+      float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, acc)) : CUDART_INF_F;
+      d = warp_min(d);
+      if (lane == bi) mine = d;
+    }
+    if (b0 + lane < nb) out[b0 + lane] = mine;
+  }
+}
+
+// ---- int16 mode --------------------------------------------------------
+// DW: 32-bit words of one digit plane of a row (D <= 4*DW); WS = Ds/4.
+// Operands: q int8 [2*Dg, B] (a-planes then b-planes); cw int32
+// [2, M, K, WS] (four int8 digits a word); nrm int64 [M, K]; u f32 [B].
+template <int DW>
+struct Int16Tail {
+  // shared memory: nrm int64 [M*K] | cw int32 [2*M*K*WS] | q | u
+  struct Layout {
+    size_t nrm, cw, q, u, total;
+  };
+  __host__ __device__ static Layout layout(int M, int K, int Ds) {
+    const int WS = Ds / 4;
+    Layout s;
+    s.nrm = 0;
+    s.cw = s.nrm + sizeof(long long) * M * K;
+    s.q = align16(s.cw + sizeof(int) * 2 * M * K * WS);
+    s.u = s.q + sizeof(int) * QB * 2 * DW;
+    s.total = align16(s.u + sizeof(float) * QB);
+    return s;
+  }
+
+  __device__ static void load(unsigned char* smem, const void* q_,
+                              const void* cw_, const void* nrm_,
+                              const float* u, int B, int Dg, int qb0, int M,
+                              int K, int Ds) {
+    const Layout L = layout(M, K, Ds);
+    const int tid = threadIdx.x;
+    const int MKW = M * K * (Ds / 4);
+    auto* cw = static_cast<const int*>(cw_);
+    auto* nrm = static_cast<const long long*>(nrm_);
+    auto* q = static_cast<const int8_t*>(q_);
+    int* cw_s = reinterpret_cast<int*>(smem + L.cw);
+    long long* nrm_s = reinterpret_cast<long long*>(smem + L.nrm);
+    int8_t* qb_s = reinterpret_cast<int8_t*>(smem + L.q);
+    float* u_s = reinterpret_cast<float*>(smem + L.u);
+    for (int i = tid; i < 2 * MKW; i += THREADS) cw_s[i] = cw[i];
+    for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
+    const int D = M * Ds;
+    const int DP = 4 * DW;                 // bytes per digit plane
+    for (int i = tid; i < QB * DP; i += THREADS) {
+      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
+      int8_t a = 0, c = 0;
+      if (d < D && qb0 + b < B) {
+        a = q[(size_t)d * B + qb0 + b];
+        c = q[(size_t)(Dg + d) * B + qb0 + b];
+      }
+      qb_s[b * 2 * DP + d] = a;
+      qb_s[b * 2 * DP + DP + d] = c;
+    }
+    for (int b = tid; b < QB; b += THREADS)
+      u_s[b] = (qb0 + b < B) ? u[qb0 + b] : 1.0f;
+  }
+
+  // codes_s [TILE, MMAX] u8; writes mins[(t*32 + s)*B + qb0 + b]
+  __device__ static void scan(const unsigned char* smem,
+                              const uint8_t* codes_s, float* mins, int t,
+                              int B, int qb0, int n_valid, int M, int K,
+                              int Ds) {
+    const Layout L = layout(M, K, Ds);
+    const int WS = Ds / 4;
+    const int MKW = M * K * WS;
+    const int* cw_s = reinterpret_cast<const int*>(smem + L.cw);
+    const long long* nrm_s = reinterpret_cast<const long long*>(smem + L.nrm);
+    const int* q_s = reinterpret_cast<const int*>(smem + L.q);
+    const float* u_s = reinterpret_cast<const float*>(smem + L.u);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int MW = M * WS;                 // words of real dims
+    const int nb = min(QB, B - qb0);
+    for (int s = warp; s < TILE / SUB; s += WARPS) {
+      const int r = s * SUB + lane;
+      int xa[DW], xb[DW];
+#pragma unroll
+      for (int w = 0; w < DW; ++w) {
+        if (w < MW) {
+          const int m = w / WS;
+          const int k = codes_s[r * MMAX + m];
+          const int at = (m * K + k) * WS + (w - m * WS);
+          xa[w] = cw_s[at];
+          xb[w] = cw_s[MKW + at];
+        } else {
+          xa[w] = 0;
+          xb[w] = 0;
+        }
+      }
+      long long pre_i = 0;
+      for (int m = 0; m < M; ++m) pre_i += nrm_s[m * K + codes_s[r * MMAX + m]];
+      const float pre = __ll2float_rn(pre_i);   // exact integer, rounded once
+      const bool valid = (long long)t * TILE + r < n_valid;
+      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
+
+      for (int b0 = 0; b0 < QB; b0 += 32) {
+        float mine = CUDART_INF_F;
+        for (int bi = 0; bi < 32; ++bi) {
+          const int b = b0 + bi;
+          const int4* qa4 = reinterpret_cast<const int4*>(q_s + b * 2 * DW);
+          const int4* qb4 = qa4 + DW / 4;
+          int aa = 0, p2 = 0, bb = 0;
+#pragma unroll
+          for (int w4 = 0; w4 < DW / 4; ++w4) {
+            const int4 A = qa4[w4];
+            const int4 C = qb4[w4];
+            aa = __dp4a(xa[4 * w4 + 0], A.x, aa);
+            aa = __dp4a(xa[4 * w4 + 1], A.y, aa);
+            aa = __dp4a(xa[4 * w4 + 2], A.z, aa);
+            aa = __dp4a(xa[4 * w4 + 3], A.w, aa);
+            p2 = __dp4a(xa[4 * w4 + 0], C.x, p2);
+            p2 = __dp4a(xa[4 * w4 + 1], C.y, p2);
+            p2 = __dp4a(xa[4 * w4 + 2], C.z, p2);
+            p2 = __dp4a(xa[4 * w4 + 3], C.w, p2);
+            p2 = __dp4a(xb[4 * w4 + 0], A.x, p2);
+            p2 = __dp4a(xb[4 * w4 + 1], A.y, p2);
+            p2 = __dp4a(xb[4 * w4 + 2], A.z, p2);
+            p2 = __dp4a(xb[4 * w4 + 3], A.w, p2);
+            bb = __dp4a(xb[4 * w4 + 0], C.x, bb);
+            bb = __dp4a(xb[4 * w4 + 1], C.y, bb);
+            bb = __dp4a(xb[4 * w4 + 2], C.z, bb);
+            bb = __dp4a(xb[4 * w4 + 3], C.w, bb);
+          }
+          float cross = __fadd_rn(
+              __fadd_rn(__fmul_rn(16384.0f, __int2float_rn(aa)),
+                        __fmul_rn(128.0f, __int2float_rn(p2))),
+              __int2float_rn(bb));
+          cross = __fmul_rn(cross, u_s[b]);
+          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
+                          : CUDART_INF_F;
+          d = warp_min(d);
+          if (lane == bi) mine = d;
+        }
+        if (b0 + lane < nb) out[b0 + lane] = mine;
+      }
+    }
+  }
+};
+
+// ---- bf16 mode ---------------------------------------------------------
+// DW: 32-bit words (bf16 pairs) of a row (D <= 2*DW); WH = Ds/2.
+// Operands: q bf16 [Dg, B]; cw [M, K, WH] bf16 pairs; nrm f32 [M, K]
+// (per-codeword sum of x^2 of the bf16 values).
+template <int DW>
+struct Bf16Tail {
+  // shared memory: nrm f32 [M*K] | cw [M*K*WH] words | q f32 [QB, 2*DW]
+  struct Layout {
+    size_t nrm, cw, q, total;
+  };
+  __host__ __device__ static Layout layout(int M, int K, int Ds) {
+    Layout s;
+    s.nrm = 0;
+    s.cw = s.nrm + sizeof(float) * M * K;
+    s.q = align16(s.cw + sizeof(unsigned) * M * K * (Ds / 2));
+    s.total = align16(s.q + sizeof(float) * QB * 2 * DW);
+    return s;
+  }
+
+  __device__ static void load(unsigned char* smem, const void* q_,
+                              const void* cw_, const void* nrm_,
+                              const float*, int B, int, int qb0, int M,
+                              int K, int Ds) {
+    const Layout L = layout(M, K, Ds);
+    const int tid = threadIdx.x;
+    const int MKW = M * K * (Ds / 2);
+    auto* cw = static_cast<const unsigned*>(cw_);
+    auto* nrm = static_cast<const float*>(nrm_);
+    auto* q = static_cast<const uint16_t*>(q_);
+    unsigned* cw_s = reinterpret_cast<unsigned*>(smem + L.cw);
+    float* nrm_s = reinterpret_cast<float*>(smem + L.nrm);
+    float* q_s = reinterpret_cast<float*>(smem + L.q);
+    for (int i = tid; i < MKW; i += THREADS) cw_s[i] = cw[i];
+    for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
+    const int D = M * Ds;
+    for (int i = tid; i < QB * 2 * DW; i += THREADS) {
+      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
+      float v = 0.0f;
+      if (d < D && qb0 + b < B)
+        v = __uint_as_float((unsigned)q[(size_t)d * B + qb0 + b] << 16);
+      q_s[b * 2 * DW + d] = v;
+    }
+  }
+
+  __device__ static void scan(const unsigned char* smem,
+                              const uint8_t* codes_s, float* mins, int t,
+                              int B, int qb0, int n_valid, int M, int K,
+                              int Ds) {
+    const Layout L = layout(M, K, Ds);
+    const int WH = Ds / 2;
+    const unsigned* cw_s = reinterpret_cast<const unsigned*>(smem + L.cw);
+    const float* nrm_s = reinterpret_cast<const float*>(smem + L.nrm);
+    const float* q_s = reinterpret_cast<const float*>(smem + L.q);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int MW = M * WH;
+    const int nb = min(QB, B - qb0);
+    for (int s = warp; s < TILE / SUB; s += WARPS) {
+      const int r = s * SUB + lane;
+      unsigned xw[DW];
+#pragma unroll
+      for (int w = 0; w < DW; ++w) {
+        if (w < MW) {
+          const int m = w / WH;
+          const int k = codes_s[r * MMAX + m];
+          xw[w] = cw_s[(m * K + k) * WH + (w - m * WH)];
+        } else {
+          xw[w] = 0u;
+        }
+      }
+      float pre = 0.0f;
+      for (int m = 0; m < M; ++m)
+        pre = __fadd_rn(pre, nrm_s[m * K + codes_s[r * MMAX + m]]);
+      const bool valid = (long long)t * TILE + r < n_valid;
+      bf16_subtile_mins<DW>(
+          xw, pre, valid, q_s,
+          mins + ((size_t)t * (TILE / SUB) + s) * B + qb0, nb, lane);
+    }
+  }
+};
+
+}  // namespace scan_tail

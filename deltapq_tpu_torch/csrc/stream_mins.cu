@@ -1,9 +1,9 @@
-// Stream-tile decode + int16 two-digit scan + 32-row subtile minima.
+// Stream-tile decode + scan (int16 or bf16) + 32-row subtile minima.
 //
 // Replaces the TPU kernel deltapq_tpu/ops/fused_pallas.py:
-// _stream_mins_kernel (with _stream_decode and the int16 branch of
-// _scan_tail), reached from fused_stream_mins.  Python wrapper and
-// plain PyTorch version: deltapq_tpu_torch/ops/fused_kernels.py.
+// _stream_mins_kernel (with _stream_decode and the int16 and bf16
+// branches of _scan_tail), reached from fused_stream_mins.  Python
+// wrapper and plain PyTorch version: deltapq_tpu_torch/ops/fused_kernels.py.
 //
 // What it computes, per 1024-row stream tile t and query b:
 //   decode   mask plane -> per-row diff count nd, block exclusive scan
@@ -12,114 +12,68 @@
 //            (flat layout (p/1024)*1024 + (p%8)*128 + (p/8)%128, see
 //            ops/stream_tiles.py); forward fill of every subspace down
 //            the tile (max-scan of the last row that set it).
-//   scan     x^ digits a, b (A = 128a + b) from the compact codebook;
-//            pre = sum A^2 (exact integer, from per-codeword norms);
-//            aa = xa.qa, p2 = xa.qb + xb.qa, bb = xb.qb  (exact int32);
-//            cross = ((16384*aa + 128*p2) + bb) * u[b]; d = pre - 2 cross
-//            in the JAX order, with _rn intrinsics so no FMA contraction
-//            changes the rounding; +inf at rows >= n_valid.
+//   scan     the shared tail (scan_tail.cuh): int16 digits or bf16 x^
+//            against the queries, d = pre - 2 cross, +inf at rows >=
+//            n_valid.
 //   output   min over each 32-row subtile -> mins[t*32 + s, b]; the
 //            decoded codes -> codes_out[t*1024 + r, m] (query block 0).
 //
-// What bounds it on an H100: the integer dot products, 4 int8 MACs per
+// What bounds it on an H100: the dot products.  int16: 4 int8 MACs per
 // (row, query, dim) = 2.7e11 MACs at N=1M, B=512, D=128 -- about 6.7e10
-// __dp4a, i.e. a few ms at the card's integer issue rate.  The stream
-// itself is ~5 MB and the mins output 64 MB: memory is not the bound.
+// __dp4a.  bf16: 6.7e10 f32 fma plus two bf16 unpacks per pair.  The
+// stream itself is ~5 MB and the mins output 64 MB: memory is not the
+// bound.
 //
 // Design: the TPU used one-hot matmuls in place of gathers (stream
 // value window, codes -> x^ decode); here each is a plain gather from
 // global or shared memory.  One block per (tile, 64-query block): the
-// block decodes its tile into shared memory (1024 x 8 code bytes), keeps
-// the compact [M, K, Ds] a/b-digit codebook (64 KB at M=8, K=256,
-// Ds=16), the per-codeword norms and its 64 queries' digits in shared
-// memory, and gives each warp 32-row subtiles: a lane holds its row's
-// x^ digits in registers, reads each query's digits as broadcast
-// 16-byte shared loads, and the subtile min is a warp shuffle-reduce.
-// wgmma / int8 tensor cores are later work.
+// block decodes its tile into shared memory (1024 x 8 code bytes) and
+// hands it to the shared tail, which keeps the compact codebook, the
+// per-codeword norms and its 64 queries in shared memory.  wgmma /
+// tensor cores are later work.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "scan_tail.cuh"
 
 namespace {
 
-constexpr int TILE = 1024;
-constexpr int SUB = 32;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+using namespace scan_tail;
+
 constexpr int RPT = TILE / THREADS;      // rows per thread in the decode
-constexpr int QB = 64;                   // queries per block
-constexpr int MMAX = 8;                  // one mask plane, one group
-constexpr unsigned FULL = 0xffffffffu;
 
-struct Smem {
-  size_t nrm, cw, q, u, codes, wsum, wlast, total;
-};
-
-// Shared-memory carve-up; nrm first so the int64 array is 8-aligned.
-__host__ __device__ inline Smem smem_layout(int M, int K, int WS, int DW) {
-  Smem s;
-  s.nrm = 0;
-  s.cw = s.nrm + sizeof(long long) * M * K;
-  s.q = s.cw + sizeof(int) * 2 * M * K * WS;
-  s.q = (s.q + 15) & ~size_t(15);
-  s.u = s.q + sizeof(int) * QB * 2 * DW;
-  s.codes = s.u + sizeof(float) * QB;
-  s.wsum = s.codes + TILE * MMAX;
-  s.wlast = s.wsum + sizeof(int) * WARPS;
-  s.total = s.wlast + sizeof(int) * WARPS * MMAX;
-  return s;
+// shared memory after the tail's operands: codes | wsum | wlast
+template <class Tail>
+__host__ __device__ inline size_t decode_base(int M, int K, int Ds) {
+  return Tail::layout(M, K, Ds).total;
+}
+template <class Tail>
+__host__ __device__ inline size_t smem_total(int M, int K, int Ds) {
+  return decode_base<Tail>(M, K, Ds) + TILE * MMAX + sizeof(int) * WARPS
+         + sizeof(int) * WARPS * MMAX;
 }
 
-// DW: 32-bit words of one digit plane of a decoded row (D <= 4*DW).
-template <int DW>
+template <class Tail>
 __global__ void __launch_bounds__(THREADS, 2)
-stream_mins_kernel(const int8_t* __restrict__ q,       // [2*Dg, B]
-                   const int* __restrict__ cw,         // [2, M, K, WS]
-                   const long long* __restrict__ nrm,  // [M, K]
+stream_mins_kernel(const void* __restrict__ q, const void* __restrict__ cw,
+                   const void* __restrict__ nrm,
                    const uint8_t* __restrict__ row_data,  // [nT, 1, TILE]
-                   const uint8_t* __restrict__ vals,   // packed stream
-                   const int* __restrict__ meta,       // [2, nT]
-                   const float* __restrict__ u,        // [B]
-                   float* __restrict__ mins,           // [nT*32, B]
-                   uint8_t* __restrict__ codes_out,    // [nT*TILE, M]
+                   const uint8_t* __restrict__ vals,      // packed stream
+                   const int* __restrict__ meta,          // [2, nT]
+                   const float* __restrict__ u,           // [B] or null
+                   float* __restrict__ mins,              // [nT*32, B]
+                   uint8_t* __restrict__ codes_out,       // [nT*TILE, M]
                    int B, int Dg, int nT, int n_valid, int M, int K,
-                   int WS) {
+                   int Ds) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(M, K, WS, DW);
-  long long* nrm_s = reinterpret_cast<long long*>(smem + L.nrm);
-  int* cw_s = reinterpret_cast<int*>(smem + L.cw);
-  int* q_s = reinterpret_cast<int*>(smem + L.q);
-  float* u_s = reinterpret_cast<float*>(smem + L.u);
-  uint8_t* codes_s = smem + L.codes;
-  int* wsum_s = reinterpret_cast<int*>(smem + L.wsum);
-  int* wlast_s = reinterpret_cast<int*>(smem + L.wlast);
+  const size_t base0 = decode_base<Tail>(M, K, Ds);
+  uint8_t* codes_s = smem + base0;
+  int* wsum_s = reinterpret_cast<int*>(smem + base0 + TILE * MMAX);
+  int* wlast_s = wsum_s + WARPS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t = blockIdx.x;
   const int qb0 = blockIdx.y * QB;
-  const int D = M * WS * 4;
-  const int MKW = M * K * WS;
 
-  // ---- operands into shared memory --------------------------------------
-  for (int i = tid; i < 2 * MKW; i += THREADS) cw_s[i] = cw[i];
-  for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
-  {
-    int8_t* qb_s = reinterpret_cast<int8_t*>(q_s);
-    const int DP = 4 * DW;                 // bytes per digit plane
-    for (int i = tid; i < QB * DP; i += THREADS) {
-      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
-      int8_t a = 0, c = 0;
-      if (d < D && qb0 + b < B) {
-        a = q[(size_t)d * B + qb0 + b];
-        c = q[(size_t)(Dg + d) * B + qb0 + b];
-      }
-      qb_s[b * 2 * DP + d] = a;
-      qb_s[b * 2 * DP + DP + d] = c;
-    }
-    for (int b = tid; b < QB; b += THREADS)
-      u_s[b] = (qb0 + b < B) ? u[qb0 + b] : 1.0f;
-  }
+  Tail::load(smem, q, cw, nrm, u, B, Dg, qb0, M, K, Ds);
 
   // ---- decode: per-row diff counts and their block exclusive scan -------
   const int r0 = tid * RPT;
@@ -210,126 +164,57 @@ stream_mins_kernel(const int8_t* __restrict__ q,       // [2*Dg, B]
   }
   __syncthreads();
 
-  // ---- scan: one warp per 32-row subtile, lane = row --------------------
-  const int MW = M * WS;                   // words of real dims
-  for (int s = warp; s < TILE / SUB; s += WARPS) {
-    const int r = s * SUB + lane;
-    int xa[DW], xb[DW];
-#pragma unroll
-    for (int w = 0; w < DW; ++w) {
-      if (w < MW) {
-        const int m = w / WS;
-        const int k = codes_s[r * MMAX + m];
-        const int at = (m * K + k) * WS + (w - m * WS);
-        xa[w] = cw_s[at];
-        xb[w] = cw_s[MKW + at];
-      } else {
-        xa[w] = 0;
-        xb[w] = 0;
-      }
-    }
-    long long pre_i = 0;
-    for (int m = 0; m < M; ++m) pre_i += nrm_s[m * K + codes_s[r * MMAX + m]];
-    const float pre = __ll2float_rn(pre_i);   // exact integer, rounded once
-    const bool valid = (long long)t * TILE + r < n_valid;
-
-    for (int b0 = 0; b0 < QB; b0 += 32) {
-      float mine = CUDART_INF_F;
-      for (int bi = 0; bi < 32; ++bi) {
-        const int b = b0 + bi;
-        const int4* qa4 = reinterpret_cast<const int4*>(q_s + b * 2 * DW);
-        const int4* qb4 = qa4 + DW / 4;
-        int aa = 0, p2 = 0, bb = 0;
-#pragma unroll
-        for (int w4 = 0; w4 < DW / 4; ++w4) {
-          const int4 A = qa4[w4];
-          const int4 C = qb4[w4];
-          aa = __dp4a(xa[4 * w4 + 0], A.x, aa);
-          aa = __dp4a(xa[4 * w4 + 1], A.y, aa);
-          aa = __dp4a(xa[4 * w4 + 2], A.z, aa);
-          aa = __dp4a(xa[4 * w4 + 3], A.w, aa);
-          p2 = __dp4a(xa[4 * w4 + 0], C.x, p2);
-          p2 = __dp4a(xa[4 * w4 + 1], C.y, p2);
-          p2 = __dp4a(xa[4 * w4 + 2], C.z, p2);
-          p2 = __dp4a(xa[4 * w4 + 3], C.w, p2);
-          p2 = __dp4a(xb[4 * w4 + 0], A.x, p2);
-          p2 = __dp4a(xb[4 * w4 + 1], A.y, p2);
-          p2 = __dp4a(xb[4 * w4 + 2], A.z, p2);
-          p2 = __dp4a(xb[4 * w4 + 3], A.w, p2);
-          bb = __dp4a(xb[4 * w4 + 0], C.x, bb);
-          bb = __dp4a(xb[4 * w4 + 1], C.y, bb);
-          bb = __dp4a(xb[4 * w4 + 2], C.z, bb);
-          bb = __dp4a(xb[4 * w4 + 3], C.w, bb);
-        }
-        float cross = __fadd_rn(
-            __fadd_rn(__fmul_rn(16384.0f, __int2float_rn(aa)),
-                      __fmul_rn(128.0f, __int2float_rn(p2))),
-            __int2float_rn(bb));
-        cross = __fmul_rn(cross, u_s[b]);
-        float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
-                        : CUDART_INF_F;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          d = fminf(d, __shfl_xor_sync(FULL, d, o));
-        if (lane == bi) mine = d;
-      }
-      const int b = qb0 + b0 + lane;
-      if (b < B) mins[((size_t)t * (TILE / SUB) + s) * B + b] = mine;
-    }
-  }
+  Tail::scan(smem, codes_s, mins, t, B, qb0, n_valid, M, K, Ds);
 }
 
-template <int DW>
-cudaError_t launch(const int8_t* q, const int* cw, const long long* nrm,
-                   const uint8_t* row_data, const uint8_t* vals,
-                   const int* meta, const float* u, float* mins,
-                   uint8_t* codes_out, int B, int Dg, int nT, int n_valid,
-                   int M, int K, int WS, cudaStream_t stream) {
-  const Smem L = smem_layout(M, K, WS, DW);
+template <class Tail>
+int launch(const void* q, const void* cw, const void* nrm, const void* rd,
+           const void* vals, const void* meta, const void* u, void* mins,
+           void* codes_out, int B, int Dg, int nT, int n_valid, int M, int K,
+           int Ds, void* stream) {
+  const size_t smem = smem_total<Tail>(M, K, Ds);
   cudaError_t e = cudaFuncSetAttribute(
-      stream_mins_kernel<DW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (e != cudaSuccess) return e;
+      stream_mins_kernel<Tail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(nT, (B + QB - 1) / QB);
-  stream_mins_kernel<DW><<<grid, THREADS, L.total, stream>>>(
-      q, cw, nrm, row_data, vals, meta, u, mins, codes_out, B, Dg, nT,
-      n_valid, M, K, WS);
-  return cudaGetLastError();
+  stream_mins_kernel<Tail><<<grid, THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      q, cw, nrm, static_cast<const uint8_t*>(rd),
+      static_cast<const uint8_t*>(vals), static_cast<const int*>(meta),
+      static_cast<const float*>(u), static_cast<float*>(mins),
+      static_cast<uint8_t*>(codes_out), B, Dg, nT, n_valid, M, K, Ds);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Ds must be a multiple of 4, M <= 8, M*Ds <= 128 (checked by the
-// Python wrapper).  Returns cudaGetLastError() after the launch.
+// mode 0: int16 (Ds % 4 == 0, M*Ds <= 128); mode 1: bf16 (Ds % 2 == 0,
+// M*Ds <= 128).  M <= 8 (checked by the Python wrapper).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int stream_mins_launch(const void* q, const void* cw,
                                   const void* nrm, const void* row_data,
                                   const void* vals, const void* meta,
                                   const void* u, void* mins, void* codes_out,
                                   int B, int Dg, int nT, int n_valid, int M,
-                                  int K, int Ds, void* stream) {
-  const int WS = Ds / 4;
-  const int words = M * WS;
-  auto* qp = static_cast<const int8_t*>(q);
-  auto* cwp = static_cast<const int*>(cw);
-  auto* np_ = static_cast<const long long*>(nrm);
-  auto* rd = static_cast<const uint8_t*>(row_data);
-  auto* vp = static_cast<const uint8_t*>(vals);
-  auto* mp = static_cast<const int*>(meta);
-  auto* up = static_cast<const float*>(u);
-  auto* op = static_cast<float*>(mins);
-  auto* cp = static_cast<uint8_t*>(codes_out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (words <= 4)
-    return launch<4>(qp, cwp, np_, rd, vp, mp, up, op, cp, B, Dg, nT,
-                     n_valid, M, K, WS, st);
-  if (words <= 8)
-    return launch<8>(qp, cwp, np_, rd, vp, mp, up, op, cp, B, Dg, nT,
-                     n_valid, M, K, WS, st);
-  if (words <= 16)
-    return launch<16>(qp, cwp, np_, rd, vp, mp, up, op, cp, B, Dg, nT,
-                      n_valid, M, K, WS, st);
-  if (words <= 32)
-    return launch<32>(qp, cwp, np_, rd, vp, mp, up, op, cp, B, Dg, nT,
-                      n_valid, M, K, WS, st);
+                                  int K, int Ds, int mode, void* stream) {
+  if (nT == 0 || B == 0) return (int)cudaSuccess;
+  const int D = M * Ds;
+#define STREAM_LAUNCH(T)                                                   \
+  return launch<T>(q, cw, nrm, row_data, vals, meta, u, mins, codes_out, B, \
+                   Dg, nT, n_valid, M, K, Ds, stream)
+  if (mode == 0) {
+    if (D <= 16) STREAM_LAUNCH(Int16Tail<4>);
+    if (D <= 32) STREAM_LAUNCH(Int16Tail<8>);
+    if (D <= 64) STREAM_LAUNCH(Int16Tail<16>);
+    if (D <= 128) STREAM_LAUNCH(Int16Tail<32>);
+  } else if (mode == 1) {
+    if (D <= 8) STREAM_LAUNCH(Bf16Tail<4>);
+    if (D <= 16) STREAM_LAUNCH(Bf16Tail<8>);
+    if (D <= 32) STREAM_LAUNCH(Bf16Tail<16>);
+    if (D <= 64) STREAM_LAUNCH(Bf16Tail<32>);
+    if (D <= 128) STREAM_LAUNCH(Bf16Tail<64>);
+  }
+#undef STREAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,15 +1,20 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are bound with ``ctypes``:
-``nvcc`` compiles every source in ``csrc/`` into one shared library for
-Hopper (``sm_90a``) at first use, into ``_build/<hash>/`` inside the
-package, where ``<hash>`` covers the sources and the flags, so a stale
-library is never loaded after a source changes.  Nothing is built when
-the module is imported; the CPU tests import it freely.
+``nvcc`` compiles every source in ``csrc/`` for Hopper (``sm_90a``) at
+first use -- one ``nvcc -c`` process per source, all started together --
+and links the objects into one shared library in ``_build/<hash>/``
+inside the package, where ``<hash>`` covers the sources, the headers and
+the flags, so a stale library is never loaded after a source changes.
+Nothing is built when the module is imported; the CPU tests import it
+freely.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an
-exception, so a refused launch never passes silently.
+exception, so a refused launch never passes silently.  Each wrapper then
+calls ``count`` with its kernel's name: ``LAUNCHES`` counts the kernel
+launches (never the plain versions), so a caller can show which kernels
+a path ran.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libdeltapq_kernels.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,11 +43,20 @@ _I = ctypes.c_int
 #: int would be cut to 32 bits), every size ``c_int``.
 SIGNATURES = {
     # q, cw, nrm, row_data, vals, meta, u, mins, codes_out,
-    # B, Dg, nT, n_valid, M, K, Ds, stream
+    # B, Dg, nT, n_valid, M, K, Ds, mode, stream
     "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
-    # tab, cand, out, B, M, K, S, stream
-    "rerank_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, cw, nrm, codes, u, mins, B, Dg, nT, n_valid, M, K, Ds, mode, stream
+    "codes_mins_launch": [_P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, xt, mins, B, D, n_rows, n_valid, stream
+    "decoded_mins_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # tab, codes, out_d, out_i, B, M, K, n_pad, tile_n, n_valid, top_k,
+    # QC, code_bytes, stream
+    "adc_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    # tab, cand, out, B, M, K, S, code_bytes, stream
+    "rerank_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -80,6 +94,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; returns [(cmd, returncode, log)]."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    out = []
+    for c, p in procs:
+        log, _ = p.communicate()
+        out.append((c, p.returncode, log))
+    return out
+
+
 def build(force: bool = False) -> BuildInfo:
     """Compile ``csrc/*.cu`` into the hashed build directory (or reuse
     a library already built from the same sources and flags)."""
@@ -90,17 +116,32 @@ def build(force: bool = False) -> BuildInfo:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(lib, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
+    objs, cmds = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run_all(cmds)
+    log = "".join(out for _, _, out in results)
+    failed = [(c, rc, out) for c, rc, out in results if rc != 0]
+    if not failed:
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                "-shared", "-o", str(tmp), *map(str, objs)]
+        (c, rc, out), = _run_all([link])
+        log += out
+        if rc != 0:
+            failed = [(c, rc, out)]
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        c, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(c)}\n{out}")
     log_path.write_text(log)
     os.replace(tmp, lib)          # atomic: concurrent builds agree
     return BuildInfo(lib, secs, log)
@@ -127,3 +168,24 @@ def check(err: int, what: str) -> None:
         msg = library().kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: error {err} "
                            f"({msg})")
+
+
+#: kernel launches made by the wrappers (not by the plain versions)
+LAUNCHES = {"stream_mins": 0, "stream_mins_bf16": 0, "codes_mins": 0,
+            "codes_mins_int16": 0, "decoded_mins": 0, "adc_topk": 0,
+            "rerank": 0}
+
+
+def count(kernel: str) -> None:
+    """Record one launch of ``kernel``; a wrapper calls it after
+    ``check`` passed, and nowhere else."""
+    LAUNCHES[kernel] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)

@@ -97,12 +97,59 @@ def adc_query_topk(table: torch.Tensor, codes: torch.Tensor, n_valid: int,
     return (torch.gather(best_d, 1, order), torch.gather(best_i, 1, order))
 
 
-def pad_codes(codes: np.ndarray, tile_n: int) -> np.ndarray:
-    """Pad the database to a multiple of tile_n (padding rows are code 0;
-    they are masked by n_valid during scans)."""
+def pad_codes(codes, tile_n: int):
+    """Pad the database (a NumPy array or a tensor) to a multiple of
+    tile_n (padding rows are code 0; they are masked by n_valid during
+    scans)."""
     n = codes.shape[0]
     pad = (-n) % tile_n
-    if pad:
-        codes = np.concatenate(
-            [codes, np.zeros((pad, codes.shape[1]), codes.dtype)], axis=0)
-    return codes
+    if not pad:
+        return codes
+    if isinstance(codes, torch.Tensor):
+        return torch.cat([codes, codes.new_zeros((pad, codes.shape[1]))])
+    return np.concatenate(
+        [codes, np.zeros((pad, codes.shape[1]), codes.dtype)], axis=0)
+
+
+def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
+                tile_n: int = 16384, engine: str = "auto", device="cpu"
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """End-to-end plain ADC query (reference ``PQTree::QueryPlain``):
+    build tables, scan, top-k, on ``device``.
+
+    engine: "xla" (the gather scan ``adc_query_topk``, exact, runs
+    everywhere; the name is the JAX package's), "pallas" (the ADC top-k
+    kernel ``adc_kernels.adc_topk_pallas`` at f32: exact), or "auto"
+    ("pallas" on a CUDA device, "xla" on the CPU).  ``codes`` is a NumPy
+    array or a tensor (kept on the device by a caller that queries it
+    often).  Returns NumPy (dists [B, top_k], ids [B, top_k])."""
+    device = torch.device(device)
+    cw = codewords if isinstance(codewords, torch.Tensor) else \
+        torch.from_numpy(np.asarray(codewords, np.float32))
+    cw = cw.to(device=device, dtype=torch.float32)
+    M, K, Ds = cw.shape
+    D = M * Ds
+    q = np.asarray(queries, np.float32)
+    if q.shape[1] < D:
+        q = np.pad(q, ((0, 0), (0, D - q.shape[1])))
+    n_valid = codes.shape[0]
+    if engine == "auto":
+        engine = "pallas" if device.type == "cuda" else "xla"
+    c = codes if isinstance(codes, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(codes))
+    c = c.to(device)
+    table = adc_table(cw, torch.from_numpy(q).to(device))
+    if engine == "pallas":
+        from .adc_kernels import TILE_N, adc_topk_pallas
+
+        if c.dtype not in (torch.uint8, torch.int32):
+            c = c.to(torch.int32)
+        d, i = adc_topk_pallas(table, pad_codes(c, TILE_N).contiguous(),
+                               n_valid, top_k)
+    elif engine == "xla":
+        tile_n = min(tile_n, max(256, 1 << (n_valid - 1).bit_length()))
+        d, i = adc_query_topk(table, pad_codes(c, tile_n), n_valid, top_k,
+                              tile_n)
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+    return d.cpu().numpy(), i.cpu().numpy()

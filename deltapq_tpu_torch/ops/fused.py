@@ -1,24 +1,35 @@
-"""The compressed-stream query engine (int16 scan, stream tiles).
+"""Fused-scan engines: the query tiers, in PyTorch + CUDA.
 
-Counterpart of ``deltapq_tpu/ops/fused.py`` for the path the benchmark
-headlines: ``FusedCompressedEngine(precision="int16", fmt="stream")``
-over stream tiles in DeltaTree-DFS order.  Each batch:
+Counterpart of ``deltapq_tpu/ops/fused.py``.  Every engine reports exact
+f32 ADC distances, bit-equal to ``adc_query_topk`` over the same table,
+and carries a per-query exactness certificate:
 
-1. ``adc_table`` (exact f32 tables) and the host-side int16 quantization
-   of the centered queries (``_mins_query_args``, NumPy as in the JAX
-   package, so the kernel operand is bit-identical between packages);
-2. ``fused_stream_mins``: the CUDA stream kernel decodes the tiles, runs
-   the two-digit scan and returns 32-row subtile minima plus the decoded
-   codes;
-3. ``fused_select_esc``: unit selection, exact rerank (CUDA rerank
-   kernel), the exactness certificate, the escalation ladder (ns, 2ns,
-   8ns, cap) and the terminal exact scan.  The JAX package's
-   ``lax.cond`` rungs become host checks of ``ok.all()``;
-4. scan rows -> database ids through ``row_to_db``.
+======================  ============  =================================
+engine                  resident      scan kernel
+======================  ============  =================================
+FusedDecodedEngine      D*2 + M B/vec bf16 x^ rows, ``fused_decoded_mins``
+FusedCodesEngine        M B/vec       u8 codes, ``fused_codes_mins``
+FusedCompressedEngine   ~1+diffs/row  stream tiles, ``fused_stream_mins``
+DedupCompressedEngine   distinct      ``exact_all_topk`` (<= 64K
+                        codes only    distinct), else a compressed
+                                      engine over the distinct codes
+======================  ============  =================================
 
-Reported distances are exact f32 ADC distances, bit-equal to
-``adc_query_topk`` over the same table.  Not ported yet: the bf16 and
-int8 precisions, M > 8, the slot-tile format and the other tiers.
+Each batch of the fused tiers:
+
+1. ``prepare``: ``adc_table`` (exact f32 tables) and the centered query
+   operands -- bf16, or the int16 digits quantized on the host in NumPy
+   as in the JAX package, so the operand is bit-identical between the
+   packages -- plus the certificate inputs (q2, err_r, scale2);
+2. ``scan``: the tier's kernel -> 32-row subtile minima (and the codes
+   the rerank reads);
+3. ``select``: ``fused_select_esc`` -- unit selection, exact rerank
+   (CUDA rerank kernel), the certificate, the ladder (ns, 2ns, 8ns, cap)
+   and the terminal exact scan; the JAX package's ``lax.cond`` rungs
+   become host checks of ``ok.all()`` -- then scan rows -> database ids.
+
+Not ported yet: the int8 precision and M > 8 (ROADMAP A3), the slot-tile
+format (B5), the chunked and sharded inner engines of the dedup tier.
 """
 
 from __future__ import annotations
@@ -28,7 +39,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .adc import adc_query_topk, adc_table
+from .adc import adc_query_topk, adc_table, adc_tile_dists
+from .decoded import build_decoded_cache
 from .stream_tiles import TILE, StreamTiles, build_stream_tiles
 from . import fused_kernels as fk
 
@@ -165,31 +177,44 @@ def _int16_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
 
 
 def _setup_precision(self, codewords: np.ndarray, precision: str):
-    """Codebook operands per precision tier (int16 only in the port)."""
-    if precision != "int16":
+    """Codebook operands per precision tier (int16 and bf16 in the
+    port), on ``self.device``; ``compact`` holds the kernels' operands
+    on a CUDA device."""
+    if precision == "int16":
+        cwq, self.scale = fk.quantize_blockdiag_int16(
+            codewords, center=self.mu[:self.D])
+        self.cwbd = torch.from_numpy(cwq).to(self.device)
+        self.err_c = _int16_codeword_radius(codewords, self.mu, self.scale)
+    elif precision == "bf16":
+        self.scale = None
+        self.cwbd = fk.build_blockdiag_codebook(
+            codewords, center=self.mu[:self.D]).to(self.device)
+    else:
         raise NotImplementedError(
-            f"precision {precision!r} is not ported (int16 is)")
-    cwq, self.scale = fk.quantize_blockdiag_int16(
-        codewords, center=self.mu[:self.D])
-    self.cwbd = torch.from_numpy(cwq).to(self.device)
-    self.err_c = _int16_codeword_radius(codewords, self.mu, self.scale)
+            f"precision {precision!r} is not ported (int16 and bf16 are; "
+            f"int8: ROADMAP A3)")
     self.compact = (fk.compact_codebook(self.cwbd, self.M, self.Ds)
                     if self.device.type == "cuda" else None)
 
 
 def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
     """Centered grouped-layout queries [B, G*Dg_pad] -> (kernel q
-    operand [2*G*Dg_pad, B] int8, headroom u [1, B] f32, exact query
-    rounding radius e_q [B]), on ``device``.  (The JAX function also
-    returns an ``invalid`` mask, None in every mode.)
+    operand, headroom u [1, B] f32 or None, exact query rounding radius
+    e_q [B] or None), on ``device``.  (The JAX function also returns an
+    ``invalid`` mask, None in every mode.)
 
     int16: each query is quantized at ``scale * u_b`` with
     ``u_b = max(1, max|qc_b| / (127 scale))`` (nothing clips), as dual
-    base-128 digits at step ``scale*u/128``.  Host NumPy, as in the JAX
-    package, so the operand is bit-identical between the packages."""
+    base-128 digits at step ``scale*u/128``: q [2*G*Dg_pad, B] int8.
+    Host NumPy, as in the JAX package, so the operand is bit-identical
+    between the packages.  bf16: q [G*Dg_pad, B] bf16 (the cast rounds
+    to nearest even, as ``ml_dtypes`` does)."""
+    if precision == "bf16":
+        q = torch.from_numpy(np.ascontiguousarray(qc, np.float32))
+        return q.to(torch.bfloat16).t().contiguous().to(device), None, None
     if precision != "int16":
         raise NotImplementedError(
-            f"precision {precision!r} is not ported (int16 is)")
+            f"precision {precision!r} is not ported (int16 and bf16 are)")
     amax = np.abs(qc).max(axis=1)
     u = np.maximum(1.0, amax / (127.0 * scale)).astype(np.float32)
     Aq = np.clip(np.rint(qc * (128.0 / (scale * u[:, None]))),
@@ -222,74 +247,69 @@ def _quantized_query_stats(self, qop, uq, eq):
     return q2, err_r, scale2
 
 
-class FusedCompressedEngine:
-    """Compressed tier over stream tiles; the whole decode happens inside
-    the scan kernel and the rerank reads the kernel's decoded-codes echo,
-    so no plain code array stays resident.
+def _q2(qc: np.ndarray, device) -> torch.Tensor:
+    """||qc_b||^2 in f32 on ``device``: the bf16 certificate's q2."""
+    q = torch.from_numpy(np.ascontiguousarray(qc, np.float32)).to(device)
+    return torch.sum(q * q, dim=1)
 
-    Build from scan-ordered codes (with ``row_to_db`` mapping scan rows
-    to database ids), from a DeltaTree (DFS order = tile order) or from
-    pre-built tiles.  ``device`` holds every tensor of the engine.
-    """
 
-    def __init__(self, codewords, codes_scan: np.ndarray,
-                 row_to_db: Optional[np.ndarray] = None,
-                 precision: str = "int16", fmt: str = "stream",
-                 device="cpu"):
-        if fmt != "stream":
-            raise NotImplementedError(f"tile format {fmt!r} is not ported "
-                                      f"(stream is)")
-        self._init(codewords, build_stream_tiles(np.asarray(codes_scan)),
-                   row_to_db, precision, device)
+class _FusedEngine:
+    """What the fused tiers share: the batch's three stages (``prepare``,
+    ``scan``, ``select``, separate so a caller can time each), the
+    certificate calibration and the warmup.  A subclass holds
+    ``codewords`` (a tensor on ``device``), ``M``, ``K``, ``Ds``, ``D``,
+    ``d_pad``, ``mu``, ``n_valid``, ``row_to_db`` and ``precision``, and
+    defines ``scan``."""
 
-    def _init(self, codewords, tiles: StreamTiles, row_to_db, precision,
-              device):
-        codewords = _np_f32(codewords)
-        M, K, Ds = codewords.shape
-        if K > 256:
-            raise NotImplementedError("the stream tier requires K <= 256")
-        self.device = torch.device(device)
-        self.codewords = torch.from_numpy(codewords).to(self.device)
-        self.M, self.K, self.Ds = M, K, Ds
-        self.D = M * Ds
-        self.d_pad = -(-self.D // 128) * 128
-        self.fmt = "stream"
-        self.tiles = tiles
-        self.vals = torch.from_numpy(np.ascontiguousarray(tiles.vals)
-                                     ).to(self.device)
-        self.meta = torch.from_numpy(np.ascontiguousarray(tiles.meta)
-                                     ).to(self.device)
-        self.row_data = torch.from_numpy(
-            np.ascontiguousarray(tiles.row_data)).to(self.device)
-        self.n_valid = tiles.n_valid
-        self.mu = np.zeros(self.d_pad, np.float32)
-        self.mu[:self.D] = fk.codebook_center(codewords)
-        self.precision = precision
-        _setup_precision(self, codewords, precision)
-        self.row_to_db = (torch.from_numpy(_row_ids_i32(row_to_db)).to(
-            self.device) if row_to_db is not None else None)
+    row_to_db: Optional[torch.Tensor] = None
 
-    @classmethod
-    def from_tree(cls, codewords, tree, precision: str = "int16",
-                  fmt: str = "stream", device="cpu"
-                  ) -> "FusedCompressedEngine":
-        codes_db = tree.decode_codes()
-        order = tree.vec_id.astype(np.int64)
-        return cls(codewords, codes_db[order], row_to_db=order,
-                   precision=precision, fmt=fmt, device=device)
+    def _query_operands(self, qc: np.ndarray):
+        """Centered padded queries [B_pad, d_pad] -> (q operand, u,
+        certificate inputs (q2, err_r, scale2))."""
+        qk = fk.pack_query_grouped(qc[:, :self.D], self.M, self.Ds)
+        qop, uq, eq = _mins_query_args(qk, self.precision, self.scale,
+                                       self.device)
+        if self.precision == "int16":
+            return qop, uq, _quantized_query_stats(self, qop, uq, eq)
+        return qop, uq, (_q2(qc, self.device), None, None)
 
-    @classmethod
-    def from_tiles(cls, codewords, tiles: StreamTiles,
-                   row_to_db: Optional[np.ndarray] = None,
-                   precision: str = "int16", device="cpu"
-                   ) -> "FusedCompressedEngine":
-        """Engine over pre-built stream tiles (construction = upload)."""
-        self = cls.__new__(cls)
-        self._init(codewords, tiles, row_to_db, precision, device)
-        return self
+    def prepare(self, queries: np.ndarray):
+        """Stage 1: exact tables + query operands.  Returns (table, qop,
+        uq, cert, b)."""
+        q, b = _pad_queries(queries, self.d_pad)
+        table = adc_table(self.codewords,
+                          torch.from_numpy(q[:, :self.D]).to(self.device))
+        qop, uq, cert = self._query_operands(q - self.mu[None, :])
+        return table, qop, uq, cert, b
 
-    def bytes_per_vec(self) -> float:
-        return self.tiles.bytes_per_vec()
+    def scan(self, qop, uq):
+        """Stage 2: the tier's kernel -> (mins [NS, B], codes for the
+        rerank, in scan order)."""
+        raise NotImplementedError
+
+    def select(self, table, cert, mins, codes_echo, b: int,
+               top_k: int = 10, n_sub: Optional[int] = None):
+        """Stage 3: selection, rerank, ladder, terminal scan and the id
+        map.  Returns (dists [b, top_k], ids [b, top_k]) on the device."""
+        q2, err_r, scale2 = cert
+        d, rows, frac = _select_with_escalation(
+            mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
+            err_r=err_r, scale2=scale2, engine=self)
+        self.last_exact_frac = frac
+        if self.row_to_db is not None:
+            mapped = self.row_to_db[torch.clamp(rows, 0, self.n_valid - 1)]
+            rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
+        return d[:b], rows[:b]
+
+    def query(self, queries: np.ndarray, top_k: int = 10,
+              n_sub: Optional[int] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-k: (dists [B, top_k] f32, ids [B, top_k] int64)."""
+        table, qop, uq, cert, b = self.prepare(queries)
+        mins, codes_echo = self.scan(qop, uq)
+        d, rows = self.select(table, cert, mins, codes_echo, b, top_k,
+                              n_sub)
+        return d.cpu().numpy(), rows.cpu().numpy()
 
     def _warmup_queries(self, b: int, seed: int = 0) -> np.ndarray:
         """Data-like queries (a decoded row + jitter): degenerate
@@ -338,49 +358,156 @@ class FusedCompressedEngine:
         for b in batch_sizes:
             self.query(self._warmup_queries(b), top_k=top_k)
 
-    # The three stages of ``query``, separate so a caller can time each.
 
-    def prepare(self, queries: np.ndarray):
-        """Stage 1: exact tables + int16 query operands.  Returns
-        (table, qop, uq, eq, b)."""
-        q, b = _pad_queries(queries, self.d_pad)
-        table = adc_table(self.codewords,
-                          torch.from_numpy(q[:, :self.D]).to(self.device))
-        qc_np = q - self.mu[None, :]            # centered scan domain
-        qk = fk.pack_query_grouped(qc_np[:, :self.D], self.M, self.Ds)
-        qop, uq, eq = _mins_query_args(qk, self.precision, self.scale,
-                                       self.device)
-        return table, qop, uq, eq, b
+def _common_init(self, codewords, device):
+    """Codebook fields every fused engine holds."""
+    codewords = _np_f32(codewords)
+    M, K, Ds = codewords.shape
+    self.device = torch.device(device)
+    self.codewords = torch.from_numpy(codewords).to(self.device)
+    self.M, self.K, self.Ds = M, K, Ds
+    self.D = M * Ds
+    self.d_pad = -(-self.D // 128) * 128
+    self.mu = np.zeros(self.d_pad, np.float32)
+    self.mu[:self.D] = fk.codebook_center(codewords)
+    return codewords
+
+
+def _codes_tensor(codes: np.ndarray, n_pad: int, K: int) -> torch.Tensor:
+    """Codes zero-padded to n_pad rows as the kernels take them: u8, or
+    int32 for K > 256."""
+    codes = np.asarray(codes)
+    out = np.zeros((n_pad, codes.shape[1]),
+                   np.uint8 if K <= 256 else np.int32)
+    out[:len(codes)] = codes
+    return torch.from_numpy(out)
+
+
+class FusedDecodedEngine(_FusedEngine):
+    """Decoded-cache tier: bf16 x^ rows resident (D*2 B/vec, tiled
+    ``tile`` rows at a time), the padded codes resident for the rerank
+    (M B/vec).  Also the index's tier for K > 256."""
+
+    def __init__(self, codewords, codes: np.ndarray, tile: int = 8192,
+                 device="cpu"):
+        codewords = _common_init(self, codewords, device)
+        codes = np.asarray(codes)
+        self.n_valid = codes.shape[0]
+        hi, _lo, _pre = build_decoded_cache(codewords, codes,
+                                            center=self.mu[:self.D])
+        if self.d_pad != self.D:
+            hi = torch.cat([hi, torch.zeros((len(hi), self.d_pad - self.D),
+                                            dtype=hi.dtype)], dim=1)
+        self.xt = fk.pack_xhat_tiles(hi, tile=tile).to(self.device)
+        self.codes = _codes_tensor(codes, self.xt.shape[0] * tile,
+                                   self.K).to(self.device)
+
+    def _query_operands(self, qc: np.ndarray):
+        q = torch.from_numpy(np.ascontiguousarray(qc, np.float32))
+        qop = q.to(torch.bfloat16).t().contiguous().to(self.device)
+        return qop, None, (_q2(qc, self.device), None, None)
+
+    def scan(self, qop, uq):
+        return fk.fused_decoded_mins(qop, self.xt, self.n_valid), self.codes
+
+
+class FusedCodesEngine(_FusedEngine):
+    """u8-codes tier: M bytes/vec resident; the kernel gathers x^ from
+    the codebook.  ``order`` gives the scan order (row i of the scan is
+    database row ``order[i]``)."""
+
+    def __init__(self, codewords, codes: np.ndarray,
+                 order: Optional[np.ndarray] = None,
+                 precision: str = "bf16", device="cpu"):
+        codewords = _common_init(self, codewords, device)
+        if self.K > 256:
+            raise NotImplementedError(
+                "the codes tier requires K <= 256; use FusedDecodedEngine "
+                "for wider codes")
+        codes = np.asarray(codes)
+        self.n_valid = codes.shape[0]
+        if order is not None:
+            codes = codes[np.asarray(order, np.int64)]
+            self.row_to_db = torch.from_numpy(
+                _row_ids_i32(order)).to(self.device)
+        n_pad = -(-self.n_valid // TILE) * TILE
+        self.codes = _codes_tensor(codes, n_pad, self.K).to(self.device)
+        self.precision = precision
+        _setup_precision(self, codewords, precision)
+
+    def scan(self, qop, uq):
+        return fk.fused_codes_mins(qop, self.cwbd, self.codes, self.n_valid,
+                                   u=uq, compact=self.compact)
+
+
+class FusedCompressedEngine(_FusedEngine):
+    """Compressed tier over stream tiles; the whole decode happens inside
+    the scan kernel and the rerank reads the kernel's decoded-codes echo,
+    so no plain code array stays resident.
+
+    Build from scan-ordered codes (with ``row_to_db`` mapping scan rows
+    to database ids), from a DeltaTree (DFS order = tile order) or from
+    pre-built tiles.  ``device`` holds every tensor of the engine.  The
+    port's default precision is int16 (the benchmark's); the JAX
+    package's is bf16, which ``DeltaPQIndex`` asks for.
+    """
+
+    def __init__(self, codewords, codes_scan: np.ndarray,
+                 row_to_db: Optional[np.ndarray] = None,
+                 precision: str = "int16", fmt: str = "stream",
+                 device="cpu"):
+        if fmt != "stream":
+            raise NotImplementedError(f"tile format {fmt!r} is not ported "
+                                      f"(stream is; slots: ROADMAP B5)")
+        self._init(codewords, build_stream_tiles(np.asarray(codes_scan)),
+                   row_to_db, precision, device)
+
+    def _init(self, codewords, tiles: StreamTiles, row_to_db, precision,
+              device):
+        codewords = _common_init(self, codewords, device)
+        if self.K > 256:
+            raise NotImplementedError("the stream tier requires K <= 256")
+        self.fmt = "stream"
+        self.tiles = tiles
+        self.vals = torch.from_numpy(np.ascontiguousarray(tiles.vals)
+                                     ).to(self.device)
+        self.meta = torch.from_numpy(np.ascontiguousarray(tiles.meta)
+                                     ).to(self.device)
+        self.row_data = torch.from_numpy(
+            np.ascontiguousarray(tiles.row_data)).to(self.device)
+        self.n_valid = tiles.n_valid
+        self.precision = precision
+        _setup_precision(self, codewords, precision)
+        self.row_to_db = (torch.from_numpy(_row_ids_i32(row_to_db)).to(
+            self.device) if row_to_db is not None else None)
+
+    @classmethod
+    def from_tree(cls, codewords, tree, precision: str = "int16",
+                  fmt: str = "stream", device="cpu"
+                  ) -> "FusedCompressedEngine":
+        codes_db = tree.decode_codes()
+        order = tree.vec_id.astype(np.int64)
+        return cls(codewords, codes_db[order], row_to_db=order,
+                   precision=precision, fmt=fmt, device=device)
+
+    @classmethod
+    def from_tiles(cls, codewords, tiles: StreamTiles,
+                   row_to_db: Optional[np.ndarray] = None,
+                   precision: str = "int16", device="cpu"
+                   ) -> "FusedCompressedEngine":
+        """Engine over pre-built stream tiles (construction = upload)."""
+        self = cls.__new__(cls)
+        self._init(codewords, tiles, row_to_db, precision, device)
+        return self
+
+    def bytes_per_vec(self) -> float:
+        return self.tiles.bytes_per_vec()
 
     def scan(self, qop, uq):
         """Stage 2: the stream kernel -> (mins [NS, B], codes echo)."""
         return fk.fused_stream_mins(
             qop, self.cwbd, self.row_data, self.vals, self.meta,
             self.n_valid, self.M, u=uq, compact=self.compact)
-
-    def select(self, table, qop, uq, eq, mins, codes_echo, b: int,
-               top_k: int = 10, n_sub: Optional[int] = None):
-        """Stage 3: selection, rerank, ladder, terminal scan and the id
-        map.  Returns (dists [b, top_k], ids [b, top_k]) on the device."""
-        q2, err_r, scale2 = _quantized_query_stats(self, qop, uq, eq)
-        d, rows, frac = _select_with_escalation(
-            mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
-            err_r=err_r, scale2=scale2, engine=self)
-        self.last_exact_frac = frac
-        if self.row_to_db is not None:
-            mapped = self.row_to_db[torch.clamp(rows, 0, self.n_valid - 1)]
-            rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
-        return d[:b], rows[:b]
-
-    def query(self, queries: np.ndarray, top_k: int = 10,
-              n_sub: Optional[int] = None
-              ) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k: (dists [B, top_k] f32, ids [B, top_k] int64)."""
-        table, qop, uq, eq, b = self.prepare(queries)
-        mins, codes_echo = self.scan(qop, uq)
-        d, rows = self.select(table, qop, uq, eq, mins, codes_echo, b,
-                              top_k, n_sub)
-        return d.cpu().numpy(), rows.cpu().numpy()
 
     def save(self, path: str) -> None:
         """Persist the stream tiles, mapping and precision (the JAX
@@ -402,6 +529,132 @@ class FusedCompressedEngine:
         from ..convert import load_jax_engine
 
         return load_jax_engine(path, device=device)
+
+
+def exact_all_topk(table: torch.Tensor, codes_pad: torch.Tensor,
+                   n_valid: int, top_k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 ADC top-k over a small code array: every row's distance
+    (``adc_tile_dists``, ascending m from 0.0, so the distances are
+    bit-equal to ``adc_query_topk``'s), rows >= n_valid at +inf, then
+    one ``topk``.  The JAX package runs this as a one-hot bf16-digit
+    matmul in XLA; here it is plain PyTorch.  Returns (dists [B, top_k],
+    rows [B, top_k])."""
+    d = adc_tile_dists(table, codes_pad)
+    rows = torch.arange(codes_pad.shape[0], device=d.device)
+    d = torch.where((rows < n_valid)[None, :], d,
+                    torch.full_like(d, float("inf")))
+    return torch.topk(d, top_k, dim=1, largest=False, sorted=True)
+
+
+class DedupCompressedEngine:
+    """Duplicate-code-collapsed tier: identical codes have identical ADC
+    distances, so each DISTINCT code is scanned once and row ids are
+    expanded at result time (top-k distinct codes by exact distance
+    cover >= top_k rows).  Up to ``EXACT_ALL_MAX_ROWS`` distinct codes a
+    query reranks all of them (``exact_all_topk``); above, a compressed
+    engine scans the distinct codes at ``precision``.  The row expansion
+    (sorted permutation + CSR counts) lives on the host.
+
+    Not ported: the int8 inner engine (the JAX default, ROADMAP A3: pass
+    ``precision="int16"`` or ``"bf16"``), and the chunked and sharded
+    inner engines (ROADMAP A7, A9).
+    """
+
+    EXACT_ALL_MAX_ROWS = 65536
+    CHUNKED_MIN_ROWS = 32 * 1024 * 1024
+
+    def __init__(self, codewords, codes_db: np.ndarray,
+                 precision: str = "int8", fmt: str = "stream",
+                 device="cpu"):
+        codes_db = np.asarray(codes_db)
+        cwf = _np_f32(codewords)
+        self.device = torch.device(device)
+        self.codewords = torch.from_numpy(cwf).to(self.device)
+        self.M, _, self.Ds = cwf.shape
+        self.D = self.M * self.Ds
+        self.d_pad = -(-self.D // 128) * 128
+        order = np.lexsort(codes_db.T[::-1])
+        sc = codes_db[order]
+        new = np.ones(len(sc), bool)
+        if len(sc) > 1:
+            new[1:] = np.any(sc[1:] != sc[:-1], axis=1)
+        self.starts = np.flatnonzero(new)
+        self.counts = np.diff(np.append(self.starts, len(sc)))
+        self.order = order
+        self.n_rows = len(codes_db)
+        self._unique_codes = sc[new]
+        self.engine = None
+        self._codes_pad = None
+        if self.n_unique <= self.EXACT_ALL_MAX_ROWS:
+            n_pad = -(-self.n_unique // 1024) * 1024
+            self._codes_pad = _codes_tensor(
+                self._unique_codes, n_pad, cwf.shape[1]).to(self.device)
+        elif self.n_unique > self.CHUNKED_MIN_ROWS:
+            raise NotImplementedError(
+                "the chunked inner engine is not ported (ROADMAP A7)")
+        else:
+            self.engine = FusedCompressedEngine(
+                cwf, self._unique_codes, precision=precision, fmt=fmt,
+                device=self.device)
+
+    @property
+    def n_unique(self) -> int:
+        return len(self.starts)
+
+    def bytes_per_vec(self) -> float:
+        """Stream-tile bytes of the distinct codes amortized over ALL
+        rows (the inner engine's footprint, built or not)."""
+        return (build_stream_tiles(self._unique_codes).nbytes()
+                / max(self.n_rows, 1))
+
+    def query(self, queries: np.ndarray, top_k: int = 10
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        ku = min(top_k, self.n_unique)
+        if self._codes_pad is not None:
+            q, b = _pad_queries(np.asarray(queries, np.float32),
+                                self.d_pad)
+            table = adc_table(self.codewords,
+                              torch.from_numpy(q[:, :self.D]).to(
+                                  self.device))
+            d_u, i_u = exact_all_topk(table, self._codes_pad,
+                                      self.n_unique, ku)
+            d_u, i_u = d_u[:b].cpu().numpy(), i_u[:b].cpu().numpy()
+        else:
+            d_u, i_u = self.engine.query(queries, top_k=ku)
+        return self.expand(d_u, i_u, top_k)
+
+    def warmup(self, batch_sizes=(512,), top_k: int = 10) -> None:
+        rng = np.random.default_rng(0)
+        for b in batch_sizes:
+            q = rng.normal(size=(int(b), self.D)).astype(np.float32)
+            self.query(q, top_k=top_k)
+
+    def expand(self, d_u: np.ndarray, i_u: np.ndarray, top_k: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Unique-code results (d_u [B, ku], i_u [B, ku] unique ids, -1
+        padding) -> per-row (d [B, top_k], ids [B, top_k]): output slot f
+        maps to the unique j whose cumulative row count first exceeds f;
+        a code's duplicate rows surface in ``order`` order."""
+        d_u, i_u = np.asarray(d_u), np.asarray(i_u, np.int64)
+        B, ku = i_u.shape
+        cnt = np.where(i_u >= 0,
+                       self.counts[np.clip(i_u, 0, None)], 0)
+        csum = np.cumsum(cnt, axis=1)                      # inclusive
+        f = np.arange(top_k)
+        j = (csum[:, :, None] <= f[None, None, :]).sum(axis=1)
+        valid = (j < ku) & (f[None, :] < csum[:, -1:])
+        jc = np.minimum(j, ku - 1)
+        prev = np.concatenate(
+            [np.zeros((B, 1), csum.dtype), csum[:, :-1]], axis=1)
+        within = f[None, :] - np.take_along_axis(prev, jc, axis=1)
+        u = np.take_along_axis(i_u, jc, axis=1)
+        idx = (self.starts[np.clip(u, 0, None)]
+               + np.clip(within, 0, None))
+        ids = self.order[np.minimum(idx, len(self.order) - 1)]
+        d = np.take_along_axis(d_u, jc, axis=1)
+        return (np.where(valid, d, np.inf).astype(np.float32),
+                np.where(valid, ids, -1))
 
 
 def _np_f32(a) -> np.ndarray:

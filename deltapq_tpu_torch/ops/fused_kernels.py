@@ -1,22 +1,31 @@
 """Fused scan kernels and the selection epilogue, in PyTorch + CUDA.
 
-Counterpart of ``deltapq_tpu/ops/fused_pallas.py`` (the one module of
-the port whose name differs: its kernels are CUDA C++, not Pallas).
+Counterpart of ``deltapq_tpu/ops/fused_pallas.py`` (the module of the
+port whose name differs: its kernels are CUDA C++, not Pallas).
 
-Two hand-written Hopper kernels, each with a plain PyTorch version in
-this module and a launch count:
+Hand-written Hopper kernels, each with a plain PyTorch version in this
+module and a launch count in ``kernels.build.LAUNCHES``:
 
 * ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
-  ``_stream_mins_kernel``): decode stream tiles, int16 two-digit scan,
-  32-row subtile minima and the decoded-codes echo.
+  ``_stream_mins_kernel``): decode stream tiles, the int16 or bf16 scan,
+  32-row subtile minima and the decoded-codes echo;
+* ``fused_codes_mins`` -> ``csrc/codes_mins.cu`` (replaces
+  ``_codes_mins_kernel``): the same scan tail (``csrc/scan_tail.cuh``)
+  on resident u8 codes;
+* ``fused_decoded_mins`` -> ``csrc/decoded_mins.cu`` (replaces
+  ``_decoded_mins_kernel``): bf16 x^ . q with f32 sums over resident
+  decoded rows;
 * ``rerank_table_sums`` -> ``csrc/rerank.cu`` (replaces
   ``_rerank_kernel``): exact ascending-m f32 table sums.
 
 Each wrapper takes the plain version for a tensor on the CPU and, for a
 CUDA tensor, launches its kernel or raises: there is no fallback.
 
-The distance decomposition, the int16 digit arithmetic and the
-exactness certificate are the JAX package's; see the docstrings there.
+The scan modes follow the operand types, as in the JAX package: int8
+operands are the int16 two-digit scan (the JAX package's int8 mode is
+not ported: ROADMAP A3), bf16 operands the bf16 scan.  The distance
+decomposition, the digit arithmetic and the exactness certificate are
+the JAX package's; see the docstrings there.
 """
 
 from __future__ import annotations
@@ -29,23 +38,10 @@ import torch
 from ..kernels import build
 from .adc import no_tf32
 
-TILE = 1024   # rows per stream tile
+TILE = 1024   # rows per stream / codes tile
 SUB = 32      # rows per subtile-min
-#: tiles per chunk of the plain stream scan (bounds its [rows, B] work)
+#: tiles per chunk of the plain scans (bounds their [rows, B] work)
 REF_CHUNK_TILES = 64
-
-#: kernel launches made by the wrappers (not by the plain versions)
-LAUNCHES = {"stream_mins": 0, "rerank": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
-
 
 # --------------------------------------------------------------------------
 # Host half: codebook and query operands (NumPy, as in the JAX package)
@@ -81,10 +77,13 @@ def pack_query_grouped(qc: np.ndarray, M: int, Ds: int) -> np.ndarray:
 
 def build_blockdiag_codebook(codewords: np.ndarray,
                              center: Optional[np.ndarray] = None,
-                             dtype=np.float32) -> np.ndarray:
+                             dtype: torch.dtype = torch.bfloat16
+                             ) -> torch.Tensor:
     """[M, K, Ds] f32 -> grouped block-diagonal [G*Mg*K, Dg_pad] decode
-    matrix (minus ``center`` when given).  The port keeps f32: bf16
-    precision is not ported yet."""
+    matrix (minus ``center`` when given), a CPU tensor of ``dtype``:
+    bf16 by default, as the JAX package's (NumPy has no bf16; the cast
+    rounds to nearest even, as ``ml_dtypes`` does).  The int16
+    quantizer takes the f32 form."""
     M, K, Ds = codewords.shape
     cw = np.asarray(codewords, np.float32)
     if center is not None:
@@ -95,7 +94,7 @@ def build_blockdiag_codebook(codewords: np.ndarray,
         g, mi = divmod(m, Mg)
         out[(g * Mg + mi) * K:(g * Mg + mi + 1) * K,
             mi * Ds:(mi + 1) * Ds] = cw[m]
-    return out.astype(dtype)
+    return torch.from_numpy(out).to(dtype)
 
 
 def quantize_blockdiag_int16(cwbd_or_cw, center=None):
@@ -104,7 +103,7 @@ def quantize_blockdiag_int16(cwbd_or_cw, center=None):
     and b = A - 128a in [-64, 64]."""
     if cwbd_or_cw.ndim == 3:
         cwbd = build_blockdiag_codebook(cwbd_or_cw, center=center,
-                                        dtype=np.float32)
+                                        dtype=torch.float32).numpy()
     else:
         cwbd = np.asarray(cwbd_or_cw, np.float32)
     scale = max(float(np.abs(cwbd).max()) / 127.0, 1e-12)
@@ -117,24 +116,33 @@ def quantize_blockdiag_int16(cwbd_or_cw, center=None):
 
 def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The B1 kernel's codebook operands, built once per engine from the
-    int16 block-diagonal ``cwbd`` [M*K, 2*Dg] int8:
+    """The scan kernels' codebook operands, built once per engine from
+    the block-diagonal ``cwbd``: the nonzero blocks (each codeword's own
+    Ds dims) and per-codeword norms.
 
-    * ``cw`` [2, M, K, Ds/4] int32: the a- then b-digit planes of each
-      codeword's own Ds dims (the nonzero blocks of ``cwbd``), four
-      int8 digits per word;
-    * ``nrm`` [M, K] int64: sum over the codeword's dims of A^2,
-      A = 128a + b, exact.
+    * int16 (``cwbd`` [M*K, 2*Dg] int8): ``cw`` [2, M, K, Ds/4] int32,
+      the a- then b-digit planes, four int8 digits per word; ``nrm``
+      [M, K] int64, sum of A^2 with A = 128a + b, exact;
+    * bf16 (``cwbd`` [M*K, Dg] bf16): ``cw`` [M, K, Ds/2] int32, two
+      bf16 values per word; ``nrm`` [M, K] f32, sum of the squared bf16
+      values.
     """
-    MK, two_dg = cwbd.shape
-    K, Dg = MK // M, two_dg // 2
-    if Ds % 4:
-        raise NotImplementedError("the stream kernel needs Ds % 4 == 0")
+    MK, width = cwbd.shape
+    K = MK // M
     dev = cwbd.device
     cols = (torch.arange(M, device=dev)[:, None] * Ds
             + torch.arange(Ds, device=dev)[None, :])        # [M, Ds]
-    bd = cwbd.reshape(M, K, two_dg)
     idx = cols[:, None, :].expand(M, K, Ds)
+    bd = cwbd.reshape(M, K, width)
+    if cwbd.dtype == torch.bfloat16:
+        if Ds % 2:
+            raise NotImplementedError("the bf16 scan kernels need Ds even")
+        x = torch.gather(bd, 2, idx).contiguous()
+        xf = x.to(torch.float32)
+        return x.view(torch.int32), (xf * xf).sum(dim=2)
+    if Ds % 4:
+        raise NotImplementedError("the int16 scan kernels need Ds % 4 == 0")
+    Dg = width // 2
     a = torch.gather(bd[:, :, :Dg], 2, idx)
     b = torch.gather(bd[:, :, Dg:], 2, idx)
     cw = torch.stack([a, b]).contiguous().view(torch.int32)
@@ -142,8 +150,145 @@ def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int
     return cw, (A * A).sum(dim=2)
 
 
+def pack_xhat_tiles(xhat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
+    """[N, D] bf16 -> [nT, tile, D] bf16 (zero rows pad N to tile)."""
+    n, d = xhat.shape
+    n_pad = -(-n // tile) * tile
+    if n_pad != n:
+        xhat = torch.cat([xhat, torch.zeros((n_pad - n, d),
+                                            dtype=xhat.dtype,
+                                            device=xhat.device)])
+    return xhat.reshape(n_pad // tile, tile, d).contiguous()
+
+
 # --------------------------------------------------------------------------
-# B1: stream decode + int16 scan + subtile mins
+# The shared scan tail (plain version) and its operand checks
+# --------------------------------------------------------------------------
+
+def _scan_mode(q: torch.Tensor, cwbd: torch.Tensor, M: int) -> int:
+    """0: int16 (int8 digit operands), 1: bf16; raises otherwise."""
+    if q.dtype == torch.int8 and cwbd.dtype == torch.int8:
+        mode = 0
+    elif q.dtype == torch.bfloat16 and cwbd.dtype == torch.bfloat16:
+        mode = 1
+    else:
+        raise NotImplementedError(
+            f"the int16 (int8 digit operands) and bf16 scans are ported; "
+            f"got q {q.dtype}, cwbd {cwbd.dtype} (int8 mode: ROADMAP A3)")
+    if M > 8:
+        raise NotImplementedError("only one subspace group (M <= 8) is "
+                                  "ported (M = 16: ROADMAP A3)")
+    if cwbd.shape[1] != q.shape[0] or cwbd.shape[0] % M:
+        raise ValueError(f"cwbd {tuple(cwbd.shape)} does not match "
+                         f"q {tuple(q.shape)} and M={M}")
+    return mode
+
+
+def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
+                   cwbd: torch.Tensor, n_valid: int, M: int,
+                   u: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, float, float]:
+    """Plain version of the scan tail: codes [n_rows, M] -> (mins
+    [n_rows/32, B] f32, max pre, cross bound).  The two maxima scale the
+    f32 round-off tolerance of a kernel held against this:
+
+    * int16 (q [2*Dg, B] int8): the digit products run as f32 matmuls
+      with TF32 off and are exact (every partial sum is an integer below
+      2^24); the bound is max |u*cross|;
+    * bf16 (q [Dg, B] bf16): x^ and q hold bf16 values, whose products
+      are exact in f32; the bound is sqrt(max pre) * max ||q_b||, which
+      bounds sum |x^ q| (Cauchy-Schwarz), the size that the f32 sums'
+      round-off scales with.
+
+    Work goes in chunks of ``REF_CHUNK_TILES`` tiles to bound the
+    [rows, B] intermediates.
+    """
+    mode = _scan_mode(q, cwbd, M)
+    D2, B = q.shape
+    dev = q.device
+    n_rows = codes.shape[0]
+    K = cwbd.shape[0] // M
+    bd = cwbd.to(torch.float32).reshape(M, K, cwbd.shape[1])
+    qf = q.to(torch.float32)
+    if mode == 0:
+        Dg = D2 // 2
+        qa, qb = qf[:Dg], qf[Dg:]
+        if u is None:
+            u = torch.ones((1, B), dtype=torch.float32, device=dev)
+    mins = torch.empty((n_rows // SUB, B), dtype=torch.float32, device=dev)
+    pre_max = 0.0
+    cross_max = 0.0
+    ar_m = torch.arange(M, device=dev)
+    with no_tf32():
+        for r0 in range(0, n_rows, REF_CHUNK_TILES * TILE):
+            c = codes[r0:r0 + REF_CHUNK_TILES * TILE].to(torch.int64)
+            # block-diagonal decode: exactly one subspace is nonzero per
+            # column, so the sum over m is exact
+            x = bd[ar_m[None, :], c].sum(dim=1)
+            if mode == 0:
+                xa, xb = x[:, :Dg], x[:, Dg:]
+                A = 128.0 * xa + xb
+                pre = torch.sum(A * A, dim=1, keepdim=True)
+                caa = xa @ qa
+                p2 = xa @ qb + xb @ qa
+                cbb = xb @ qb
+                cross = ((16384.0 * caa + 128.0 * p2) + cbb) * u
+                cross_max = max(cross_max, float(cross.abs().max()))
+            else:
+                pre = torch.sum(x * x, dim=1, keepdim=True)
+                cross = x @ qf
+            d = pre - 2.0 * cross
+            rows = r0 + torch.arange(c.shape[0], device=dev)
+            d = torch.where((rows < n_valid)[:, None], d,
+                            torch.full_like(d, float("inf")))
+            mins[r0 // SUB:(r0 + c.shape[0]) // SUB] = \
+                d.reshape(-1, SUB, B).amin(dim=1)
+            pre_max = max(pre_max, float(pre.max()))
+    if mode == 1:
+        cross_max = pre_max ** 0.5 * float(torch.linalg.vector_norm(
+            qf, dim=0).max())
+    return mins, pre_max, cross_max
+
+
+def _check_operands(tensors: dict, dtypes: dict, device) -> None:
+    for name, t in tensors.items():
+        if t.device != device or not t.is_contiguous() \
+                or t.dtype != dtypes[name]:
+            raise ValueError(f"{name}: need a contiguous {dtypes[name]} "
+                             f"tensor on {device}, got {t.dtype} on "
+                             f"{t.device}")
+
+
+def _compact_operands(q, cwbd, M, compact, u, mode):
+    """Device operands of the scan-tail kernels: (cw, nrm, u, Ds), with
+    their types and shapes checked."""
+    if compact is None:
+        raise ValueError("the CUDA scan kernels need compact="
+                         "compact_codebook(cwbd, M, Ds)")
+    cw, nrm = compact
+    B = q.shape[1]
+    K = cwbd.shape[0] // M
+    if mode == 0:
+        Ds = 4 * cw.shape[3]
+        want = (2, M, K, Ds // 4)
+        dtypes = dict(cw=torch.int32, nrm=torch.int64, u=torch.float32)
+        if u is None:
+            u = torch.ones((1, B), dtype=torch.float32, device=q.device)
+    else:
+        Ds = 2 * cw.shape[2]
+        want = (M, K, Ds // 2)
+        dtypes = dict(cw=torch.int32, nrm=torch.float32, u=torch.float32)
+        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
+    _check_operands(dict(cw=cw, nrm=nrm, u=u), dtypes, q.device)
+    Dg = q.shape[0] // (2 if mode == 0 else 1)
+    if (tuple(cw.shape) != want or tuple(nrm.shape) != (M, K)
+            or M * Ds > min(Dg, 128) or K > 256 or u.numel() != B):
+        raise ValueError("scan kernel operand shapes disagree")
+    return cw, nrm, u, Ds
+
+
+# --------------------------------------------------------------------------
+# B1: stream decode + scan + subtile mins
 # --------------------------------------------------------------------------
 
 def decode_stream_tiles_torch(row_data: torch.Tensor, vals: torch.Tensor,
@@ -168,75 +313,28 @@ def decode_stream_tiles_torch(row_data: torch.Tensor, vals: torch.Tensor,
     return H.reshape(nt * T, M)
 
 
+def _check_stream_args(q, cwbd, row_data, M) -> int:
+    mode = _scan_mode(q, cwbd, M)
+    if row_data.dtype != torch.uint8 or row_data.shape[1] != 1:
+        raise ValueError("row_data must be u8 [nT, 1, TILE]")
+    return mode
+
+
 def fused_stream_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
                           row_data: torch.Tensor, vals: torch.Tensor,
                           meta: torch.Tensor, n_valid: int, M: int,
                           u: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      float, float]:
-    """Plain PyTorch version of ``fused_stream_mins`` (int16, one group).
+    """Plain PyTorch version of ``fused_stream_mins`` (one group).
 
-    Returns (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre,
-    max |u*cross|); the two maxima scale the f32 round-off tolerance.
-    The digit products run as f32 matmuls with TF32 off: they are exact,
-    because every partial sum is an integer below 2^24
-    (|aa| <= 127^2*128 ~ 2.1e6 at D = 128).  Work goes in chunks of
-    ``REF_CHUNK_TILES`` tiles to bound the [rows, B] intermediates.
-    """
+    Returns (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre, cross
+    bound); see ``_scan_tail_ref`` for the two maxima."""
     _check_stream_args(q, cwbd, row_data, M)
-    D2, B = q.shape
-    Dg = D2 // 2
-    if u is None:
-        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
     codes = decode_stream_tiles_torch(row_data, vals, meta, M)
-    n_rows = codes.shape[0]
-    K = cwbd.shape[0] // M
-    bd = cwbd.to(torch.float32).reshape(M, K, 2 * Dg)
-    qf = q.to(torch.float32)
-    qa, qb = qf[:Dg], qf[Dg:]
-    mins = torch.empty((n_rows // SUB, B), dtype=torch.float32,
-                       device=q.device)
-    pre_max = 0.0
-    cross_max = 0.0
-    ar_m = torch.arange(M, device=q.device)
-    with no_tf32():
-        for r0 in range(0, n_rows, REF_CHUNK_TILES * TILE):
-            c = codes[r0:r0 + REF_CHUNK_TILES * TILE]
-            # block-diagonal decode: exactly one subspace is nonzero per
-            # column, so the sum over m is exact
-            x_ab = bd[ar_m[None, :], c].sum(dim=1)          # [n, 2*Dg]
-            xa, xb = x_ab[:, :Dg], x_ab[:, Dg:]
-            A = 128.0 * xa + xb
-            pre = torch.sum(A * A, dim=1, keepdim=True)
-            caa = xa @ qa
-            p2 = xa @ qb + xb @ qa
-            cbb = xb @ qb
-            cross = (16384.0 * caa + 128.0 * p2) + cbb
-            cross = cross * u
-            d = pre - 2.0 * cross
-            rows = r0 + torch.arange(c.shape[0], device=q.device)
-            d = torch.where((rows < n_valid)[:, None], d,
-                            torch.full_like(d, float("inf")))
-            mins[r0 // SUB:(r0 + c.shape[0]) // SUB] = \
-                d.reshape(-1, SUB, B).amin(dim=1)
-            pre_max = max(pre_max, float(pre.max()))
-            cross_max = max(cross_max, float(cross.abs().max()))
+    mins, pre_max, cross_max = _scan_tail_ref(codes, q, cwbd, n_valid, M,
+                                              u=u)
     return mins, codes.to(torch.uint8), pre_max, cross_max
-
-
-def _check_stream_args(q, cwbd, row_data, M):
-    if q.dtype != torch.int8 or cwbd.dtype != torch.int8:
-        raise NotImplementedError(
-            f"only the int16 scan (int8 digit operands) is ported, got "
-            f"q {q.dtype}, cwbd {cwbd.dtype}")
-    if M > 8:
-        raise NotImplementedError("only one subspace group (M <= 8) is "
-                                  "ported")
-    if row_data.dtype != torch.uint8 or row_data.shape[1] != 1:
-        raise ValueError("row_data must be u8 [nT, 1, TILE]")
-    if cwbd.shape[1] != q.shape[0] or cwbd.shape[0] % M:
-        raise ValueError(f"cwbd {tuple(cwbd.shape)} does not match "
-                         f"q {tuple(q.shape)} and M={M}")
 
 
 def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
@@ -246,43 +344,27 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                       compact: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stream tier int16 scan: q [2*Dg, B] int8 digit planes; cwbd [M*K, 2*Dg]
-    int8; row_data [nT, 1, TILE] u8; vals [A, 8, 128] u8; meta [2, nT]
-    i32; u [1, B] f32.  Returns (mins [nT*32, B] f32, decoded codes
-    [nT*TILE, M] u8).
+    """Stream tier scan.  int16: q [2*Dg, B] int8 digit planes, cwbd
+    [M*K, 2*Dg] int8, u [1, B] f32; bf16: q [Dg, B] bf16, cwbd [M*K, Dg]
+    bf16, no u.  row_data [nT, 1, TILE] u8; vals [A, 8, 128] u8; meta
+    [2, nT] i32.  Returns (mins [nT*32, B] f32, decoded codes [nT*TILE,
+    M] u8).
 
     On CUDA tensors this launches ``csrc/stream_mins.cu``; ``compact``
     is ``compact_codebook(cwbd, M, Ds)`` (the kernel needs Ds, which
     ``cwbd`` does not carry).  On CPU tensors it runs the plain version.
     """
-    _check_stream_args(q, cwbd, row_data, M)
+    mode = _check_stream_args(q, cwbd, row_data, M)
     if q.device.type == "cpu":
         return fused_stream_mins_ref(q, cwbd, row_data, vals, meta,
                                      n_valid, M, u=u)[:2]
-    if compact is None:
-        raise ValueError("the CUDA stream kernel needs compact="
-                         "compact_codebook(cwbd, M, Ds)")
-    cw, nrm = compact
+    cw, nrm, u, Ds = _compact_operands(q, cwbd, M, compact, u, mode)
+    _check_operands(dict(q=q, row_data=row_data, vals=vals, meta=meta),
+                    dict(q=q.dtype, row_data=torch.uint8,
+                         vals=torch.uint8, meta=torch.int32), q.device)
     D2, B = q.shape
     nt = row_data.shape[0]
-    K = cwbd.shape[0] // M
-    Ds = 4 * cw.shape[3]
-    if u is None:
-        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
-    tensors = dict(q=q, cw=cw, nrm=nrm, row_data=row_data, vals=vals,
-                   meta=meta, u=u)
-    dtypes = dict(q=torch.int8, cw=torch.int32, nrm=torch.int64,
-                  row_data=torch.uint8, vals=torch.uint8,
-                  meta=torch.int32, u=torch.float32)
-    for name, t in tensors.items():
-        if t.device != q.device or not t.is_contiguous() \
-                or t.dtype != dtypes[name]:
-            raise ValueError(f"{name}: need a contiguous {dtypes[name]} "
-                             f"tensor on {q.device}, got {t.dtype} on "
-                             f"{t.device}")
-    if (tuple(cw.shape) != (2, M, K, Ds // 4) or tuple(nrm.shape) != (M, K)
-            or M * Ds > D2 // 2 or K > 256 or row_data.shape[2] != TILE
-            or tuple(meta.shape) != (2, nt) or u.numel() != B):
+    if row_data.shape[2] != TILE or tuple(meta.shape) != (2, nt):
         raise ValueError("stream kernel operand shapes disagree")
     mins = torch.empty((nt * (TILE // SUB), B), dtype=torch.float32,
                        device=q.device)
@@ -291,10 +373,138 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
     err = build.library().stream_mins_launch(
         q.data_ptr(), cw.data_ptr(), nrm.data_ptr(), row_data.data_ptr(),
         vals.data_ptr(), meta.data_ptr(), u.data_ptr(), mins.data_ptr(),
-        codes.data_ptr(), B, D2 // 2, nt, int(n_valid), M, K, Ds, stream)
+        codes.data_ptr(), B, D2 // (2 if mode == 0 else 1), nt,
+        int(n_valid), M, cwbd.shape[0] // M, Ds, mode, stream)
     build.check(err, "stream_mins")
-    LAUNCHES["stream_mins"] += 1
+    build.count("stream_mins" if mode == 0 else "stream_mins_bf16")
     return mins, codes
+
+
+# --------------------------------------------------------------------------
+# B3: codes tier (resident u8 codes + the scan tail)
+# --------------------------------------------------------------------------
+
+def _check_codes_args(q, cwbd, codes) -> int:
+    n_pad, M = codes.shape
+    mode = _scan_mode(q, cwbd, M)
+    if codes.dtype != torch.uint8 or n_pad % TILE:
+        raise ValueError("codes must be u8 [N_pad, M], N_pad % 1024 == 0")
+    return mode
+
+
+def fused_codes_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
+                         codes: torch.Tensor, n_valid: int,
+                         u: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    float, float]:
+    """Plain PyTorch version of ``fused_codes_mins``: (mins, codes echo,
+    max pre, cross bound); see ``_scan_tail_ref``."""
+    _check_codes_args(q, cwbd, codes)
+    mins, pre_max, cross_max = _scan_tail_ref(codes, q, cwbd, n_valid,
+                                              codes.shape[1], u=u)
+    return mins, codes, pre_max, cross_max
+
+
+def fused_codes_mins(q: torch.Tensor, cwbd: torch.Tensor,
+                     codes: torch.Tensor, n_valid: int,
+                     u: Optional[torch.Tensor] = None,
+                     compact: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codes tier scan: q and cwbd as in ``fused_stream_mins``; codes
+    [N_pad, M] u8.  Returns (mins [N_pad/32, B] f32, codes echo): the
+    echo is ``codes`` itself (the kernel's input, unchanged).
+
+    On CUDA tensors this launches ``csrc/codes_mins.cu``; on CPU tensors
+    it runs the plain version."""
+    mode = _check_codes_args(q, cwbd, codes)
+    if q.device.type == "cpu":
+        return fused_codes_mins_ref(q, cwbd, codes, n_valid, u=u)[:2]
+    n_pad, M = codes.shape
+    cw, nrm, u, Ds = _compact_operands(q, cwbd, M, compact, u, mode)
+    _check_operands(dict(q=q, codes=codes),
+                    dict(q=q.dtype, codes=torch.uint8), q.device)
+    D2, B = q.shape
+    nt = n_pad // TILE
+    mins = torch.empty((nt * (TILE // SUB), B), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = build.library().codes_mins_launch(
+        q.data_ptr(), cw.data_ptr(), nrm.data_ptr(), codes.data_ptr(),
+        u.data_ptr(), mins.data_ptr(), B, D2 // (2 if mode == 0 else 1),
+        nt, int(n_valid), M, cwbd.shape[0] // M, Ds, mode, stream)
+    build.check(err, "codes_mins")
+    build.count("codes_mins_int16" if mode == 0 else "codes_mins")
+    return mins, codes
+
+
+# --------------------------------------------------------------------------
+# B4: decoded tier (resident bf16 x^ rows)
+# --------------------------------------------------------------------------
+
+def _check_decoded_args(q, xt):
+    if q.dtype != torch.bfloat16 or xt.dtype != torch.bfloat16 \
+            or xt.dim() != 3 or xt.shape[2] != q.shape[0] \
+            or xt.shape[1] % SUB:
+        raise ValueError("decoded scan: q [D, B] bf16 and xt [nT, tile, D] "
+                         "bf16 with tile % 32 == 0 required")
+
+
+def fused_decoded_mins_ref(q: torch.Tensor, xt: torch.Tensor,
+                           n_valid: int
+                           ) -> Tuple[torch.Tensor, float, float]:
+    """Plain version of ``fused_decoded_mins``: (mins, max pre, cross
+    bound), the bound as in the bf16 mode of ``_scan_tail_ref``."""
+    _check_decoded_args(q, xt)
+    D, B = q.shape
+    x_all = xt.reshape(-1, D)
+    n_rows = x_all.shape[0]
+    qf = q.to(torch.float32)
+    mins = torch.empty((n_rows // SUB, B), dtype=torch.float32,
+                       device=q.device)
+    pre_max = 0.0
+    step = REF_CHUNK_TILES * TILE
+    with no_tf32():
+        for r0 in range(0, n_rows, step):
+            x = x_all[r0:r0 + step].to(torch.float32)
+            pre = torch.sum(x * x, dim=1, keepdim=True)
+            d = pre - 2.0 * (x @ qf)
+            rows = r0 + torch.arange(x.shape[0], device=q.device)
+            d = torch.where((rows < n_valid)[:, None], d,
+                            torch.full_like(d, float("inf")))
+            mins[r0 // SUB:(r0 + x.shape[0]) // SUB] = \
+                d.reshape(-1, SUB, B).amin(dim=1)
+            pre_max = max(pre_max, float(pre.max()))
+    cross_max = pre_max ** 0.5 * float(torch.linalg.vector_norm(
+        qf, dim=0).max())
+    return mins, pre_max, cross_max
+
+
+def fused_decoded_mins(q: torch.Tensor, xt: torch.Tensor, n_valid: int
+                       ) -> torch.Tensor:
+    """Subtile minima [N_pad/32, B] of ``pre - 2 cross`` over the whole
+    database: q [D, B] bf16, xt [nT, tile, D] bf16; rows >= n_valid map
+    to +inf.  On CUDA tensors this launches ``csrc/decoded_mins.cu``; on
+    CPU tensors it runs the plain version."""
+    _check_decoded_args(q, xt)
+    if q.device.type == "cpu":
+        return fused_decoded_mins_ref(q, xt, n_valid)[0]
+    _check_operands(dict(q=q, xt=xt),
+                    dict(q=torch.bfloat16, xt=torch.bfloat16), q.device)
+    D, B = q.shape
+    if D % 8 or D > 128:
+        raise NotImplementedError("the decoded kernel takes D % 8 == 0, "
+                                  "D <= 128")
+    n_rows = xt.shape[0] * xt.shape[1]
+    mins = torch.empty((n_rows // SUB, B), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = build.library().decoded_mins_launch(
+        q.data_ptr(), xt.data_ptr(), mins.data_ptr(), B, D, n_rows,
+        int(n_valid), stream)
+    build.check(err, "decoded_mins")
+    build.count("decoded_mins")
+    return mins
 
 
 # --------------------------------------------------------------------------
@@ -317,14 +527,14 @@ def rerank_table_sums_ref(tab_flat: torch.Tensor, cand_codes: torch.Tensor
 
 def rerank_table_sums(tab_flat: torch.Tensor, cand_codes: torch.Tensor
                       ) -> torch.Tensor:
-    """tab_flat [B, M*K] f32; cand_codes [B, M, S] u8 -> exact f32
-    distances [B, S]."""
+    """tab_flat [B, M*K] f32; cand_codes [B, M, S] u8 (int32 for K > 256)
+    -> exact f32 distances [B, S]."""
     B, MK = tab_flat.shape
     Bc, M, S = cand_codes.shape
     if Bc != B or MK % M or tab_flat.dtype != torch.float32 \
-            or cand_codes.dtype != torch.uint8:
+            or cand_codes.dtype not in (torch.uint8, torch.int32):
         raise ValueError("rerank: tab_flat [B, M*K] f32 and cand_codes "
-                         "[B, M, S] u8 required")
+                         "[B, M, S] u8/i32 required")
     if tab_flat.device.type == "cpu":
         return rerank_table_sums_ref(tab_flat, cand_codes)
     if cand_codes.device != tab_flat.device or MK > 12288 \
@@ -336,9 +546,9 @@ def rerank_table_sums(tab_flat: torch.Tensor, cand_codes: torch.Tensor
     stream = torch.cuda.current_stream(tab_flat.device).cuda_stream
     err = build.library().rerank_launch(
         tab_flat.data_ptr(), cand_codes.data_ptr(), out.data_ptr(),
-        B, M, MK // M, S, stream)
+        B, M, MK // M, S, cand_codes.element_size(), stream)
     build.check(err, "rerank")
-    LAUNCHES["rerank"] += 1
+    build.count("rerank")
     return out
 
 

@@ -1,18 +1,19 @@
 """DeltaTree layout: edges -> DFS-ordered structure-of-arrays.
 
-A NumPy copy of the light build of ``deltapq_tpu/tree/layout.py``
-(``build_layout(..., tables="skip")``): parents from edges, CSR
-adjacency with children in natural order, the explicit-stack DFS
-numbering, and per-node diff lists vs the parent.  The pruning bounds
-(``max_dist``, ``max_dist2p``) are zero in the light build, as in the
-original; the table-driven build is not ported yet.  The port uses the
-Python DFS: it loads no native library.  The tests hold ``vec_id`` and
-the diff arrays equal to the original's.
+A NumPy copy of ``deltapq_tpu/tree/layout.py``: parents from edges, the
+per-node pruning bounds from the K x K inter-centroid tables
+(``mkk_tables``, ``ancestor_max_dists``; zero in the light build,
+``tables="skip"``), CSR adjacency with children ordered by descending
+``max_dist2p`` (natural order in the light build) or by code, the
+explicit-stack DFS numbering, and per-node diff lists vs the parent.
+The port uses the Python DFS: it loads no native library.  The tests
+hold every field equal to the original's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -30,7 +31,7 @@ class DeltaTree:
     diff_to: np.ndarray       # [n_diffs_total] uint8/uint16 new centroid
     child_pos_start: np.ndarray  # [N] uint32
     child_num: np.ndarray     # [N] uint32: number of DFS descendants
-    max_dist: np.ndarray      # [N] float32 (zero in the light build)
+    max_dist: np.ndarray      # [N] float32 (sqrt'd; zero in the light build)
     max_dist2p: np.ndarray    # [N] float32 (zero in the light build)
     root_id: int
     M: int
@@ -72,26 +73,90 @@ def _ragged_indices(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     return rep_starts + offs
 
 
+def mkk_tables(codewords: np.ndarray) -> np.ndarray:
+    """Inter-centroid squared-L2 tables [M, K, K]."""
+    cw = np.asarray(codewords, np.float32)
+    c2 = np.sum(cw * cw, axis=2)
+    cross = np.einsum("mkd,mjd->mkj", cw, cw)
+    return c2[:, :, None] - 2.0 * cross + c2[:, None, :]
+
+
+def table_code_dists(tables: np.ndarray, codes: np.ndarray,
+                     ids_a: np.ndarray, ids_b: np.ndarray) -> np.ndarray:
+    """Approximate inter-code distance via the K x K tables."""
+    M = codes.shape[1]
+    out = np.zeros(len(ids_a), np.float32)
+    ca = codes[ids_a]
+    cb = codes[ids_b]
+    for m in range(M):
+        out += tables[m][ca[:, m].astype(np.int64),
+                         cb[:, m].astype(np.int64)]
+    return out
+
+
+def ancestor_max_dists(codes: np.ndarray, parents: np.ndarray,
+                       tables: np.ndarray, max_hops: int = 16):
+    """Vectorized ancestor-chain walk: for every node v and each of its
+    first ``max_hops`` ancestors a, ``max_dists[a] = max(.., d(v, a))``
+    and ``max_dist2p[prev] = max(.., d(v, a))``, prev being the child of
+    a on v's path."""
+    n = len(parents)
+    max_dists = np.zeros(n, np.float32)
+    max_dist2p = np.zeros(n, np.float32)
+    vids = np.arange(n, dtype=np.int64)
+    prev = vids.copy()
+    anc = parents.astype(np.int64)
+    for _ in range(max_hops):
+        mask = anc >= 0
+        if not mask.any():
+            break
+        v = vids[mask]
+        a = anc[mask]
+        d = table_code_dists(tables, codes, v, a)
+        np.maximum.at(max_dists, a, d)
+        np.maximum.at(max_dist2p, prev[mask], d)
+        prev = np.where(mask, anc, prev)
+        anc = np.where(mask, parents[np.maximum(anc, 0)].astype(np.int64),
+                       -1)
+    return max_dists, max_dist2p
+
+
 def build_layout(codes: np.ndarray, edges: np.ndarray, root_id: int,
-                 K: int, tables="skip") -> DeltaTree:
+                 K: int, codewords: Optional[np.ndarray] = None,
+                 tables=None, child_order: str = "dist") -> DeltaTree:
     """edges [E, 2] (parent, child) + root -> DFS SoA DeltaTree.
 
-    Only ``tables="skip"`` (the light build the compressed engine uses)
-    is ported; children stay in natural order under each parent.
+    tables: [M, K, K] inter-centroid distances (computed from
+    ``codewords`` when None), or "skip" for the light build: zero
+    pruning bounds and children in natural order.  child_order: "dist"
+    = descending max_dist2p, "code" = lexicographic by child code.
     """
-    if not (isinstance(tables, str) and tables == "skip"):
-        raise NotImplementedError("only build_layout(tables='skip') is "
-                                  "ported")
     codes = np.asarray(codes)
     n, M = codes.shape
     parents = np.full(n, -1, np.int64)
     if len(edges):
         parents[edges[:, 1].astype(np.int64)] = edges[:, 0]
 
-    # CSR adjacency, children sorted by parent (stable: natural order)
+    light = isinstance(tables, str) and tables == "skip"
+    if tables is None:
+        if codewords is None:
+            raise ValueError("need codewords or precomputed mkk tables")
+        tables = mkk_tables(codewords)
+    if light:
+        max_dists = np.zeros(n, np.float32)
+        max_dist2p = np.zeros(n, np.float32)
+    else:
+        max_dists, max_dist2p = ancestor_max_dists(codes, parents, tables)
+
+    # CSR adjacency with children sorted per child_order
     child = np.flatnonzero(parents >= 0)
     par = parents[child]
-    order = np.argsort(par, kind="stable")
+    if child_order == "code":
+        ckeys = codes[child]
+        order = np.lexsort(tuple(ckeys[:, m] for m in range(M - 1, -1, -1))
+                           + (par,))
+    else:
+        order = np.lexsort((-max_dist2p[child], par))
     child_sorted = child[order]
     par_sorted = par[order]
     counts = np.bincount(par_sorted, minlength=n)
@@ -154,11 +219,11 @@ def build_layout(codes: np.ndarray, edges: np.ndarray, root_id: int,
     diff_off = np.concatenate(
         [[0], np.cumsum(diff_num.astype(np.int64))])
     rows, cols = np.nonzero(diff_mask)
-    zeros = np.zeros(n, np.float32)
+    at = dfs_vec.astype(np.int64)
 
     return DeltaTree(
         vec_id=dfs_vec, parent_pos=dfs_parent, depth=dfs_depth,
         diff_num=diff_num, diff_off=diff_off, diff_m=cols.astype(np.uint8),
         diff_to=codes_dfs[rows, cols], child_pos_start=child_pos_start,
-        child_num=child_num, max_dist=zeros, max_dist2p=zeros.copy(),
-        root_id=int(root_id), M=M, K=K)
+        child_num=child_num, max_dist=np.sqrt(max_dists[at]),
+        max_dist2p=np.sqrt(max_dist2p[at]), root_id=int(root_id), M=M, K=K)

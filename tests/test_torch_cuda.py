@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import fused as pfused
 from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
@@ -46,11 +47,11 @@ def test_stream_kernel_matches_plain(cuda, n, M, K, Ds, B):
     rng = np.random.default_rng(n)
     eng = _engine(rng, n, M, K, Ds, cuda)
     q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
-    table, qop, uq, eq, b = eng.prepare(q)
-    before = fk.launch_counts()["stream_mins"]
+    table, qop, uq, cert, b = eng.prepare(q)
+    before = build.launch_counts()["stream_mins"]
     mins, codes = eng.scan(qop, uq)
     torch.cuda.synchronize()
-    assert fk.launch_counts()["stream_mins"] == before + 1
+    assert build.launch_counts()["stream_mins"] == before + 1
     ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
         qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
         M, u=uq)
@@ -62,12 +63,13 @@ def test_stream_kernel_matches_plain(cuda, n, M, K, Ds, B):
 
 
 @pytest.mark.parametrize("B,M,K,S", [(64, 8, 256, 5000), (8, 4, 32, 65536),
-                                     (3, 8, 16, 1)])
+                                     (3, 8, 16, 1), (16, 8, 512, 3000)])
 def test_rerank_kernel_bit_equal(cuda, B, M, K, S):
+    """u8 candidate codes, and int32 ones for K > 256."""
     g = torch.Generator(device=cuda).manual_seed(S)
     tab = torch.randn((B, M * K), generator=g, device=cuda) * 100
     cand = torch.randint(0, K, (B, M, S), generator=g, device=cuda,
-                         dtype=torch.uint8)
+                         dtype=torch.uint8 if K <= 256 else torch.int32)
     out = fk.rerank_table_sums(tab, cand)
     assert torch.equal(out, fk.rerank_table_sums_ref(tab, cand))
 
@@ -77,9 +79,9 @@ def test_engine_exact_on_card(cuda):
     n, M, K, Ds = 20000, 8, 256, 16
     eng = _engine(rng, n, M, K, Ds, cuda)
     q = rng.normal(size=(300, M * Ds)).astype(np.float32) * 3
-    fk.reset_launch_counts()
+    build.reset_launch_counts()
     d, i = eng.query(q, top_k=10)
-    counts = fk.launch_counts()
+    counts = build.launch_counts()
     assert counts["stream_mins"] == 1 and counts["rerank"] >= 1
     table = eng.prepare(q)[0][:len(q)]     # the engine's own table
     codes = torch.from_numpy(pad_codes(decode_stream_tiles(eng.tiles),
@@ -107,14 +109,13 @@ def test_ladder_and_terminal_scan_on_card(cuda):
     n, M, K, Ds = 20000, 8, 256, 16
     eng = _engine(rng, n, M, K, Ds, cuda)
     q = rng.normal(size=(256, M * Ds)).astype(np.float32) * 3
-    table, qop, uq, eq, b = eng.prepare(q)
+    table, qop, uq, (q2, err_r, scale2), b = eng.prepare(q)
     mins, echo = eng.scan(qop, uq)
-    q2, err_r, scale2 = pfused._quantized_query_stats(eng, qop, uq, eq)
-    fk.reset_launch_counts()
+    build.reset_launch_counts()
     d, rows, ok, ok1 = pfused.fused_select_esc(
         mins, q2, table, echo, eng.n_valid, 10, (1, 2, 4), 1,
         err_r=err_r, scale2=scale2, final_exact=True)
-    assert fk.launch_counts()["rerank"] == 3
+    assert build.launch_counts()["rerank"] == 3
     assert not bool(ok.all())                # the terminal scan ran
     dr, _ = adc_query_topk(table, echo, eng.n_valid, 10, 1024)
     assert torch.equal(d, dr)
@@ -124,3 +125,139 @@ def test_ladder_and_terminal_scan_on_card(cuda):
     de, _ = eng.query(q, top_k=10)
     assert eng.last_exact_frac < 1.0         # the first rung failed
     assert np.array_equal(de, dr[:b].cpu().numpy())
+
+
+# ---- the index tiers' kernels ------------------------------------------
+
+def _bf16_tol(pre_max, cross_max):
+    """f32 sums of exact bf16 products, in two orders: each side is off
+    by at most ~D * 2^-24 of sum |terms| (D <= 128), and sum |x^ q| <=
+    the cross bound; 2e-5 covers both sides."""
+    return 2e-5 * (pre_max + 2 * cross_max)
+
+
+def _assert_mins(mins, ref, tol):
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(mins))
+    assert float((mins[fin] - ref[fin]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n,M,K,Ds,B", [(9000, 8, 256, 16, 200),
+                                        (3000, 4, 32, 4, 128),
+                                        (5000, 8, 64, 2, 70)])
+def test_stream_kernel_bf16_matches_plain(cuda, n, M, K, Ds, B):
+    rng = np.random.default_rng(n + 1)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    eng = FusedCompressedEngine(cw, _codes(rng, n, M, K), precision="bf16",
+                                device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    assert qop.dtype == torch.bfloat16 and uq is None
+    before = build.launch_counts()["stream_mins_bf16"]
+    mins, codes = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["stream_mins_bf16"] == before + 1
+    ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M)
+    assert torch.equal(codes, ref_c)
+    _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int16"])
+@pytest.mark.parametrize("n,M,K,Ds,B", [(9000, 8, 256, 16, 200),
+                                        (3000, 4, 32, 4, 64)])
+def test_codes_kernel_matches_plain(cuda, precision, n, M, K, Ds, B):
+    rng = np.random.default_rng(n + 2)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    eng = pfused.FusedCodesEngine(cw, _codes(rng, n, M, K),
+                                  precision=precision, device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    key = "codes_mins" if precision == "bf16" else "codes_mins_int16"
+    before = build.launch_counts()[key]
+    mins, echo = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    assert echo is eng.codes
+    ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(
+        qop, eng.cwbd, eng.codes, eng.n_valid, u=uq)
+    tol = (_bf16_tol(pre_max, cross_max) if precision == "bf16"
+           else 4e-6 * (pre_max + 2 * cross_max))
+    _assert_mins(mins, ref_m, tol)
+
+
+@pytest.mark.parametrize("n,M,K,Ds,B,tile", [(20000, 8, 256, 16, 200, 8192),
+                                             (3000, 4, 16, 8, 64, 1024)])
+def test_decoded_kernel_matches_plain(cuda, n, M, K, Ds, B, tile):
+    rng = np.random.default_rng(n + 3)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    eng = pfused.FusedDecodedEngine(cw, _codes(rng, n, M, K), tile=tile,
+                                    device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    before = build.launch_counts()["decoded_mins"]
+    mins, _ = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["decoded_mins"] == before + 1
+    ref_m, pre_max, cross_max = fk.fused_decoded_mins_ref(qop, eng.xt, n)
+    _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))
+
+
+@pytest.mark.parametrize("B,M,K,n,tile,k", [(200, 8, 256, 20000, 4096, 10),
+                                            (37, 4, 16, 3000, 1024, 7),
+                                            (20, 8, 512, 9000, 4096, 10),
+                                            (16, 8, 16, 300, 256, 40)])
+def test_adc_topk_kernel_bit_equal(cuda, B, M, K, n, tile, k):
+    """Padding rows, K > 256 (int32 codes), duplicate rows (ties) and a
+    top_k beyond a tile's valid rows."""
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    rng = np.random.default_rng(n + k)
+    table = torch.from_numpy(rng.normal(size=(B, M, K)).astype(np.float32)
+                             ).to(cuda)
+    dt = np.uint8 if K <= 256 else np.int32
+    codes = torch.from_numpy(pad_codes(
+        _codes(rng, n, M, min(K, 256)).astype(dt), tile)).to(cuda)
+    if K > 256:
+        codes[::3, 0] = 300
+    before = build.launch_counts()["adc_topk"]
+    d, i = ak.adc_topk_tiles(table, codes, n, k, tile)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["adc_topk"] == before + 1
+    rd, ri = ak.adc_topk_tiles_ref(table, codes, n, k, tile)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+    dm, _ = ak.adc_topk_pallas(table, codes, n, k, tile)
+    dr, _ = adc_query_topk(table, pad_codes(codes, 1024), n, k, 1024)
+    assert torch.equal(dm, dr)
+
+
+@pytest.mark.parametrize("engine", ["fused", "fused_codes",
+                                    "fused_compressed", "fused_dedup",
+                                    "pallas", "auto"])
+def test_index_search_on_card(cuda, engine):
+    """One index search per engine on the card: distances bit-equal to
+    the plain exact scan over the same table."""
+    from deltapq_tpu_torch.index import DeltaPQIndex
+    from deltapq_tpu_torch.ops.adc import adc_table
+
+    rng = np.random.default_rng(7)
+    M, K, Ds, n = 8, 256, 16, 20000
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    idx = DeltaPQIndex(cw, codes, engine=engine, device=cuda)
+    q = rng.normal(size=(300, M * Ds)).astype(np.float32) * 3
+    build.reset_launch_counts()
+    d, i = idx.search(q, top_k=10)
+    counts = build.launch_counts()
+    key = {"fused": "decoded_mins", "fused_codes": "codes_mins",
+           "fused_compressed": "stream_mins_bf16",
+           "pallas": "adc_topk"}.get(engine)     # auto: fused_dedup here
+    if key:
+        assert counts[key] >= 1, counts
+    table = adc_table(torch.from_numpy(cw).to(cuda),
+                      torch.from_numpy(q).to(cuda))
+    dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024)
+                                                   ).to(cuda), n, 10, 1024)
+    assert np.array_equal(d, dr.cpu().numpy())
+    assert torch.equal(_own_dists(table, torch.from_numpy(codes).to(cuda),
+                                  torch.from_numpy(i).to(cuda)), dr)

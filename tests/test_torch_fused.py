@@ -12,6 +12,7 @@ from deltapq_tpu.ops import fused_pallas as jfp
 from deltapq_tpu.ops import fused as jfused
 from deltapq_tpu.ops.adc import adc_table as j_adc_table
 from deltapq_tpu_torch.convert import engine_state_from_numpy, load_jax_engine
+from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import fused as pfused
 from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
@@ -63,8 +64,13 @@ def test_host_operands_equal(case):
     mu = jfp.codebook_center(cw)
     assert np.array_equal(fk.codebook_center(cw), mu)
     assert fk.group_geometry(M, Ds) == jfp.group_geometry(M, Ds)
-    assert np.array_equal(fk.build_blockdiag_codebook(cw, mu),
-                          jfp.build_blockdiag_codebook(cw, mu, np.float32))
+    assert np.array_equal(
+        fk.build_blockdiag_codebook(cw, mu, torch.float32).numpy(),
+        jfp.build_blockdiag_codebook(cw, mu, np.float32))
+    # the bf16 default, bit for bit
+    assert np.array_equal(
+        fk.build_blockdiag_codebook(cw, mu).view(torch.int16).numpy(),
+        np.asarray(jfp.build_blockdiag_codebook(cw, mu)).view(np.int16))
     a, sa = fk.quantize_blockdiag_int16(cw, center=mu)
     b, sb = jfp.quantize_blockdiag_int16(cw, center=mu)
     assert sa == sb and np.array_equal(a, b)
@@ -94,9 +100,9 @@ def test_stream_mins_plain_matches_jax_kernel(case):
     tol = 4e-6 * (pre_max + 2 * cross_max)
     assert np.abs(mins.numpy()[fin] - jm[fin]).max() <= tol
     # the wrapper takes the plain version for CPU tensors, unlaunched
-    before = fk.launch_counts()
+    before = build.launch_counts()
     m2, e2 = peng.scan(qop, uq)
-    assert fk.launch_counts() == before
+    assert build.launch_counts() == before
     assert torch.equal(m2, mins) and torch.equal(e2, echo)
 
 
@@ -229,11 +235,16 @@ def test_engine_save_load_keeps_precision(case, tmp_path):
     d0, i0 = peng.query(queries, top_k=TOPK)
     d1, i1 = back.query(queries, top_k=TOPK)
     assert np.array_equal(d0, d1) and np.array_equal(i0, i1)
-    # a saved precision the port lacks is honoured, not rebuilt as int16
+    # a saved precision is honoured, not rebuilt as int16
     state["precision"] = np.array("bf16")
     np.savez(str(tmp_path / "bf16_engine"), **state)
-    with pytest.raises(NotImplementedError):
-        FusedCompressedEngine.load(str(tmp_path / "bf16_engine"))
+    back16 = FusedCompressedEngine.load(str(tmp_path / "bf16_engine"))
+    assert back16.precision == "bf16"
+    assert back16.cwbd.dtype == torch.bfloat16
+    d2, _ = back16.query(queries, top_k=TOPK)
+    assert np.array_equal(d2, d0)              # exact in every precision
+    # ... and one the port lacks raises
+    state["precision"] = np.array("int8")
     with pytest.raises(NotImplementedError):
         engine_state_from_numpy(state)
 
@@ -259,14 +270,13 @@ def test_engine_from_tree_and_warmup(case):
 def test_unported_modes_raise(case):
     cw, codes = case["cw"], case["codes"]
     with pytest.raises(NotImplementedError):
-        FusedCompressedEngine(cw, codes, precision="bf16")
-    with pytest.raises(NotImplementedError):
         FusedCompressedEngine(cw, codes, fmt="slots")
     with pytest.raises(NotImplementedError):
         FusedCompressedEngine(cw, codes, precision="int8")
     peng = case["peng"]
     qop = torch.from_numpy(case["qop"])
-    # the bf16 mode's operands, and more than one subspace group
+    # mixed operand types (bf16 queries, int8 codebook), and more than
+    # one subspace group
     with pytest.raises(NotImplementedError):
         fk.fused_stream_mins(qop.to(torch.bfloat16), peng.cwbd,
                              peng.row_data, peng.vals, peng.meta,

@@ -46,5 +46,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         find_edges_by_diff(codes, K=32, method=3)
     res = find_edges_by_diff(codes, K=32)
-    with pytest.raises(NotImplementedError):
+    # the table-driven build is ported: without codewords or tables it
+    # refuses, as the JAX package's does
+    with pytest.raises(ValueError):
         build_layout(codes, res.edges, res.root_id, K=32, tables=None)
