@@ -40,7 +40,27 @@ Phases, each timed:
    dup_heavy index whose ``auto`` resolves to ``fused_dedup``.  Every
    batch is held to ``adc_query_topk`` as in phase 5.  The launch counts
    are set to 0 before each path and read after it: each path must have
-   launched its own scan kernel, and every fused tier the rerank kernel.
+   launched its own scan kernel, and every fused tier the rerank kernel;
+8. int8 and slot-tile kernels on phase 3's codes at B=512: B1 and B3 in
+   int8 mode against their plain versions (mins bit-equal, echo exact),
+   B5 on the slot tiles of the same DFS order at int8 (bit-equal), int16
+   and bf16 (within the bounds of phases 4 and 6), its echo equal to the
+   codes; each timed beside its plain version; the slot tiles' S, Cap
+   and B/vec; then the int8 codes tier through ``FusedCodesEngine``;
+9. slot-tile engine: ``FusedCompressedEngine(fmt="slots")`` at int16 and
+   int8, warmup then five timed B=512 top-10 batches each, and two at
+   bf16, every batch held to ``adc_query_topk``; a ``save`` ->
+   ``convert.load_jax_engine`` round trip of a slot file with ``fmt`` and
+   with the key removed, both answering as the engine does;
+10. big N at int8: 8,388,608 sift_like vectors made and encoded chunk by
+   chunk (chunk c from seed c, so chunk 0 is phase 3's data; phase 3's
+   codewords, no second learn) by ``encode_stream``;
+   ``BigCompressedIndex(n_parts=8, precision="int8", chunk_rows=
+   2,097,152)`` -> four resident chunks; warmup, five timed B=128 top-10
+   batches held to ``adc_query_topk`` over all 8,388,608 codes; ``save``
+   -> ``from_saved(mmap=True, resident=False)``, two checked batches with
+   the per-batch upload time; ``DedupCompressedEngine`` at its default
+   (int8) over phase 3's codes, two checked batches.
 
 Any failed check raises, so the script exits non-zero without the last
 line.  Its last two lines are a JSON object of per-kernel measurements
@@ -48,6 +68,7 @@ and ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -56,13 +77,20 @@ import time
 import numpy as np
 import torch
 
+from deltapq_tpu_torch.bigscale import (BigCompressedIndex,
+                                        ChunkedCompressedEngine,
+                                        encode_stream)
+from deltapq_tpu_torch.convert import load_jax_engine
 from deltapq_tpu_torch.index import DeltaPQIndex
 from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import adc_kernels as ak
 from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import adc_query_topk, adc_table, pad_codes
 from deltapq_tpu_torch.ops.encode import pq_encode
-from deltapq_tpu_torch.ops.fused import (FusedCodesEngine,
+from deltapq_tpu_torch.ops.delta_tiles import (build_delta_tiles,
+                                               decode_delta_tiles)
+from deltapq_tpu_torch.ops.fused import (DedupCompressedEngine,
+                                         FusedCodesEngine,
                                          FusedCompressedEngine,
                                          FusedDecodedEngine, _pool_for,
                                          fused_select_esc)
@@ -81,6 +109,9 @@ S_RERANK = 65536
 TRAIN = 20000
 ADC_TILE = ak.TILE_N   # query_plain's tile for the ADC top-k kernel
 DECODED_TILE = 8192    # FusedDecodedEngine's tile
+BIG_CHUNKS = 8         # phase 10: N = 8 * 1,048,576
+BIG_CHUNK_ROWS = 2 * N
+BIG_B = 128            # BigCompressedIndex.batch_b
 REPLACES = {
     "stream_mins": "deltapq_tpu/ops/fused_pallas.py:522",
     "rerank": "deltapq_tpu/ops/fused_pallas.py:1096",
@@ -89,6 +120,11 @@ REPLACES = {
     "codes_mins_int16": "deltapq_tpu/ops/fused_pallas.py:428",
     "decoded_mins": "deltapq_tpu/ops/fused_pallas.py:131",
     "adc_topk": "deltapq_tpu/ops/adc_pallas.py:104",
+    "stream_mins_int8": "deltapq_tpu/ops/fused_pallas.py:522",
+    "codes_mins_int8": "deltapq_tpu/ops/fused_pallas.py:428",
+    "delta_mins": "deltapq_tpu/ops/fused_pallas.py:446",
+    "delta_mins_int8": "deltapq_tpu/ops/fused_pallas.py:446",
+    "delta_mins_bf16": "deltapq_tpu/ops/fused_pallas.py:446",
 }
 SOURCES = {
     "stream_mins": "deltapq_tpu_torch/csrc/stream_mins.cu",
@@ -98,6 +134,11 @@ SOURCES = {
     "codes_mins_int16": "deltapq_tpu_torch/csrc/codes_mins.cu",
     "decoded_mins": "deltapq_tpu_torch/csrc/decoded_mins.cu",
     "adc_topk": "deltapq_tpu_torch/csrc/adc_topk.cu",
+    "stream_mins_int8": "deltapq_tpu_torch/csrc/stream_mins.cu",
+    "codes_mins_int8": "deltapq_tpu_torch/csrc/codes_mins.cu",
+    "delta_mins": "deltapq_tpu_torch/csrc/delta_mins.cu",
+    "delta_mins_int8": "deltapq_tpu_torch/csrc/delta_mins.cu",
+    "delta_mins_bf16": "deltapq_tpu_torch/csrc/delta_mins.cu",
 }
 
 
@@ -212,18 +253,18 @@ def main() -> int:
         mins, echo = eng.scan(qop, uq)
         ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
             qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
-            M, u=uq)
+            M, u=uq, mode="int16")
         check(torch.equal(echo, ref_c), "B1 echo != plain decode")
         check(np.array_equal(echo[:N].cpu().numpy(), codes[order]),
               "B1 echo != decode_stream_tiles")
         log(f"B1 stream_mins: echo exact (max pre {pre_max:.6g}, "
             f"max|u*cross| {cross_max:.6g})")
-        err = mins_err(mins, ref_m, 4e-6 * (pre_max + 2 * cross_max),
+        err = mins_err(mins, ref_m, int16_tol(pre_max, cross_max),
                        "B1 stream_mins")
         ms = cuda_ms(lambda: eng.scan(qop, uq), 20)
         plain_ms = cuda_ms(lambda: fk.fused_stream_mins_ref(
             qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
-            M, u=uq), 2)
+            M, u=uq, mode="int16"), 2)
         log(f"{tag} B1 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B})")
         kernels["stream_mins"] = dict(max_abs_err=err, ms=ms,
@@ -322,6 +363,13 @@ def main() -> int:
     # stream_mins and rerank keep their counts from phase 5's path
     launches.update(phase7_index(dev, tag, cw, codes, codes_db, codes_db64,
                                  rng))
+    dt = phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
+                                      kernels, codes_db, codes_db64,
+                                      launches)
+    del eng
+    phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
+                       launches)
+    phase10_big_n(dev, tag, cw, codes, rng, launches)
     for k in kernels:
         check(launches.get(k, 0) > 0, f"kernel {k} was never launched on "
                                       f"its path")
@@ -347,6 +395,12 @@ def mins_err(mins, ref, tol, what):
     return err
 
 
+def int16_tol(pre_max, cross_max):
+    """The int16 digit products are int32-exact; the kernel sums pre
+    exactly and rounds once, the plain version sums it in f32."""
+    return 4e-6 * (pre_max + 2 * cross_max)
+
+
 def bf16_tol(pre_max, cross_max):
     """Two f32 sums of the same exact bf16 products in two orders: each
     is off by at most (D-1) 2^-24 sum |terms| (< 7.6e-6 of it at D=128),
@@ -365,12 +419,14 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
         table, qop, uq, cert, b = e.prepare(q)
         mins, echo = e.scan(qop, uq)
         args = (qop, e.cwbd, e.row_data, e.vals, e.meta, e.n_valid, M)
-        ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(*args)
+        ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+            *args, mode="bf16")
         check(torch.equal(echo, ref_c), "B1 bf16 echo != plain decode")
         err = mins_err(mins, ref_m, bf16_tol(pre_max, cross_max),
                        "B1 stream_mins bf16")
         ms = cuda_ms(lambda: e.scan(qop, uq), 20)
-        plain_ms = cuda_ms(lambda: fk.fused_stream_mins_ref(*args), 2)
+        plain_ms = cuda_ms(lambda: fk.fused_stream_mins_ref(
+            *args, mode="bf16"), 2)
         log(f"{tag} B1 bf16 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B})")
         kernels["stream_mins_bf16"] = dict(max_abs_err=err, ms=ms,
@@ -384,14 +440,14 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
             table, qop, uq, cert, b = e.prepare(q)
             mins, echo = e.scan(qop, uq)
             args = (qop, e.cwbd, e.codes, e.n_valid)
-            ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(*args,
-                                                                   u=uq)
-            tol = (bf16_tol(pre_max, cross_max) if prec == "bf16"
-                   else 4e-6 * (pre_max + 2 * cross_max))
+            ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(
+                *args, u=uq, mode=prec)
+            tol = (bf16_tol if prec == "bf16" else int16_tol)(pre_max,
+                                                              cross_max)
             err = mins_err(mins, ref_m, tol, f"B3 codes_mins {prec}")
             ms = cuda_ms(lambda: e.scan(qop, uq), 20)
-            plain_ms = cuda_ms(lambda: fk.fused_codes_mins_ref(*args, u=uq),
-                               2)
+            plain_ms = cuda_ms(lambda: fk.fused_codes_mins_ref(
+                *args, u=uq, mode=prec), 2)
             log(f"{tag} B3 {prec} {ms:.4f} ms/call, plain {plain_ms:.4f} "
                 f"ms/call (N={N}, B={B})")
             kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
@@ -560,6 +616,298 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         check(idx_d._engine_resolved == "fused_dedup",
               "dup_heavy auto did not resolve to fused_dedup")
     return launches
+
+
+def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None):
+    """One engine's scan kernel against its plain version on the same
+    operands: echo exact, mins bit-equal (``tol`` None) or within
+    ``tol(pre_max, cross_max)``; both timed with CUDA events.  ``plain``
+    maps (qop, uq) to the plain version's (mins, echo, pre_max,
+    cross_max).  Returns the kernel's echo."""
+    table, qop, uq, cert, b = e.prepare(q)
+    mins, echo = e.scan(qop, uq)
+    ref_m, ref_c, pre_max, cross_max = plain(qop, uq)
+    check(torch.equal(echo, ref_c), f"{label} echo != plain")
+    if tol is None:
+        check(torch.equal(mins, ref_m), f"{label} mins not bit-equal")
+        err = 0.0
+        log(f"{label}: mins bit-equal to the plain version, echo exact")
+    else:
+        err = mins_err(mins, ref_m, tol(pre_max, cross_max), label)
+    ms = cuda_ms(lambda: e.scan(qop, uq), 20)
+    plain_ms = cuda_ms(lambda: plain(qop, uq), 2)
+    log(f"{tag} {label} {ms:.4f} ms/call, plain {plain_ms:.4f} "
+        f"ms/call (N={e.n_valid}, B={q.shape[0]})")
+    kernels[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return echo
+
+
+def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
+                                 kernels, codes_db, codes_db64, launches):
+    """B1 and B3 in int8 mode and B5 in its three modes against their
+    plain versions on phase 3's codes, timed; then the int8 codes tier's
+    own path.  Returns the slot tiles of the DFS order."""
+    with Phase("8 int8 and slot-tile kernels"):
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        e = FusedCompressedEngine.from_tiles(cw, eng.tiles, row_to_db=order,
+                                             precision="int8", device=dev)
+        scan_vs_plain(tag, "B1 stream_mins int8", e, q,
+                      lambda qop, uq: fk.fused_stream_mins_ref(
+                          qop, e.cwbd, e.row_data, e.vals, e.meta,
+                          e.n_valid, M, u=uq, mode="int8"),
+                      kernels, "stream_mins_int8")
+        del e
+        e = FusedCodesEngine(cw, codes, order=order, precision="int8",
+                             device=dev)
+        scan_vs_plain(tag, "B3 codes_mins int8", e, q,
+                      lambda qop, uq: fk.fused_codes_mins_ref(
+                          qop, e.cwbd, e.codes, e.n_valid, u=uq,
+                          mode="int8"),
+                      kernels, "codes_mins_int8")
+        del e
+
+        t = time.perf_counter()
+        dt = build_delta_tiles(codes[order])
+        log(f"slot tiles of the DFS order: {time.perf_counter() - t:.1f} s; "
+            f"S {dt.S}, Cap {dt.Cap}, B/vec {dt.bytes_per_vec():.4f} "
+            f"(stream tiles {eng.bytes_per_vec():.4f}, plain {M})")
+        check(np.array_equal(decode_delta_tiles(dt), codes[order]),
+              "slot tiles not lossless")
+        for prec, key, tol in (("int8", "delta_mins_int8", None),
+                               ("int16", "delta_mins", int16_tol),
+                               ("bf16", "delta_mins_bf16", bf16_tol)):
+            e = FusedCompressedEngine.from_tiles(cw, dt, row_to_db=order,
+                                                 precision=prec, device=dev)
+            echo = scan_vs_plain(
+                tag, f"B5 delta_mins {prec}", e, q,
+                lambda qop, uq: fk.fused_delta_mins_ref(
+                    qop, e.cwbd, e.row_data, e.ovf, e.n_valid, dt.S, u=uq,
+                    mode=prec),
+                kernels, key, tol)
+            check(np.array_equal(echo[:N].cpu().numpy(), codes[order]),
+                  f"B5 {prec} echo != the codes")
+            del e, echo
+
+        # the int8 codes tier through its own entry point
+        ce = FusedCodesEngine(cw, codes, precision="int8", device=dev)
+        build.reset_launch_counts()
+        for _ in range(2):
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            d, ids = ce.query(q, top_k=TOP_K)
+            check_batch(ce.prepare(q)[0][:B], codes_db, codes_db64,
+                        torch.from_numpy(d).to(dev),
+                        torch.from_numpy(ids).to(dev))
+        counts = build.launch_counts()
+        check(counts["codes_mins_int8"] > 0 and counts["rerank"] > 0,
+              "FusedCodesEngine(precision='int8') launched no scan")
+        launches["codes_mins_int8"] = counts["codes_mins_int8"]
+        log(f"FusedCodesEngine(precision='int8'): 2 batches exact, "
+            f"first-shot {ce.last_exact_frac:.4f}; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+    return dt
+
+
+def timed_batches(tag, label, e, b, n_batches, rng, codes_db, codes_db64,
+                  n):
+    """``n_batches`` top-10 queries of ``b`` through the staged engine
+    (prepare, scan, select timed with CUDA events), each held to the
+    plain exact scan.  Returns the mean certified first-shot fraction."""
+    split = np.zeros(3)
+    walls, fracs = [], []
+    for _ in range(n_batches):
+        q = rng.normal(size=(b, D)).astype(np.float32)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev[0].record()
+        table, qop, uq, cert, bq = e.prepare(q)
+        ev[1].record()
+        mins, echo = e.scan(qop, uq)
+        ev[2].record()
+        d, ids = e.select(table, cert, mins, echo, bq, TOP_K)
+        ev[3].record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        split += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
+        fracs.append(e.last_exact_frac)
+        check_batch(table[:bq], codes_db, codes_db64, d, ids, n)
+    split /= n_batches
+    wall = float(np.mean(walls))
+    log(f"{tag} {label} ms/batch (B={b}, top-{TOP_K}, N={n}): "
+        f"table+quantize {split[0]:.4f}, scan {split[1]:.4f}, "
+        f"epilogue+ladder+terminal {split[2]:.4f}; host wall "
+        f"{wall * 1e3:.4f} ms -> {b / wall:.1f} QPS; certified first-shot "
+        f"{float(np.mean(fracs)):.4f}; {n_batches} batches bit-equal to "
+        f"adc_query_topk, ids equal up to audited ties")
+    return float(np.mean(fracs))
+
+
+def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
+                       launches):
+    """The slot-tile engine at int16, int8 and bf16, and its files."""
+    with Phase("9 slot-tile engine"):
+        for prec, key, n_batches in (("int16", "delta_mins", N_BATCHES),
+                                     ("int8", "delta_mins_int8", N_BATCHES),
+                                     ("bf16", "delta_mins_bf16", 2)):
+            e = FusedCompressedEngine.from_tiles(cw, dt, row_to_db=order,
+                                                 precision=prec, device=dev)
+            build.reset_launch_counts()
+            t = time.perf_counter()
+            e.warmup(batch_sizes=(B,), top_k=TOP_K)
+            torch.cuda.synchronize()
+            log(f"slots {prec}: warmup {time.perf_counter() - t:.2f} s, "
+                f"ns_hint {getattr(e, 'ns_hint', None)}")
+            timed_batches(tag, f"slot engine {prec}", e, B, n_batches, rng,
+                          codes_db, codes_db64, N)
+            counts = build.launch_counts()
+            check(counts[key] > 0 and counts["rerank"] > 0,
+                  f"slot engine {prec} never launched {key}")
+            launches[key] = counts[key]
+            log(f"  launches on the slots {prec} path: "
+                f"{({k: v for k, v in counts.items() if v})}")
+            if prec == "int8":
+                e8 = e
+            del e
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        d0, i0 = e8.query(q, top_k=TOP_K)
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as path:
+            e8.save(f"{path}/slots")
+            with np.load(f"{path}/slots.npz") as z:
+                check(str(z["fmt"]) == "slots", "slot file has no fmt")
+                state = {k: z[k] for k in z.files if k != "fmt"}
+            np.savez(f"{path}/nofmt", **state)
+            for name in ("slots", "nofmt"):
+                back = load_jax_engine(f"{path}/{name}", device=dev)
+                check(back.fmt == "slots" and back.precision == "int8",
+                      f"{name}: not reloaded as int8 slot tiles")
+                d1, i1 = back.query(q, top_k=TOP_K)
+                check(np.array_equal(d0, d1) and np.array_equal(i0, i1),
+                      f"the reloaded slot file ({name}) answers differently")
+                del back
+        del e8
+        log("slot file round trip (with fmt, and without it): int8 slot "
+            "tiles back, same results")
+
+
+def sift_chunks(n_chunks):
+    """Phase 10's vectors, chunk c from seed c (chunk 0 = phase 3's)."""
+    for c in range(n_chunks):
+        yield workload_vectors(N, seed=c, **WORKLOADS["sift_like"])
+
+
+def phase10_big_n(dev, tag, cw, codes, rng, launches):
+    """BigCompressedIndex at int8 over 8,388,608 rows in four resident
+    chunks, its mmap reload, and the dedup tier's int8 inner engine."""
+    with Phase("10 big N at int8"):
+        n_big = BIG_CHUNKS * N
+        t = time.perf_counter()
+        codes8 = encode_stream(cw, sift_chunks(BIG_CHUNKS))
+        log(f"vectors + encode_stream [{n_big}, {D}] in {BIG_CHUNKS} "
+            f"chunks: {time.perf_counter() - t:.1f} s; host codes "
+            f"{codes8.nbytes / 2**20:.0f} MiB; chunk 0 rows differing from "
+            f"phase 3's codes: {int((codes8[:N] != codes).any(1).sum())}")
+        t = time.perf_counter()
+        idx = BigCompressedIndex(cw, codes8, n_parts=8, precision="int8",
+                                 chunk_rows=BIG_CHUNK_ROWS, device=dev)
+        st = idx.build_stats
+        log(f"BigCompressedIndex: {time.perf_counter() - t:.1f} s (sort "
+            f"{st.t_sort:.2f} s, partition builds {st.t_build:.2f} s wall "
+            f"on {os.cpu_count()} workers, tree diffs {st.n_diffs})")
+        for p, (te, tl) in enumerate(st.per_part):
+            log(f"  partition {p}: tree {te:.2f} s, layout {tl:.2f} s")
+        eng = idx.engine
+        check(isinstance(eng, ChunkedCompressedEngine) and eng.resident
+              and len(eng.chunks) == n_big // BIG_CHUNK_ROWS,
+              "BigCompressedIndex did not chunk")
+        log(f"{len(eng.chunks)} resident int8 chunks of {BIG_CHUNK_ROWS} "
+            f"rows; B/vec {idx.bytes_per_vec():.4f}")
+        cdb = torch.from_numpy(pad_codes(codes8, 16384)).to(dev)
+        cdb64 = cdb[:n_big].to(torch.int64)
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        idx.warmup(batch_sizes=(BIG_B,), top_k=TOP_K)
+        torch.cuda.synchronize()
+        log(f"warmup (calibrate chunk 0 + one batch a chunk): "
+            f"{time.perf_counter() - t:.2f} s, ns_hint "
+            f"{getattr(eng.chunks[0], 'ns_hint', None)}")
+        walls, fracs = [], []
+        for _ in range(N_BATCHES):
+            q = rng.normal(size=(BIG_B, D)).astype(np.float32)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d, ids = idx.query(q, top_k=TOP_K)
+            walls.append(time.perf_counter() - t)
+            fracs.append(eng.last_exact_fracs)
+            big_check(cw, q, cdb, cdb64, d, ids, n_big)
+        counts = build.launch_counts()
+        check(counts["stream_mins_int8"] > 0 and counts["rerank"] > 0,
+              "the big-N int8 path never launched stream_mins_int8")
+        launches["stream_mins_int8"] = counts["stream_mins_int8"]
+        wall = float(np.mean(walls))
+        log(f"{tag} big-N int8 (N={n_big}, B={BIG_B}, top-{TOP_K}): "
+            f"host wall {wall * 1e3:.4f} ms/batch -> {BIG_B / wall:.1f} "
+            f"QPS; first-shot per chunk "
+            f"{np.round(np.mean(fracs, axis=0), 4).tolist()}; "
+            f"{N_BATCHES} batches bit-equal to adc_query_topk over all "
+            f"{n_big} codes, ids equal up to audited ties")
+        log(f"  launches on the big-N path: "
+            f"{({k: v for k, v in counts.items() if v})}")
+
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as path:
+            t = time.perf_counter()
+            eng.save(path)
+            back = ChunkedCompressedEngine.from_saved(path, mmap=True,
+                                                      resident=False,
+                                                      device=dev)
+            log(f"save + from_saved(mmap=True, resident=False): "
+                f"{time.perf_counter() - t:.1f} s")
+            for _ in range(2):
+                q = rng.normal(size=(BIG_B, D)).astype(np.float32)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                d, ids = back.query(q, top_k=TOP_K)
+                wall = time.perf_counter() - t
+                big_check(cw, q, cdb, cdb64, d, ids, n_big)
+                up = back.last_upload_s
+                log(f"{tag} mmap batch: host wall {wall * 1e3:.4f} ms: "
+                    f"uploads (pageable host -> card, {len(back._host)} "
+                    f"chunks) {up * 1e3:.4f} ms, scans and selection "
+                    f"{(wall - up) * 1e3:.4f} ms; first-shot "
+                    f"{np.round(back.last_exact_fracs, 4).tolist()}; "
+                    f"bit-equal to adc_query_topk")
+            del back
+        del idx, eng, cdb, cdb64
+
+        t = time.perf_counter()
+        de = DedupCompressedEngine(cw, codes, device=dev)
+        check(isinstance(de.engine, FusedCompressedEngine)
+              and de.engine.precision == "int8",
+              "the dedup tier did not build its int8 inner engine")
+        log(f"DedupCompressedEngine (default precision) over phase 3's "
+            f"codes: {de.n_unique} distinct, inner engine int8 stream "
+            f"tiles, {time.perf_counter() - t:.1f} s")
+        cdb = torch.from_numpy(pad_codes(codes, 16384)).to(dev)
+        cdb64 = cdb[:N].to(torch.int64)
+        for _ in range(2):
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d, ids = de.query(q, top_k=TOP_K)
+            wall = time.perf_counter() - t
+            big_check(cw, q, cdb, cdb64, d, ids, N)
+            log(f"{tag} dedup int8 batch (B={B}): host wall "
+                f"{wall * 1e3:.4f} ms, first-shot "
+                f"{de.engine.last_exact_frac:.4f}; bit-equal to "
+                f"adc_query_topk")
+
+
+def big_check(cw, q, codes_db, codes_db64, d, ids, n):
+    """Results of an engine without ``prepare`` against the plain exact
+    scan over the table of the same queries."""
+    dev = codes_db.device
+    table = adc_table(cw, torch.from_numpy(q).to(dev))
+    check_batch(table, codes_db, codes_db64, torch.from_numpy(d).to(dev),
+                torch.from_numpy(ids).to(dev), n)
 
 
 def check_batch(table, codes_db, codes_db64, d, ids, n=N):

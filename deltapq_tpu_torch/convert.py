@@ -1,10 +1,13 @@
 """Carry engine and index state across from the JAX package.
 
 ``deltapq_tpu.ops.fused.FusedCompressedEngine.save`` writes an ``.npz``
-with ``codewords``, ``row_data``, ``vals``, ``meta``, ``e_max``,
-``n_valid``, ``M``, ``fmt`` and ``row_to_db``; ``load_jax_engine`` builds
-the port's engine from those arrays, on the same tiles, so the two
-engines can be held against each other.
+with ``codewords``, ``row_data``, ``n_valid``, ``M``, ``fmt``,
+``row_to_db`` and the tiles' own arrays: ``vals``, ``meta``, ``e_max``
+for stream tiles, ``ovf``, ``S``, ``Cap`` for slot tiles.  A file without
+``fmt`` holds slot tiles (the engines of the first format wrote none), as
+the JAX ``load`` reads it.  ``load_jax_engine`` builds the port's engine
+from those arrays, on the same tiles, so the two engines can be held
+against each other.
 
 The JAX file does not record its precision (its ``load`` rebuilds at
 bf16); the port's own ``save`` adds ``precision`` and ``load`` honours
@@ -24,6 +27,7 @@ from typing import Mapping, Optional
 import numpy as np
 
 from .index import DeltaPQIndex
+from .ops.delta_tiles import DeltaTiles
 from .ops.fused import FusedCompressedEngine
 from .ops.stream_tiles import StreamTiles
 
@@ -34,16 +38,21 @@ def engine_state_from_numpy(d: Mapping[str, np.ndarray],
     """Port engine from the arrays a JAX (or port) ``save`` wrote.
     ``precision=None`` takes the file's own, else int16."""
     fmt = str(d["fmt"]) if "fmt" in d else "slots"
-    if fmt != "stream":
-        raise NotImplementedError(f"tile format {fmt!r} is not ported "
-                                  f"(stream is)")
     if precision is None:
         precision = str(d["precision"]) if "precision" in d else "int16"
-    tiles = StreamTiles(row_data=np.asarray(d["row_data"]),
-                        vals=np.asarray(d["vals"]),
-                        meta=np.asarray(d["meta"], np.int32),
-                        n_valid=int(d["n_valid"]), M=int(d["M"]),
-                        e_max=int(d["e_max"]))
+    if fmt == "stream":
+        tiles = StreamTiles(row_data=np.asarray(d["row_data"]),
+                            vals=np.asarray(d["vals"]),
+                            meta=np.asarray(d["meta"], np.int32),
+                            n_valid=int(d["n_valid"]), M=int(d["M"]),
+                            e_max=int(d["e_max"]))
+    elif fmt == "slots":
+        tiles = DeltaTiles(row_data=np.asarray(d["row_data"]),
+                           ovf=np.asarray(d["ovf"]),
+                           n_valid=int(d["n_valid"]), M=int(d["M"]),
+                           S=int(d["S"]), Cap=int(d["Cap"]))
+    else:
+        raise ValueError(f"unknown delta-tile format {fmt!r}")
     rtd = np.asarray(d["row_to_db"])
     return FusedCompressedEngine.from_tiles(
         np.asarray(d["codewords"], np.float32), tiles,

@@ -1,7 +1,7 @@
 // Codes-tier scan: resident u8 codes -> x^ -> subtile minima.
 //
 // Replaces the TPU kernel deltapq_tpu/ops/fused_pallas.py:
-// _codes_mins_kernel (the int16 and bf16 branches of _scan_tail on
+// _codes_mins_kernel (the int16, int8 and bf16 branches of _scan_tail on
 // resident codes), reached from fused_codes_mins via _mins_call.  Python
 // wrapper and plain PyTorch version: deltapq_tpu_torch/ops/fused_kernels.py.
 //
@@ -68,8 +68,8 @@ int launch(const void* q, const void* cw, const void* nrm, const void* codes,
 
 }  // namespace
 
-// mode 0: int16 (Ds % 4 == 0); mode 1: bf16 (Ds % 2 == 0); M <= 8 and
-// M*Ds <= 128 (checked by the Python wrapper).  Returns
+// mode 0: int16 (Ds % 4 == 0); mode 1: bf16 (Ds % 2 == 0); mode 2: int8
+// (Ds % 4 == 0); M <= 8 and M*Ds <= 128 (checked by the Python wrapper).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int codes_mins_launch(const void* q, const void* cw,
                                  const void* nrm, const void* codes,
@@ -92,6 +92,11 @@ extern "C" int codes_mins_launch(const void* q, const void* cw,
     if (D <= 32) CODES_LAUNCH(Bf16Tail<16>);
     if (D <= 64) CODES_LAUNCH(Bf16Tail<32>);
     if (D <= 128) CODES_LAUNCH(Bf16Tail<64>);
+  } else if (mode == 2) {
+    if (D <= 16) CODES_LAUNCH(Int8Tail<4>);
+    if (D <= 32) CODES_LAUNCH(Int8Tail<8>);
+    if (D <= 64) CODES_LAUNCH(Int8Tail<16>);
+    if (D <= 128) CODES_LAUNCH(Int8Tail<32>);
   }
 #undef CODES_LAUNCH
   return (int)cudaErrorInvalidValue;

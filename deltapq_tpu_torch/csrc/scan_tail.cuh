@@ -1,20 +1,26 @@
-// The scan tail shared by the stream kernel (stream_mins.cu) and the
-// codes kernel (codes_mins.cu): a 1024-row tile of codes in shared memory
-// -> x^ gathered from the codebook -> pre - 2 cross per (row, query) ->
-// 32-row subtile minima.
+// The scan tail shared by the stream kernel (stream_mins.cu), the codes
+// kernel (codes_mins.cu) and the slot-tile kernel (delta_mins.cu): a
+// 1024-row tile of codes in shared memory -> x^ gathered from the codebook
+// -> pre - 2 cross per (row, query) -> 32-row subtile minima.
 //
 // Replaces the tail of the TPU kernels deltapq_tpu/ops/fused_pallas.py:
-// _scan_tail (its int16 and bf16 branches), which decodes codes -> x^
-// with a one-hot matmul because the TPU has no per-lane gather.  Here
+// _scan_tail (its int16, int8 and bf16 branches), which decodes codes ->
+// x^ with a one-hot matmul because the TPU has no per-lane gather.  Here
 // each lane gathers its row's codeword words from shared memory.
 //
-// Two modes, each a struct with the same interface:
+// Three modes, each a struct with the same interface:
 //
 //   Int16Tail  codewords and queries as two base-128 int8 digits
 //              (A = 128a + b); aa, p2, bb are exact int32 __dp4a sums,
 //              cross = ((16384 aa + 128 p2) + bb) * u[b] in the JAX
 //              order with _rn intrinsics; pre = sum A^2 exact in int64
 //              from per-codeword norms, rounded once.
+//   Int8Tail   codewords and queries as one int8 value each (step scale);
+//              cross is one exact int32 __dp4a chain, pre the exact int32
+//              sum of per-codeword norms (both below 127^2 * 128 < 2^24,
+//              so exact in f32); then cross * u[b] and pre - 2 cross
+//              round once each, in the JAX order, with _rn intrinsics
+//              (no fma contraction): bit-equal to the plain version.
 //   Bf16Tail   x^ and q are bf16 values; each product of two bf16 values
 //              is exact in f32, so cross = sum x^ q is an f32 fma chain
 //              (only the order of summation differs from the matrix
@@ -215,6 +221,112 @@ struct Int16Tail {
                         __fmul_rn(128.0f, __int2float_rn(p2))),
               __int2float_rn(bb));
           cross = __fmul_rn(cross, u_s[b]);
+          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
+                          : CUDART_INF_F;
+          d = warp_min(d);
+          if (lane == bi) mine = d;
+        }
+        if (b0 + lane < nb) out[b0 + lane] = mine;
+      }
+    }
+  }
+};
+
+// ---- int8 mode ---------------------------------------------------------
+// DW: 32-bit words of a row (D <= 4*DW); WS = Ds/4.
+// Operands: q int8 [Dg, B]; cw int32 [M, K, WS] (four int8 values a
+// word); nrm int32 [M, K] (per-codeword sum of squares, exact); u f32 [B].
+template <int DW>
+struct Int8Tail {
+  // shared memory: nrm int32 [M*K] | cw int32 [M*K*WS] | q | u
+  struct Layout {
+    size_t nrm, cw, q, u, total;
+  };
+  __host__ __device__ static Layout layout(int M, int K, int Ds) {
+    Layout s;
+    s.nrm = 0;
+    s.cw = s.nrm + sizeof(int) * M * K;
+    s.q = align16(s.cw + sizeof(int) * M * K * (Ds / 4));
+    s.u = s.q + sizeof(int) * QB * DW;
+    s.total = align16(s.u + sizeof(float) * QB);
+    return s;
+  }
+
+  __device__ static void load(unsigned char* smem, const void* q_,
+                              const void* cw_, const void* nrm_,
+                              const float* u, int B, int, int qb0, int M,
+                              int K, int Ds) {
+    const Layout L = layout(M, K, Ds);
+    const int tid = threadIdx.x;
+    const int MKW = M * K * (Ds / 4);
+    auto* cw = static_cast<const int*>(cw_);
+    auto* nrm = static_cast<const int*>(nrm_);
+    auto* q = static_cast<const int8_t*>(q_);
+    int* cw_s = reinterpret_cast<int*>(smem + L.cw);
+    int* nrm_s = reinterpret_cast<int*>(smem + L.nrm);
+    int8_t* qb_s = reinterpret_cast<int8_t*>(smem + L.q);
+    float* u_s = reinterpret_cast<float*>(smem + L.u);
+    for (int i = tid; i < MKW; i += THREADS) cw_s[i] = cw[i];
+    for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
+    const int D = M * Ds;
+    const int DP = 4 * DW;                 // bytes of one query row
+    for (int i = tid; i < QB * DP; i += THREADS) {
+      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
+      qb_s[b * DP + d] =
+          (d < D && qb0 + b < B) ? q[(size_t)d * B + qb0 + b] : int8_t(0);
+    }
+    for (int b = tid; b < QB; b += THREADS)
+      u_s[b] = (qb0 + b < B) ? u[qb0 + b] : 1.0f;
+  }
+
+  // codes_s [TILE, MMAX] u8; writes mins[(t*32 + s)*B + qb0 + b]
+  __device__ static void scan(const unsigned char* smem,
+                              const uint8_t* codes_s, float* mins, int t,
+                              int B, int qb0, int n_valid, int M, int K,
+                              int Ds) {
+    const Layout L = layout(M, K, Ds);
+    const int WS = Ds / 4;
+    const int* cw_s = reinterpret_cast<const int*>(smem + L.cw);
+    const int* nrm_s = reinterpret_cast<const int*>(smem + L.nrm);
+    const int* q_s = reinterpret_cast<const int*>(smem + L.q);
+    const float* u_s = reinterpret_cast<const float*>(smem + L.u);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int MW = M * WS;                 // words of real dims
+    const int nb = min(QB, B - qb0);
+    for (int s = warp; s < TILE / SUB; s += WARPS) {
+      const int r = s * SUB + lane;
+      int xw[DW];
+#pragma unroll
+      for (int w = 0; w < DW; ++w) {
+        if (w < MW) {
+          const int m = w / WS;
+          const int k = codes_s[r * MMAX + m];
+          xw[w] = cw_s[(m * K + k) * WS + (w - m * WS)];
+        } else {
+          xw[w] = 0;
+        }
+      }
+      int pre_i = 0;
+      for (int m = 0; m < M; ++m) pre_i += nrm_s[m * K + codes_s[r * MMAX + m]];
+      const float pre = __int2float_rn(pre_i);   // exact: < 2^24
+      const bool valid = (long long)t * TILE + r < n_valid;
+      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
+
+      for (int b0 = 0; b0 < QB; b0 += 32) {
+        float mine = CUDART_INF_F;
+        for (int bi = 0; bi < 32; ++bi) {
+          const int b = b0 + bi;
+          const int4* q4 = reinterpret_cast<const int4*>(q_s + b * DW);
+          int acc = 0;
+#pragma unroll
+          for (int w4 = 0; w4 < DW / 4; ++w4) {
+            const int4 Q = q4[w4];
+            acc = __dp4a(xw[4 * w4 + 0], Q.x, acc);
+            acc = __dp4a(xw[4 * w4 + 1], Q.y, acc);
+            acc = __dp4a(xw[4 * w4 + 2], Q.z, acc);
+            acc = __dp4a(xw[4 * w4 + 3], Q.w, acc);
+          }
+          const float cross = __fmul_rn(__int2float_rn(acc), u_s[b]);
           float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
                           : CUDART_INF_F;
           d = warp_min(d);

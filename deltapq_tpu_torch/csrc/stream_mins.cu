@@ -1,7 +1,7 @@
-// Stream-tile decode + scan (int16 or bf16) + 32-row subtile minima.
+// Stream-tile decode + scan (int16, int8 or bf16) + 32-row subtile minima.
 //
 // Replaces the TPU kernel deltapq_tpu/ops/fused_pallas.py:
-// _stream_mins_kernel (with _stream_decode and the int16 and bf16
+// _stream_mins_kernel (with _stream_decode and the int16, int8 and bf16
 // branches of _scan_tail), reached from fused_stream_mins.  Python
 // wrapper and plain PyTorch version: deltapq_tpu_torch/ops/fused_kernels.py.
 //
@@ -11,18 +11,19 @@
 //            packed stream at p = meta[0,t]*1024 + meta[1,t] + off + rank
 //            (flat layout (p/1024)*1024 + (p%8)*128 + (p/8)%128, see
 //            ops/stream_tiles.py); forward fill of every subspace down
-//            the tile (max-scan of the last row that set it).
-//   scan     the shared tail (scan_tail.cuh): int16 digits or bf16 x^
-//            against the queries, d = pre - 2 cross, +inf at rows >=
-//            n_valid.
+//            the tile (tile_decode.cuh).
+//   scan     the shared tail (scan_tail.cuh): int16 digits, int8 values or
+//            bf16 x^ against the queries, d = pre - 2 cross, +inf at rows
+//            >= n_valid.
 //   output   min over each 32-row subtile -> mins[t*32 + s, b]; the
 //            decoded codes -> codes_out[t*1024 + r, m] (query block 0).
 //
 // What bounds it on an H100: the dot products.  int16: 4 int8 MACs per
 // (row, query, dim) = 2.7e11 MACs at N=1M, B=512, D=128 -- about 6.7e10
-// __dp4a.  bf16: 6.7e10 f32 fma plus two bf16 unpacks per pair.  The
-// stream itself is ~5 MB and the mins output 64 MB: memory is not the
-// bound.
+// __dp4a; int8: a third of that (one __dp4a chain per row and query
+// against int16's three); bf16: 6.7e10 f32 fma plus two bf16 unpacks per
+// pair.  The stream itself is ~5 MB and the mins output 64 MB: memory is
+// not the bound.
 //
 // Design: the TPU used one-hot matmuls in place of gathers (stream
 // value window, codes -> x^ decode); here each is a plain gather from
@@ -32,24 +33,12 @@
 // per-codeword norms and its 64 queries in shared memory.  wgmma /
 // tensor cores are later work.
 
-#include "scan_tail.cuh"
+#include "tile_decode.cuh"
 
 namespace {
 
 using namespace scan_tail;
-
-constexpr int RPT = TILE / THREADS;      // rows per thread in the decode
-
-// shared memory after the tail's operands: codes | wsum | wlast
-template <class Tail>
-__host__ __device__ inline size_t decode_base(int M, int K, int Ds) {
-  return Tail::layout(M, K, Ds).total;
-}
-template <class Tail>
-__host__ __device__ inline size_t smem_total(int M, int K, int Ds) {
-  return decode_base<Tail>(M, K, Ds) + TILE * MMAX + sizeof(int) * WARPS
-         + sizeof(int) * WARPS * MMAX;
-}
+using namespace tile_decode;
 
 template <class Tail>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -64,18 +53,14 @@ stream_mins_kernel(const void* __restrict__ q, const void* __restrict__ cw,
                    int B, int Dg, int nT, int n_valid, int M, int K,
                    int Ds) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const size_t base0 = decode_base<Tail>(M, K, Ds);
-  uint8_t* codes_s = smem + base0;
-  int* wsum_s = reinterpret_cast<int*>(smem + base0 + TILE * MMAX);
-  int* wlast_s = wsum_s + WARPS;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Scratch sc = scratch(smem + Tail::layout(M, K, Ds).total);
+  const int tid = threadIdx.x;
   const int t = blockIdx.x;
   const int qb0 = blockIdx.y * QB;
 
   Tail::load(smem, q, cw, nrm, u, B, Dg, qb0, M, K, Ds);
 
-  // ---- decode: per-row diff counts and their block exclusive scan -------
+  // ---- per-row diff counts and their block exclusive scan ---------------
   const int r0 = tid * RPT;
   unsigned mask[RPT];
   int nd[RPT], tsum = 0;
@@ -85,18 +70,9 @@ stream_mins_kernel(const void* __restrict__ q, const void* __restrict__ cw,
     nd[i] = __popc(mask[i]);
     tsum += nd[i];
   }
-  int incl = tsum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) wsum_s[warp] = incl;
-  __syncthreads();
-  int off = incl - tsum;
-  for (int w = 0; w < warp; ++w) off += wsum_s[w];
+  int off = block_exclusive_sum(tsum, sc.wsum);
 
-  // ---- decode: gather each set subspace's value from the stream ---------
+  // ---- gather each set subspace's value from the stream -----------------
   const long long base = (long long)meta[t] * 1024 + meta[nT + t];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -106,65 +82,17 @@ stream_mins_kernel(const void* __restrict__ q, const void* __restrict__ cw,
         const long long p = base + off + j;
         const long long idx = (p >> 10 << 10) + (p & 7) * 128
                               + ((p >> 3) & 127);
-        codes_s[(r0 + i) * MMAX + m] = vals[idx];
+        sc.codes[(r0 + i) * MMAX + m] = vals[idx];
         ++j;
       }
     }
     off += nd[i];
   }
 
-  // ---- decode: forward fill = max-scan of the last row setting m --------
-  int last[RPT][MMAX];
-  int agg[MMAX];
-#pragma unroll
-  for (int m = 0; m < MMAX; ++m) {
-    int ls = -1;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      if (m < M && (mask[i] >> m & 1u)) ls = r0 + i;
-      last[i][m] = ls;
-    }
-    agg[m] = ls;
-  }
-  int excl[MMAX];
-#pragma unroll
-  for (int m = 0; m < MMAX; ++m) {
-    int v = agg[m];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int w = __shfl_up_sync(FULL, v, o);
-      if (lane >= o) v = max(v, w);
-    }
-    int ex = __shfl_up_sync(FULL, v, 1);
-    excl[m] = lane == 0 ? -1 : ex;
-    if (lane == 31) wlast_s[warp * MMAX + m] = v;
-  }
-  __syncthreads();   // raw values and warp aggregates visible
-  uint8_t code[RPT][MMAX];
-#pragma unroll
-  for (int m = 0; m < MMAX; ++m) {
-    int pre = excl[m];
-    for (int w = 0; w < warp; ++w) pre = max(pre, wlast_s[w * MMAX + m]);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int src = max(pre, last[i][m]);   // row 0 is full: src >= 0
-      code[i][m] = (m < M) ? codes_s[src * MMAX + m] : 0;
-    }
-  }
-  __syncthreads();   // every fill read done before overwriting
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int m = 0; m < MMAX; ++m) codes_s[(r0 + i) * MMAX + m] = code[i][m];
-  if (blockIdx.y == 0) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      for (int m = 0; m < M; ++m)
-        codes_out[((size_t)t * TILE + r0 + i) * M + m] = code[i][m];
-  }
-  __syncthreads();
+  forward_fill(mask, sc.codes, sc.wlast, M,
+               blockIdx.y == 0 ? codes_out + (size_t)t * TILE * M : nullptr);
 
-  Tail::scan(smem, codes_s, mins, t, B, qb0, n_valid, M, K, Ds);
+  Tail::scan(smem, sc.codes, mins, t, B, qb0, n_valid, M, K, Ds);
 }
 
 template <class Tail>
@@ -172,7 +100,7 @@ int launch(const void* q, const void* cw, const void* nrm, const void* rd,
            const void* vals, const void* meta, const void* u, void* mins,
            void* codes_out, int B, int Dg, int nT, int n_valid, int M, int K,
            int Ds, void* stream) {
-  const size_t smem = smem_total<Tail>(M, K, Ds);
+  const size_t smem = Tail::layout(M, K, Ds).total + scratch_bytes();
   cudaError_t e = cudaFuncSetAttribute(
       stream_mins_kernel<Tail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -189,9 +117,9 @@ int launch(const void* q, const void* cw, const void* nrm, const void* rd,
 
 }  // namespace
 
-// mode 0: int16 (Ds % 4 == 0, M*Ds <= 128); mode 1: bf16 (Ds % 2 == 0,
-// M*Ds <= 128).  M <= 8 (checked by the Python wrapper).  Returns
-// cudaGetLastError() after the launch.
+// mode 0: int16 (Ds % 4 == 0); mode 1: bf16 (Ds % 2 == 0); mode 2: int8
+// (Ds % 4 == 0); M <= 8 and M*Ds <= 128 (checked by the Python wrapper).
+// Returns cudaGetLastError() after the launch.
 extern "C" int stream_mins_launch(const void* q, const void* cw,
                                   const void* nrm, const void* row_data,
                                   const void* vals, const void* meta,
@@ -214,6 +142,11 @@ extern "C" int stream_mins_launch(const void* q, const void* cw,
     if (D <= 32) STREAM_LAUNCH(Bf16Tail<16>);
     if (D <= 64) STREAM_LAUNCH(Bf16Tail<32>);
     if (D <= 128) STREAM_LAUNCH(Bf16Tail<64>);
+  } else if (mode == 2) {
+    if (D <= 16) STREAM_LAUNCH(Int8Tail<4>);
+    if (D <= 32) STREAM_LAUNCH(Int8Tail<8>);
+    if (D <= 64) STREAM_LAUNCH(Int8Tail<16>);
+    if (D <= 128) STREAM_LAUNCH(Int8Tail<32>);
   }
 #undef STREAM_LAUNCH
   return (int)cudaErrorInvalidValue;

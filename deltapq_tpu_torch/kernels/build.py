@@ -49,6 +49,10 @@ SIGNATURES = {
     # q, cw, nrm, codes, u, mins, B, Dg, nT, n_valid, M, K, Ds, mode, stream
     "codes_mins_launch": [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, cw, nrm, row_data, ovf, u, mins, codes_out,
+    # B, Dg, nT, n_valid, M, K, Ds, S, Cap, mode, stream
+    "delta_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, xt, mins, B, D, n_rows, n_valid, stream
     "decoded_mins_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # tab, codes, out_d, out_i, B, M, K, n_pad, tile_n, n_valid, top_k,
@@ -170,10 +174,13 @@ def check(err: int, what: str) -> None:
                            f"({msg})")
 
 
-#: kernel launches made by the wrappers (not by the plain versions)
-LAUNCHES = {"stream_mins": 0, "stream_mins_bf16": 0, "codes_mins": 0,
-            "codes_mins_int16": 0, "decoded_mins": 0, "adc_topk": 0,
-            "rerank": 0}
+#: kernel launches made by the wrappers (not by the plain versions), one
+#: key per kernel and scan mode: stream_mins (int16), codes_mins (bf16)
+#: and delta_mins (int16) carry their first mode's bare name
+LAUNCHES = {"stream_mins": 0, "stream_mins_bf16": 0, "stream_mins_int8": 0,
+            "codes_mins": 0, "codes_mins_int16": 0, "codes_mins_int8": 0,
+            "delta_mins": 0, "delta_mins_int8": 0, "delta_mins_bf16": 0,
+            "decoded_mins": 0, "adc_topk": 0, "rerank": 0}
 
 
 def count(kernel: str) -> None:

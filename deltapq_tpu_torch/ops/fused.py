@@ -10,17 +10,21 @@ engine                  resident      scan kernel
 FusedDecodedEngine      D*2 + M B/vec bf16 x^ rows, ``fused_decoded_mins``
 FusedCodesEngine        M B/vec       u8 codes, ``fused_codes_mins``
 FusedCompressedEngine   ~1+diffs/row  stream tiles, ``fused_stream_mins``
+                        (1+S)+bank    fmt="slots": v1 slot tiles,
+                                      ``fused_delta_mins``
 DedupCompressedEngine   distinct      ``exact_all_topk`` (<= 64K
                         codes only    distinct), else a compressed
                                       engine over the distinct codes
+                                      (chunked above ``chunked_min_rows``)
 ======================  ============  =================================
 
 Each batch of the fused tiers:
 
 1. ``prepare``: ``adc_table`` (exact f32 tables) and the centered query
-   operands -- bf16, or the int16 digits quantized on the host in NumPy
-   as in the JAX package, so the operand is bit-identical between the
-   packages -- plus the certificate inputs (q2, err_r, scale2);
+   operands -- bf16, or the int8 values / int16 digits quantized on the
+   host in NumPy as in the JAX package, so the operand is bit-identical
+   between the packages -- plus the certificate inputs (q2, err_r,
+   scale2);
 2. ``scan``: the tier's kernel -> 32-row subtile minima (and the codes
    the rerank reads);
 3. ``select``: ``fused_select_esc`` -- unit selection, exact rerank
@@ -28,8 +32,10 @@ Each batch of the fused tiers:
    and the terminal exact scan; the JAX package's ``lax.cond`` rungs
    become host checks of ``ok.all()`` -- then scan rows -> database ids.
 
-Not ported yet: the int8 precision and M > 8 (ROADMAP A3), the slot-tile
-format (B5), the chunked and sharded inner engines of the dedup tier.
+Every precision of the JAX package (int8, int16, bf16) is ported, at
+M <= 8; not ported yet: M > 8 (ROADMAP A3) and the sharded (``mesh=``)
+inner engine of the dedup tier (ROADMAP A9).  ``bigscale.py`` holds the
+chunked engine.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from .adc import adc_query_topk, adc_table, adc_tile_dists
 from .decoded import build_decoded_cache
+from .delta_tiles import build_delta_tiles
 from .stream_tiles import TILE, StreamTiles, build_stream_tiles
 from . import fused_kernels as fk
 
@@ -162,6 +169,20 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     return d, rows, first_frac
 
 
+def _int8_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
+                          scale: float) -> float:
+    """Max over codes of the exact L2 norm of the int8 codeword
+    quantization error (step scale): sqrt(sum_m max_k ||c_mk -
+    scale*round(c_mk/scale)||^2), the codeword side of the int8
+    certificate radius."""
+    cw = np.asarray(codewords, np.float32)
+    M, K, Ds = cw.shape
+    cwc = cw - mu[:M * Ds].reshape(M, 1, Ds)
+    err = cwc - scale * np.rint(cwc / scale)
+    per_mk = np.sum(err * err, axis=2)             # [M, K]
+    return float(np.sqrt(per_mk.max(axis=1).sum()))
+
+
 def _int16_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
                            scale: float) -> float:
     """Max over codes of the exact L2 norm of the int16 codeword
@@ -177,23 +198,26 @@ def _int16_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
 
 
 def _setup_precision(self, codewords: np.ndarray, precision: str):
-    """Codebook operands per precision tier (int16 and bf16 in the
-    port), on ``self.device``; ``compact`` holds the kernels' operands
-    on a CUDA device."""
-    if precision == "int16":
-        cwq, self.scale = fk.quantize_blockdiag_int16(
-            codewords, center=self.mu[:self.D])
+    """Codebook operands per precision tier (int8, int16, bf16), on
+    ``self.device``; ``compact`` holds the kernels' operands on a CUDA
+    device."""
+    if precision in ("int8", "int16"):
+        quantize, radius = (
+            (fk.quantize_blockdiag_int8, _int8_codeword_radius)
+            if precision == "int8" else
+            (fk.quantize_blockdiag_int16, _int16_codeword_radius))
+        cwq, self.scale = quantize(codewords, center=self.mu[:self.D])
         self.cwbd = torch.from_numpy(cwq).to(self.device)
-        self.err_c = _int16_codeword_radius(codewords, self.mu, self.scale)
+        self.err_c = radius(codewords, self.mu, self.scale)
     elif precision == "bf16":
         self.scale = None
         self.cwbd = fk.build_blockdiag_codebook(
             codewords, center=self.mu[:self.D]).to(self.device)
     else:
         raise NotImplementedError(
-            f"precision {precision!r} is not ported (int16 and bf16 are; "
-            f"int8: ROADMAP A3)")
-    self.compact = (fk.compact_codebook(self.cwbd, self.M, self.Ds)
+            f"precision {precision!r}: int8, int16 and bf16 are ported")
+    self.compact = (fk.compact_codebook(self.cwbd, self.M, self.Ds,
+                                        precision)
                     if self.device.type == "cuda" else None)
 
 
@@ -203,20 +227,30 @@ def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
     e_q [B] or None), on ``device``.  (The JAX function also returns an
     ``invalid`` mask, None in every mode.)
 
-    int16: each query is quantized at ``scale * u_b`` with
-    ``u_b = max(1, max|qc_b| / (127 scale))`` (nothing clips), as dual
-    base-128 digits at step ``scale*u/128``: q [2*G*Dg_pad, B] int8.
+    int8 and int16: each query is quantized at ``scale * u_b`` with
+    ``u_b = max(1, max|qc_b| / (127 scale))`` (nothing clips), int8 as
+    one value at step ``scale*u`` (q [G*Dg_pad, B] int8), int16 as dual
+    base-128 digits at step ``scale*u/128`` (q [2*G*Dg_pad, B] int8).
     Host NumPy, as in the JAX package, so the operand is bit-identical
     between the packages.  bf16: q [G*Dg_pad, B] bf16 (the cast rounds
     to nearest even, as ``ml_dtypes`` does)."""
     if precision == "bf16":
         q = torch.from_numpy(np.ascontiguousarray(qc, np.float32))
         return q.to(torch.bfloat16).t().contiguous().to(device), None, None
-    if precision != "int16":
+    if precision not in ("int8", "int16"):
         raise NotImplementedError(
-            f"precision {precision!r} is not ported (int16 and bf16 are)")
+            f"precision {precision!r}: int8, int16 and bf16 are ported")
     amax = np.abs(qc).max(axis=1)
     u = np.maximum(1.0, amax / (127.0 * scale)).astype(np.float32)
+    if precision == "int8":
+        qq = np.clip(np.rint(qc / (scale * u[:, None])),
+                     -127, 127).astype(np.int8)
+        e_q = np.linalg.norm(
+            qc - (scale * u[:, None]) * qq.astype(np.float32),
+            axis=1).astype(np.float32)
+        return (torch.from_numpy(np.ascontiguousarray(qq.T)).to(device),
+                torch.from_numpy(u.reshape(1, -1)).to(device),
+                torch.from_numpy(e_q).to(device))
     Aq = np.clip(np.rint(qc * (128.0 / (scale * u[:, None]))),
                  -16256, 16256)
     qa = np.clip(np.rint(Aq / 128.0), -127, 127)
@@ -231,19 +265,24 @@ def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
 
 
 def _quantized_query_stats(self, qop, uq, eq):
-    """(q2, err_r, scale2) of the int16 certificate domain: q2 is the
-    quantized query norm, err_r = ||e_q|| + the codeword radius + 1e-4
-    (the kernel's f32 digit-combination rounding)."""
-    s_eff = self.scale / 128.0
+    """(q2, err_r, scale2) of the int8 / int16 certificate domains: q2
+    is the quantized query norm, err_r = ||e_q|| + the codeword radius,
+    and for int16 + 1e-4 (the kernel's f32 digit-combination rounding;
+    the int8 scan is exact in f32)."""
+    div = 128.0 if self.precision == "int16" else 1.0
+    s_eff = self.scale / div
     scale2 = torch.tensor(s_eff * s_eff, dtype=torch.float32,
                           device=qop.device)
     uqv = uq[0]
-    GD = qop.shape[0] // 2
-    Aq = (128.0 * qop[:GD].to(torch.float32)
-          + qop[GD:].to(torch.float32))
+    err_r = eq + torch.tensor(self.err_c, dtype=torch.float32)
+    if self.precision == "int16":
+        GD = qop.shape[0] // 2
+        Aq = (128.0 * qop[:GD].to(torch.float32)
+              + qop[GD:].to(torch.float32))
+        err_r = err_r + torch.tensor(1e-4, dtype=torch.float32)
+    else:
+        Aq = qop.to(torch.float32)
     q2 = scale2 * uqv * uqv * torch.sum(Aq * Aq, dim=0)
-    err_r = (eq + torch.tensor(self.err_c, dtype=torch.float32)
-             + torch.tensor(1e-4, dtype=torch.float32))
     return q2, err_r, scale2
 
 
@@ -269,7 +308,7 @@ class _FusedEngine:
         qk = fk.pack_query_grouped(qc[:, :self.D], self.M, self.Ds)
         qop, uq, eq = _mins_query_args(qk, self.precision, self.scale,
                                        self.device)
-        if self.precision == "int16":
+        if self.precision in ("int8", "int16"):
             return qop, uq, _quantized_query_stats(self, qop, uq, eq)
         return qop, uq, (_q2(qc, self.device), None, None)
 
@@ -373,6 +412,16 @@ def _common_init(self, codewords, device):
     return codewords
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``.  A read-only array (a memory-mapped
+    chunk) is copied once into pageable host memory first: torch takes
+    only writable NumPy arrays."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
 def _codes_tensor(codes: np.ndarray, n_pad: int, K: int) -> torch.Tensor:
     """Codes zero-padded to n_pad rows as the kernels take them: u8, or
     int32 for K > 256."""
@@ -437,13 +486,21 @@ class FusedCodesEngine(_FusedEngine):
 
     def scan(self, qop, uq):
         return fk.fused_codes_mins(qop, self.cwbd, self.codes, self.n_valid,
-                                   u=uq, compact=self.compact)
+                                   u=uq, compact=self.compact,
+                                   mode=self.precision)
 
 
 class FusedCompressedEngine(_FusedEngine):
-    """Compressed tier over stream tiles; the whole decode happens inside
-    the scan kernel and the rerank reads the kernel's decoded-codes echo,
-    so no plain code array stays resident.
+    """Compressed tier; the whole decode happens inside the scan kernel
+    and the rerank reads the kernel's decoded-codes echo, so no plain
+    code array stays resident.
+
+    ``fmt="stream"`` (default): packed stream tiles (~1 + diffs/row
+    B/vec), scanned by ``fused_stream_mins``.  ``fmt="slots"``: the v1
+    fixed-slot tiles (``delta_tiles.py``: S value slots a row plus an
+    overflow bank; ``S=None`` picks the smallest), scanned by
+    ``fused_delta_mins``; every file saved without ``fmt`` is of this
+    kind.
 
     Build from scan-ordered codes (with ``row_to_db`` mapping scan rows
     to database ids), from a DeltaTree (DFS order = tile order) or from
@@ -455,47 +512,52 @@ class FusedCompressedEngine(_FusedEngine):
     def __init__(self, codewords, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
                  precision: str = "int16", fmt: str = "stream",
-                 device="cpu"):
-        if fmt != "stream":
-            raise NotImplementedError(f"tile format {fmt!r} is not ported "
-                                      f"(stream is; slots: ROADMAP B5)")
-        self._init(codewords, build_stream_tiles(np.asarray(codes_scan)),
-                   row_to_db, precision, device)
+                 S: Optional[int] = None, device="cpu"):
+        codes_scan = np.asarray(codes_scan)
+        if fmt == "stream":
+            tiles = build_stream_tiles(codes_scan)
+        elif fmt == "slots":
+            tiles = build_delta_tiles(codes_scan, S=S)
+        else:
+            raise ValueError(f"unknown delta-tile format {fmt!r}")
+        self._init(codewords, tiles, row_to_db, precision, device)
 
-    def _init(self, codewords, tiles: StreamTiles, row_to_db, precision,
-              device):
+    def _init(self, codewords, tiles, row_to_db, precision, device):
         codewords = _common_init(self, codewords, device)
         if self.K > 256:
-            raise NotImplementedError("the stream tier requires K <= 256")
-        self.fmt = "stream"
+            raise NotImplementedError("the compressed tier requires "
+                                      "K <= 256")
         self.tiles = tiles
-        self.vals = torch.from_numpy(np.ascontiguousarray(tiles.vals)
-                                     ).to(self.device)
-        self.meta = torch.from_numpy(np.ascontiguousarray(tiles.meta)
-                                     ).to(self.device)
-        self.row_data = torch.from_numpy(
-            np.ascontiguousarray(tiles.row_data)).to(self.device)
+        if hasattr(tiles, "ovf"):                 # slot tiles
+            self.fmt = "slots"
+            self.ovf = _upload(tiles.ovf, self.device)
+        else:
+            self.fmt = "stream"
+            self.vals = _upload(tiles.vals, self.device)
+            self.meta = _upload(tiles.meta, self.device)
+        self.row_data = _upload(tiles.row_data, self.device)
         self.n_valid = tiles.n_valid
         self.precision = precision
         _setup_precision(self, codewords, precision)
-        self.row_to_db = (torch.from_numpy(_row_ids_i32(row_to_db)).to(
-            self.device) if row_to_db is not None else None)
+        self.row_to_db = (_upload(_row_ids_i32(row_to_db), self.device)
+                          if row_to_db is not None else None)
 
     @classmethod
     def from_tree(cls, codewords, tree, precision: str = "int16",
-                  fmt: str = "stream", device="cpu"
-                  ) -> "FusedCompressedEngine":
+                  fmt: str = "stream", S: Optional[int] = None,
+                  device="cpu") -> "FusedCompressedEngine":
         codes_db = tree.decode_codes()
         order = tree.vec_id.astype(np.int64)
         return cls(codewords, codes_db[order], row_to_db=order,
-                   precision=precision, fmt=fmt, device=device)
+                   precision=precision, fmt=fmt, S=S, device=device)
 
     @classmethod
-    def from_tiles(cls, codewords, tiles: StreamTiles,
+    def from_tiles(cls, codewords, tiles,
                    row_to_db: Optional[np.ndarray] = None,
                    precision: str = "int16", device="cpu"
                    ) -> "FusedCompressedEngine":
-        """Engine over pre-built stream tiles (construction = upload)."""
+        """Engine over pre-built ``StreamTiles`` or ``DeltaTiles``
+        (construction = upload)."""
         self = cls.__new__(cls)
         self._init(codewords, tiles, row_to_db, precision, device)
         return self
@@ -504,28 +566,40 @@ class FusedCompressedEngine(_FusedEngine):
         return self.tiles.bytes_per_vec()
 
     def scan(self, qop, uq):
-        """Stage 2: the stream kernel -> (mins [NS, B], codes echo)."""
+        """Stage 2: the tile format's kernel -> (mins [NS, B], codes
+        echo)."""
+        if self.fmt == "slots":
+            return fk.fused_delta_mins(
+                qop, self.cwbd, self.row_data, self.ovf, self.n_valid,
+                self.tiles.S, u=uq, compact=self.compact,
+                mode=self.precision)
         return fk.fused_stream_mins(
             qop, self.cwbd, self.row_data, self.vals, self.meta,
-            self.n_valid, self.M, u=uq, compact=self.compact)
+            self.n_valid, self.M, u=uq, compact=self.compact,
+            mode=self.precision)
 
     def save(self, path: str) -> None:
-        """Persist the stream tiles, mapping and precision (the JAX
-        package's layout plus ``precision``)."""
-        np.savez(path, vals=self.tiles.vals, meta=self.tiles.meta,
-                 e_max=self.tiles.e_max, row_data=self.tiles.row_data,
-                 n_valid=self.n_valid, M=self.M, fmt=self.fmt,
-                 precision=self.precision,
-                 codewords=self.codewords.cpu().numpy(),
-                 row_to_db=(self.row_to_db.cpu().numpy()
-                            if self.row_to_db is not None
-                            else np.zeros(0, np.int32)))
+        """Persist the tiles, mapping and precision (the JAX package's
+        layout plus ``precision``)."""
+        common = dict(row_data=self.tiles.row_data, n_valid=self.n_valid,
+                      M=self.M, fmt=self.fmt, precision=self.precision,
+                      codewords=self.codewords.cpu().numpy(),
+                      row_to_db=(self.row_to_db.cpu().numpy()
+                                 if self.row_to_db is not None
+                                 else np.zeros(0, np.int32)))
+        if self.fmt == "stream":
+            np.savez(path, vals=self.tiles.vals, meta=self.tiles.meta,
+                     e_max=self.tiles.e_max, **common)
+        else:
+            np.savez(path, ovf=self.tiles.ovf, S=self.tiles.S,
+                     Cap=self.tiles.Cap, **common)
 
     @classmethod
     def load(cls, path: str, device="cpu") -> "FusedCompressedEngine":
         """Reopen a saved engine at its saved precision (a file without
-        ``precision`` -- one the JAX package wrote -- loads at int16,
-        see ``convert.load_jax_engine``)."""
+        ``precision`` -- one the JAX package wrote -- loads at int16, and
+        one without ``fmt`` as slot tiles; see
+        ``convert.load_jax_engine``)."""
         from ..convert import load_jax_engine
 
         return load_jax_engine(path, device=device)
@@ -553,12 +627,12 @@ class DedupCompressedEngine:
     expanded at result time (top-k distinct codes by exact distance
     cover >= top_k rows).  Up to ``EXACT_ALL_MAX_ROWS`` distinct codes a
     query reranks all of them (``exact_all_topk``); above, a compressed
-    engine scans the distinct codes at ``precision``.  The row expansion
-    (sorted permutation + CSR counts) lives on the host.
-
-    Not ported: the int8 inner engine (the JAX default, ROADMAP A3: pass
-    ``precision="int16"`` or ``"bf16"``), and the chunked and sharded
-    inner engines (ROADMAP A7, A9).
+    engine scans the distinct codes at ``precision`` (int8 by default,
+    as in the JAX package), and above ``chunked_min_rows`` distinct
+    codes that engine is a ``bigscale.ChunkedCompressedEngine`` with
+    resident chunks.  The row expansion (sorted permutation + CSR
+    counts) lives on the host.  The sharded inner engine (the JAX
+    package's ``mesh=``) is not ported (ROADMAP A9).
     """
 
     EXACT_ALL_MAX_ROWS = 65536
@@ -566,7 +640,7 @@ class DedupCompressedEngine:
 
     def __init__(self, codewords, codes_db: np.ndarray,
                  precision: str = "int8", fmt: str = "stream",
-                 device="cpu"):
+                 chunked_min_rows: int = CHUNKED_MIN_ROWS, device="cpu"):
         codes_db = np.asarray(codes_db)
         cwf = _np_f32(codewords)
         self.device = torch.device(device)
@@ -590,9 +664,12 @@ class DedupCompressedEngine:
             n_pad = -(-self.n_unique // 1024) * 1024
             self._codes_pad = _codes_tensor(
                 self._unique_codes, n_pad, cwf.shape[1]).to(self.device)
-        elif self.n_unique > self.CHUNKED_MIN_ROWS:
-            raise NotImplementedError(
-                "the chunked inner engine is not ported (ROADMAP A7)")
+        elif self.n_unique > chunked_min_rows:
+            from ..bigscale import ChunkedCompressedEngine
+
+            self.engine = ChunkedCompressedEngine(
+                cwf, self._unique_codes, precision=precision,
+                resident=True, device=self.device)
         else:
             self.engine = FusedCompressedEngine(
                 cwf, self._unique_codes, precision=precision, fmt=fmt,
@@ -603,8 +680,12 @@ class DedupCompressedEngine:
         return len(self.starts)
 
     def bytes_per_vec(self) -> float:
-        """Stream-tile bytes of the distinct codes amortized over ALL
-        rows (the inner engine's footprint, built or not)."""
+        """Device-resident tile bytes of the distinct codes amortized
+        over ALL rows: the inner engine's, or in the exact-all regime
+        the stream tiles it would build."""
+        if self.engine is not None:
+            return (self.engine.bytes_per_vec() * self.n_unique
+                    / max(self.n_rows, 1))
         return (build_stream_tiles(self._unique_codes).nbytes()
                 / max(self.n_rows, 1))
 

@@ -7,11 +7,14 @@ Hand-written Hopper kernels, each with a plain PyTorch version in this
 module and a launch count in ``kernels.build.LAUNCHES``:
 
 * ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
-  ``_stream_mins_kernel``): decode stream tiles, the int16 or bf16 scan,
-  32-row subtile minima and the decoded-codes echo;
+  ``_stream_mins_kernel``): decode stream tiles, the scan, 32-row
+  subtile minima and the decoded-codes echo;
 * ``fused_codes_mins`` -> ``csrc/codes_mins.cu`` (replaces
   ``_codes_mins_kernel``): the same scan tail (``csrc/scan_tail.cuh``)
   on resident u8 codes;
+* ``fused_delta_mins`` -> ``csrc/delta_mins.cu`` (replaces
+  ``_delta_mins_kernel``): decode v1 slot tiles (mask plane, S value
+  slots, overflow bank), then the same scan tail;
 * ``fused_decoded_mins`` -> ``csrc/decoded_mins.cu`` (replaces
   ``_decoded_mins_kernel``): bf16 x^ . q with f32 sums over resident
   decoded rows;
@@ -21,11 +24,18 @@ module and a launch count in ``kernels.build.LAUNCHES``:
 Each wrapper takes the plain version for a tensor on the CPU and, for a
 CUDA tensor, launches its kernel or raises: there is no fallback.
 
-The scan modes follow the operand types, as in the JAX package: int8
-operands are the int16 two-digit scan (the JAX package's int8 mode is
-not ported: ROADMAP A3), bf16 operands the bf16 scan.  The distance
-decomposition, the digit arithmetic and the exactness certificate are
-the JAX package's; see the docstrings there.
+The scan kernels take their mode explicitly (``mode=``, the engine's
+precision), where the JAX package takes a static ``int16=`` flag and
+reads int8 against bf16 from the operand types:
+
+* ``"int16"``: codebook and queries as two base-128 int8 digits, q
+  [2*Dg, B] int8, cwbd [M*K, 2*Dg] int8, per-query headroom u;
+* ``"int8"``: one int8 digit, q [Dg, B] int8, cwbd [M*K, Dg] int8, u;
+* ``"bf16"``: q [Dg, B] bf16, cwbd [M*K, Dg] bf16, no u.
+
+A call whose operand types or shapes do not match its mode raises.  The
+distance decomposition, the digit arithmetic and the exactness
+certificate are the JAX package's; see the docstrings there.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ TILE = 1024   # rows per stream / codes tile
 SUB = 32      # rows per subtile-min
 #: tiles per chunk of the plain scans (bounds their [rows, B] work)
 REF_CHUNK_TILES = 64
+#: scan modes -> the CUDA kernels' mode argument
+MODES = {"int16": 0, "bf16": 1, "int8": 2}
 
 # --------------------------------------------------------------------------
 # Host half: codebook and query operands (NumPy, as in the JAX package)
@@ -97,15 +109,27 @@ def build_blockdiag_codebook(codewords: np.ndarray,
     return torch.from_numpy(out).to(dtype)
 
 
+def _blockdiag_f32(cwbd_or_cw, center):
+    if cwbd_or_cw.ndim == 3:
+        return build_blockdiag_codebook(cwbd_or_cw, center=center,
+                                        dtype=torch.float32).numpy()
+    return np.asarray(cwbd_or_cw, np.float32)
+
+
+def quantize_blockdiag_int8(cwbd_or_cw, center=None):
+    """Codebook -> ([MKs, Dg] int8 block-diagonal decode matrix, scale):
+    values quantize symmetrically at scale = max|c|/127."""
+    cwbd = _blockdiag_f32(cwbd_or_cw, center)
+    scale = max(float(np.abs(cwbd).max()) / 127.0, 1e-12)
+    q = np.clip(np.rint(cwbd / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
 def quantize_blockdiag_int16(cwbd_or_cw, center=None):
     """Codebook -> ([MKs, 2*Dg] int8 dual-digit decode matrix, scale):
     A = round(c*128/scale) split into a = round(A/128) in [-127, 127]
     and b = A - 128a in [-64, 64]."""
-    if cwbd_or_cw.ndim == 3:
-        cwbd = build_blockdiag_codebook(cwbd_or_cw, center=center,
-                                        dtype=torch.float32).numpy()
-    else:
-        cwbd = np.asarray(cwbd_or_cw, np.float32)
+    cwbd = _blockdiag_f32(cwbd_or_cw, center)
     scale = max(float(np.abs(cwbd).max()) / 127.0, 1e-12)
     A = np.clip(np.rint(cwbd * (128.0 / scale)), -16256, 16256)
     a = np.clip(np.rint(A / 128.0), -127, 127)
@@ -114,7 +138,7 @@ def quantize_blockdiag_int16(cwbd_or_cw, center=None):
     return out, scale
 
 
-def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int
+def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int, mode: str
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scan kernels' codebook operands, built once per engine from
     the block-diagonal ``cwbd``: the nonzero blocks (each codeword's own
@@ -123,6 +147,8 @@ def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int
     * int16 (``cwbd`` [M*K, 2*Dg] int8): ``cw`` [2, M, K, Ds/4] int32,
       the a- then b-digit planes, four int8 digits per word; ``nrm``
       [M, K] int64, sum of A^2 with A = 128a + b, exact;
+    * int8 (``cwbd`` [M*K, Dg] int8): ``cw`` [M, K, Ds/4] int32, four
+      int8 values per word; ``nrm`` [M, K] int32, sum of c^2, exact;
     * bf16 (``cwbd`` [M*K, Dg] bf16): ``cw`` [M, K, Ds/2] int32, two
       bf16 values per word; ``nrm`` [M, K] f32, sum of the squared bf16
       values.
@@ -134,14 +160,21 @@ def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int
             + torch.arange(Ds, device=dev)[None, :])        # [M, Ds]
     idx = cols[:, None, :].expand(M, K, Ds)
     bd = cwbd.reshape(M, K, width)
-    if cwbd.dtype == torch.bfloat16:
+    if mode == "bf16":
         if Ds % 2:
             raise NotImplementedError("the bf16 scan kernels need Ds even")
         x = torch.gather(bd, 2, idx).contiguous()
         xf = x.to(torch.float32)
         return x.view(torch.int32), (xf * xf).sum(dim=2)
     if Ds % 4:
-        raise NotImplementedError("the int16 scan kernels need Ds % 4 == 0")
+        raise NotImplementedError(f"the {mode} scan kernels need "
+                                  f"Ds % 4 == 0")
+    if mode == "int8":
+        x = torch.gather(bd, 2, idx).contiguous()
+        xi = x.to(torch.int32)
+        return x.view(torch.int32), (xi * xi).sum(dim=2, dtype=torch.int32)
+    if mode != "int16":
+        raise NotImplementedError(f"scan mode {mode!r} is not ported")
     Dg = width // 2
     a = torch.gather(bd[:, :, :Dg], 2, idx)
     b = torch.gather(bd[:, :, Dg:], 2, idx)
@@ -165,27 +198,31 @@ def pack_xhat_tiles(xhat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 # The shared scan tail (plain version) and its operand checks
 # --------------------------------------------------------------------------
 
-def _scan_mode(q: torch.Tensor, cwbd: torch.Tensor, M: int) -> int:
-    """0: int16 (int8 digit operands), 1: bf16; raises otherwise."""
-    if q.dtype == torch.int8 and cwbd.dtype == torch.int8:
-        mode = 0
-    elif q.dtype == torch.bfloat16 and cwbd.dtype == torch.bfloat16:
-        mode = 1
-    else:
-        raise NotImplementedError(
-            f"the int16 (int8 digit operands) and bf16 scans are ported; "
-            f"got q {q.dtype}, cwbd {cwbd.dtype} (int8 mode: ROADMAP A3)")
+def _scan_mode(q: torch.Tensor, cwbd: torch.Tensor, M: int, mode: str
+               ) -> int:
+    """Check the operands against the scan ``mode``; returns the
+    kernels' mode code.  int16 operands are [2*Dg]-wide (two digit
+    planes, so a multiple of 256), int8 and bf16 ones [Dg]-wide."""
+    if mode not in MODES:
+        raise NotImplementedError(f"scan mode {mode!r}: the int16, int8 "
+                                  f"and bf16 scans are ported")
+    want = torch.bfloat16 if mode == "bf16" else torch.int8
+    if q.dtype != want or cwbd.dtype != want:
+        raise ValueError(f"{mode} scan: q and cwbd must be {want}, got q "
+                         f"{q.dtype}, cwbd {cwbd.dtype}")
     if M > 8:
         raise NotImplementedError("only one subspace group (M <= 8) is "
                                   "ported (M = 16: ROADMAP A3)")
-    if cwbd.shape[1] != q.shape[0] or cwbd.shape[0] % M:
+    width = cwbd.shape[1]
+    if (width != q.shape[0] or cwbd.shape[0] % M
+            or width % (256 if mode == "int16" else 128)):
         raise ValueError(f"cwbd {tuple(cwbd.shape)} does not match "
-                         f"q {tuple(q.shape)} and M={M}")
-    return mode
+                         f"q {tuple(q.shape)}, M={M} in {mode} mode")
+    return MODES[mode]
 
 
 def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
-                   cwbd: torch.Tensor, n_valid: int, M: int,
+                   cwbd: torch.Tensor, n_valid: int, M: int, mode: str,
                    u: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, float, float]:
     """Plain version of the scan tail: codes [n_rows, M] -> (mins
@@ -195,6 +232,10 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
     * int16 (q [2*Dg, B] int8): the digit products run as f32 matmuls
       with TF32 off and are exact (every partial sum is an integer below
       2^24); the bound is max |u*cross|;
+    * int8 (q [Dg, B] int8): pre = sum x^2 and cross = x . q are
+      integers below 127^2 * 128 < 2^24, exact in f32 in any order, then
+      cross*u and pre - 2 cross round once each, in the JAX order -- a
+      kernel matches this bit for bit; the bound is max |u*cross|;
     * bf16 (q [Dg, B] bf16): x^ and q hold bf16 values, whose products
       are exact in f32; the bound is sqrt(max pre) * max ||q_b||, which
       bounds sum |x^ q| (Cauchy-Schwarz), the size that the f32 sums'
@@ -203,18 +244,18 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
     Work goes in chunks of ``REF_CHUNK_TILES`` tiles to bound the
     [rows, B] intermediates.
     """
-    mode = _scan_mode(q, cwbd, M)
+    code = _scan_mode(q, cwbd, M, mode)
     D2, B = q.shape
     dev = q.device
     n_rows = codes.shape[0]
     K = cwbd.shape[0] // M
     bd = cwbd.to(torch.float32).reshape(M, K, cwbd.shape[1])
     qf = q.to(torch.float32)
-    if mode == 0:
+    if code == MODES["int16"]:
         Dg = D2 // 2
         qa, qb = qf[:Dg], qf[Dg:]
-        if u is None:
-            u = torch.ones((1, B), dtype=torch.float32, device=dev)
+    if u is None:
+        u = torch.ones((1, B), dtype=torch.float32, device=dev)
     mins = torch.empty((n_rows // SUB, B), dtype=torch.float32, device=dev)
     pre_max = 0.0
     cross_max = 0.0
@@ -225,7 +266,7 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
             # block-diagonal decode: exactly one subspace is nonzero per
             # column, so the sum over m is exact
             x = bd[ar_m[None, :], c].sum(dim=1)
-            if mode == 0:
+            if code == MODES["int16"]:
                 xa, xb = x[:, :Dg], x[:, Dg:]
                 A = 128.0 * xa + xb
                 pre = torch.sum(A * A, dim=1, keepdim=True)
@@ -233,10 +274,14 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
                 p2 = xa @ qb + xb @ qa
                 cbb = xb @ qb
                 cross = ((16384.0 * caa + 128.0 * p2) + cbb) * u
-                cross_max = max(cross_max, float(cross.abs().max()))
+            elif code == MODES["int8"]:
+                pre = torch.sum(x * x, dim=1, keepdim=True)
+                cross = (x @ qf) * u
             else:
                 pre = torch.sum(x * x, dim=1, keepdim=True)
                 cross = x @ qf
+            if code != MODES["bf16"]:
+                cross_max = max(cross_max, float(cross.abs().max()))
             d = pre - 2.0 * cross
             rows = r0 + torch.arange(c.shape[0], device=dev)
             d = torch.where((rows < n_valid)[:, None], d,
@@ -244,7 +289,7 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
             mins[r0 // SUB:(r0 + c.shape[0]) // SUB] = \
                 d.reshape(-1, SUB, B).amin(dim=1)
             pre_max = max(pre_max, float(pre.max()))
-    if mode == 1:
+    if code == MODES["bf16"]:
         cross_max = pre_max ** 0.5 * float(torch.linalg.vector_norm(
             qf, dim=0).max())
     return mins, pre_max, cross_max
@@ -259,32 +304,44 @@ def _check_operands(tensors: dict, dtypes: dict, device) -> None:
                              f"{t.device}")
 
 
-def _compact_operands(q, cwbd, M, compact, u, mode):
+def _compact_operands(q, cwbd, M, compact, u, code):
     """Device operands of the scan-tail kernels: (cw, nrm, u, Ds), with
-    their types and shapes checked."""
+    their types and shapes checked against the mode."""
     if compact is None:
         raise ValueError("the CUDA scan kernels need compact="
-                         "compact_codebook(cwbd, M, Ds)")
+                         "compact_codebook(cwbd, M, Ds, mode)")
     cw, nrm = compact
     B = q.shape[1]
     K = cwbd.shape[0] // M
-    if mode == 0:
-        Ds = 4 * cw.shape[3]
-        want = (2, M, K, Ds // 4)
-        dtypes = dict(cw=torch.int32, nrm=torch.int64, u=torch.float32)
+    if code == MODES["bf16"]:
+        Ds = 2 * cw.shape[-1]
+        want = (M, K, Ds // 2)
+        nrm_dtype = torch.float32
+        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
+    else:
+        Ds = 4 * cw.shape[-1]
+        want = ((2, M, K, Ds // 4) if code == MODES["int16"]
+                else (M, K, Ds // 4))
+        nrm_dtype = torch.int64 if code == MODES["int16"] else torch.int32
         if u is None:
             u = torch.ones((1, B), dtype=torch.float32, device=q.device)
-    else:
-        Ds = 2 * cw.shape[2]
-        want = (M, K, Ds // 2)
-        dtypes = dict(cw=torch.int32, nrm=torch.float32, u=torch.float32)
-        u = torch.ones((1, B), dtype=torch.float32, device=q.device)
-    _check_operands(dict(cw=cw, nrm=nrm, u=u), dtypes, q.device)
-    Dg = q.shape[0] // (2 if mode == 0 else 1)
+    _check_operands(dict(cw=cw, nrm=nrm, u=u),
+                    dict(cw=torch.int32, nrm=nrm_dtype, u=torch.float32),
+                    q.device)
+    Dg = q.shape[0] // (2 if code == MODES["int16"] else 1)
     if (tuple(cw.shape) != want or tuple(nrm.shape) != (M, K)
             or M * Ds > min(Dg, 128) or K > 256 or u.numel() != B):
-        raise ValueError("scan kernel operand shapes disagree")
+        raise ValueError("scan kernel operand shapes disagree with the "
+                         "mode")
     return cw, nrm, u, Ds
+
+
+def _launch_name(kernel: str, mode: str) -> str:
+    """LAUNCHES key of a scan kernel in a mode (the names the earlier
+    modes were counted under stay)."""
+    first = {"stream_mins": "int16", "codes_mins": "bf16",
+             "delta_mins": "int16"}[kernel]
+    return kernel if mode == first else f"{kernel}_{mode}"
 
 
 # --------------------------------------------------------------------------
@@ -313,28 +370,43 @@ def decode_stream_tiles_torch(row_data: torch.Tensor, vals: torch.Tensor,
     return H.reshape(nt * T, M)
 
 
-def _check_stream_args(q, cwbd, row_data, M) -> int:
-    mode = _scan_mode(q, cwbd, M)
+def _check_stream_args(q, cwbd, row_data, M, mode) -> int:
+    code = _scan_mode(q, cwbd, M, mode)
     if row_data.dtype != torch.uint8 or row_data.shape[1] != 1:
         raise ValueError("row_data must be u8 [nT, 1, TILE]")
-    return mode
+    return code
 
 
 def fused_stream_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
                           row_data: torch.Tensor, vals: torch.Tensor,
                           meta: torch.Tensor, n_valid: int, M: int,
-                          u: Optional[torch.Tensor] = None
+                          u: Optional[torch.Tensor] = None, *, mode: str
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      float, float]:
     """Plain PyTorch version of ``fused_stream_mins`` (one group).
 
     Returns (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre, cross
     bound); see ``_scan_tail_ref`` for the two maxima."""
-    _check_stream_args(q, cwbd, row_data, M)
+    _check_stream_args(q, cwbd, row_data, M, mode)
     codes = decode_stream_tiles_torch(row_data, vals, meta, M)
     mins, pre_max, cross_max = _scan_tail_ref(codes, q, cwbd, n_valid, M,
-                                              u=u)
+                                              mode, u=u)
     return mins, codes.to(torch.uint8), pre_max, cross_max
+
+
+def _launch_scan(kernel, mode, code, q, cwbd, M, compact, u, nt, fn):
+    """Shared launch of a scan-tail kernel: checks the codebook operands
+    against the mode, allocates the mins [nT*32, B] f32, calls ``fn(cw,
+    nrm, u, Ds, mins, stream)`` (the C entry point with the kernel's own
+    operands bound), raises on a failed launch and counts it."""
+    cw, nrm, u, Ds = _compact_operands(q, cwbd, M, compact, u, code)
+    mins = torch.empty((nt * (TILE // SUB), q.shape[1]),
+                       dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(fn(cw.data_ptr(), nrm.data_ptr(), u.data_ptr(), Ds,
+                   mins.data_ptr(), stream), kernel)
+    build.count(_launch_name(kernel, mode))
+    return mins
 
 
 def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
@@ -342,23 +414,22 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                       meta: torch.Tensor, n_valid: int, M: int,
                       u: Optional[torch.Tensor] = None,
                       compact: Optional[Tuple[torch.Tensor,
-                                              torch.Tensor]] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stream tier scan.  int16: q [2*Dg, B] int8 digit planes, cwbd
-    [M*K, 2*Dg] int8, u [1, B] f32; bf16: q [Dg, B] bf16, cwbd [M*K, Dg]
-    bf16, no u.  row_data [nT, 1, TILE] u8; vals [A, 8, 128] u8; meta
-    [2, nT] i32.  Returns (mins [nT*32, B] f32, decoded codes [nT*TILE,
-    M] u8).
+                                              torch.Tensor]] = None,
+                      *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stream tier scan in ``mode`` ("int16", "int8" or "bf16"; the
+    operands of each in the module docstring).  row_data [nT, 1, TILE]
+    u8; vals [A, 8, 128] u8; meta [2, nT] i32.  Returns (mins [nT*32, B]
+    f32, decoded codes [nT*TILE, M] u8).
 
     On CUDA tensors this launches ``csrc/stream_mins.cu``; ``compact``
-    is ``compact_codebook(cwbd, M, Ds)`` (the kernel needs Ds, which
-    ``cwbd`` does not carry).  On CPU tensors it runs the plain version.
+    is ``compact_codebook(cwbd, M, Ds, mode)`` (the kernel needs Ds,
+    which ``cwbd`` does not carry).  On CPU tensors it runs the plain
+    version.
     """
-    mode = _check_stream_args(q, cwbd, row_data, M)
+    code = _check_stream_args(q, cwbd, row_data, M, mode)
     if q.device.type == "cpu":
         return fused_stream_mins_ref(q, cwbd, row_data, vals, meta,
-                                     n_valid, M, u=u)[:2]
-    cw, nrm, u, Ds = _compact_operands(q, cwbd, M, compact, u, mode)
+                                     n_valid, M, u=u, mode=mode)[:2]
     _check_operands(dict(q=q, row_data=row_data, vals=vals, meta=meta),
                     dict(q=q.dtype, row_data=torch.uint8,
                          vals=torch.uint8, meta=torch.int32), q.device)
@@ -366,17 +437,15 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
     nt = row_data.shape[0]
     if row_data.shape[2] != TILE or tuple(meta.shape) != (2, nt):
         raise ValueError("stream kernel operand shapes disagree")
-    mins = torch.empty((nt * (TILE // SUB), B), dtype=torch.float32,
-                       device=q.device)
     codes = torch.empty((nt * TILE, M), dtype=torch.uint8, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.library().stream_mins_launch(
-        q.data_ptr(), cw.data_ptr(), nrm.data_ptr(), row_data.data_ptr(),
-        vals.data_ptr(), meta.data_ptr(), u.data_ptr(), mins.data_ptr(),
-        codes.data_ptr(), B, D2 // (2 if mode == 0 else 1), nt,
-        int(n_valid), M, cwbd.shape[0] // M, Ds, mode, stream)
-    build.check(err, "stream_mins")
-    build.count("stream_mins" if mode == 0 else "stream_mins_bf16")
+    mins = _launch_scan(
+        "stream_mins", mode, code, q, cwbd, M, compact, u, nt,
+        lambda cw, nrm, u_, Ds, out, stream:
+        build.library().stream_mins_launch(
+            q.data_ptr(), cw, nrm, row_data.data_ptr(), vals.data_ptr(),
+            meta.data_ptr(), u_, out, codes.data_ptr(), B,
+            D2 // (2 if code == 0 else 1), nt, int(n_valid), M,
+            cwbd.shape[0] // M, Ds, code, stream))
     return mins, codes
 
 
@@ -384,24 +453,24 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
 # B3: codes tier (resident u8 codes + the scan tail)
 # --------------------------------------------------------------------------
 
-def _check_codes_args(q, cwbd, codes) -> int:
+def _check_codes_args(q, cwbd, codes, mode) -> int:
     n_pad, M = codes.shape
-    mode = _scan_mode(q, cwbd, M)
+    code = _scan_mode(q, cwbd, M, mode)
     if codes.dtype != torch.uint8 or n_pad % TILE:
         raise ValueError("codes must be u8 [N_pad, M], N_pad % 1024 == 0")
-    return mode
+    return code
 
 
 def fused_codes_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
                          codes: torch.Tensor, n_valid: int,
-                         u: Optional[torch.Tensor] = None
+                         u: Optional[torch.Tensor] = None, *, mode: str
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     float, float]:
     """Plain PyTorch version of ``fused_codes_mins``: (mins, codes echo,
     max pre, cross bound); see ``_scan_tail_ref``."""
-    _check_codes_args(q, cwbd, codes)
+    _check_codes_args(q, cwbd, codes, mode)
     mins, pre_max, cross_max = _scan_tail_ref(codes, q, cwbd, n_valid,
-                                              codes.shape[1], u=u)
+                                              codes.shape[1], mode, u=u)
     return mins, codes, pre_max, cross_max
 
 
@@ -409,32 +478,125 @@ def fused_codes_mins(q: torch.Tensor, cwbd: torch.Tensor,
                      codes: torch.Tensor, n_valid: int,
                      u: Optional[torch.Tensor] = None,
                      compact: Optional[Tuple[torch.Tensor,
-                                             torch.Tensor]] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                                             torch.Tensor]] = None,
+                     *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Codes tier scan: q and cwbd as in ``fused_stream_mins``; codes
     [N_pad, M] u8.  Returns (mins [N_pad/32, B] f32, codes echo): the
     echo is ``codes`` itself (the kernel's input, unchanged).
 
     On CUDA tensors this launches ``csrc/codes_mins.cu``; on CPU tensors
     it runs the plain version."""
-    mode = _check_codes_args(q, cwbd, codes)
+    code = _check_codes_args(q, cwbd, codes, mode)
     if q.device.type == "cpu":
-        return fused_codes_mins_ref(q, cwbd, codes, n_valid, u=u)[:2]
+        return fused_codes_mins_ref(q, cwbd, codes, n_valid, u=u,
+                                    mode=mode)[:2]
     n_pad, M = codes.shape
-    cw, nrm, u, Ds = _compact_operands(q, cwbd, M, compact, u, mode)
     _check_operands(dict(q=q, codes=codes),
                     dict(q=q.dtype, codes=torch.uint8), q.device)
     D2, B = q.shape
     nt = n_pad // TILE
-    mins = torch.empty((nt * (TILE // SUB), B), dtype=torch.float32,
-                       device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.library().codes_mins_launch(
-        q.data_ptr(), cw.data_ptr(), nrm.data_ptr(), codes.data_ptr(),
-        u.data_ptr(), mins.data_ptr(), B, D2 // (2 if mode == 0 else 1),
-        nt, int(n_valid), M, cwbd.shape[0] // M, Ds, mode, stream)
-    build.check(err, "codes_mins")
-    build.count("codes_mins_int16" if mode == 0 else "codes_mins")
+    mins = _launch_scan(
+        "codes_mins", mode, code, q, cwbd, M, compact, u, nt,
+        lambda cw, nrm, u_, Ds, out, stream:
+        build.library().codes_mins_launch(
+            q.data_ptr(), cw, nrm, codes.data_ptr(), u_, out, B,
+            D2 // (2 if code == 0 else 1), nt, int(n_valid), M,
+            cwbd.shape[0] // M, Ds, code, stream))
+    return mins, codes
+
+
+# --------------------------------------------------------------------------
+# B5: slot-tile decode + scan + subtile mins
+# --------------------------------------------------------------------------
+
+def decode_delta_tiles_torch(row_data: torch.Tensor, ovf: torch.Tensor,
+                             S: int, M: int) -> torch.Tensor:
+    """Plain decode of slot tiles to codes [nT*TILE, M] int64 (the
+    arithmetic of the TPU kernel's decode, on any device): a row with
+    more than S set mask bits is an overflow row and takes its full code
+    from the overflow bank at its overflow rank (0 past ``Cap``, as the
+    TPU's one-hot scatter gives); another row's j-th set bit takes value
+    slot j; the rest is forward-filled down the tile."""
+    nt, PS, T = row_data.shape
+    Cap = ovf.shape[2]
+    P = (M + 7) // 8
+    rd = row_data.to(torch.int64)
+    bit = torch.stack([(rd[:, m // 8, :] >> (m % 8)) & 1
+                       for m in range(M)], dim=1)          # [nT, M, T]
+    rank = torch.cumsum(bit, dim=1) - bit
+    is_ovf = bit.sum(dim=1, keepdim=True) > S               # [nT, 1, T]
+    ovf_rank = torch.cumsum(is_ovf.to(torch.int64), dim=2) - is_ovf.to(
+        torch.int64)
+    slot = torch.gather(rd, 1, P + rank.clamp(0, S - 1))   # [nT, M, T]
+    ov = torch.gather(ovf.to(torch.int64), 2,
+                      ovf_rank.clamp(0, Cap - 1).expand(nt, M, T))
+    ov = torch.where(ovf_rank < Cap, ov, torch.zeros_like(ov))
+    H = torch.where(is_ovf, ov, torch.where(bit == 1, slot, -1))
+    rows = torch.arange(T, device=row_data.device)[None, None, :]
+    last = torch.cummax(torch.where(H >= 0, rows, -1), dim=2).values
+    H = torch.gather(H, 2, last.clamp_min(0))              # row 0 is full
+    return H.transpose(1, 2).reshape(nt * T, M)
+
+
+def _check_delta_args(q, cwbd, row_data, ovf, S, mode) -> int:
+    M = ovf.shape[1]
+    code = _scan_mode(q, cwbd, M, mode)
+    if (row_data.dtype != torch.uint8 or ovf.dtype != torch.uint8
+            or row_data.shape[1] != 1 + S or row_data.shape[2] != TILE
+            or ovf.shape[0] != row_data.shape[0] or not 1 <= S < M):
+        raise ValueError("slot tiles: row_data u8 [nT, 1+S, TILE] and ovf "
+                         "u8 [nT, M, Cap] with 1 <= S < M required")
+    return code
+
+
+def fused_delta_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
+                         row_data: torch.Tensor, ovf: torch.Tensor,
+                         n_valid: int, S: int,
+                         u: Optional[torch.Tensor] = None, *, mode: str
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    float, float]:
+    """Plain PyTorch version of ``fused_delta_mins`` (one group):
+    (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre, cross bound);
+    see ``_scan_tail_ref``."""
+    _check_delta_args(q, cwbd, row_data, ovf, S, mode)
+    M = ovf.shape[1]
+    codes = decode_delta_tiles_torch(row_data, ovf, S, M)
+    mins, pre_max, cross_max = _scan_tail_ref(codes, q, cwbd, n_valid, M,
+                                              mode, u=u)
+    return mins, codes.to(torch.uint8), pre_max, cross_max
+
+
+def fused_delta_mins(q: torch.Tensor, cwbd: torch.Tensor,
+                     row_data: torch.Tensor, ovf: torch.Tensor,
+                     n_valid: int, S: int,
+                     u: Optional[torch.Tensor] = None,
+                     compact: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+                     *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot-tile scan (``delta_tiles.py``, M <= 8): row_data [nT, 1+S,
+    TILE] u8 (mask plane + S value slots), ovf [nT, M, Cap] u8 overflow
+    bank; q, cwbd, u and ``mode`` as in ``fused_stream_mins``.  Returns
+    (mins [nT*32, B] f32, decoded codes [nT*TILE, M] u8).
+
+    On CUDA tensors this launches ``csrc/delta_mins.cu``; on CPU tensors
+    it runs the plain version."""
+    code = _check_delta_args(q, cwbd, row_data, ovf, S, mode)
+    if q.device.type == "cpu":
+        return fused_delta_mins_ref(q, cwbd, row_data, ovf, n_valid, S,
+                                    u=u, mode=mode)[:2]
+    _check_operands(dict(q=q, row_data=row_data, ovf=ovf),
+                    dict(q=q.dtype, row_data=torch.uint8, ovf=torch.uint8),
+                    q.device)
+    D2, B = q.shape
+    nt, M, Cap = ovf.shape
+    codes = torch.empty((nt * TILE, M), dtype=torch.uint8, device=q.device)
+    mins = _launch_scan(
+        "delta_mins", mode, code, q, cwbd, M, compact, u, nt,
+        lambda cw, nrm, u_, Ds, out, stream:
+        build.library().delta_mins_launch(
+            q.data_ptr(), cw, nrm, row_data.data_ptr(), ovf.data_ptr(), u_,
+            out, codes.data_ptr(), B, D2 // (2 if code == 0 else 1), nt,
+            int(n_valid), M, cwbd.shape[0] // M, Ds, S, Cap, code, stream))
     return mins, codes
 
 

@@ -1,9 +1,10 @@
 """Stream-tile format: packed variable-length delta compression (v2).
 
-A NumPy copy of ``deltapq_tpu/ops/stream_tiles.py`` (plus
-``_mask_planes`` from ``deltapq_tpu/ops/delta_tiles.py``): the port
-cannot import the JAX package, whose package import pulls in jax.  The
-tests hold its output byte-equal to the original's.
+A NumPy copy of ``deltapq_tpu/ops/stream_tiles.py``: the port cannot
+import the JAX package, whose package import pulls in jax.  The tests
+hold its output byte-equal to the original's, and ``StreamTiles.save``
+writes the original's on-disk layout, so each package reads the other's
+saved tiles.
 
 * ``row_data`` [nT, P, TILE] u8 -- per-row changed-subspace mask planes
   (P = ceil(M/8)), diff vs the previous scan row; the first row of
@@ -22,9 +23,13 @@ the NumPy oracle for its decode.
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from .delta_tiles import _mask_planes
 
 TILE = 1024
 GROUP = 1024          # values per window group (vals.shape = [A, 8, 128])
@@ -61,10 +66,46 @@ class StreamTiles:
     def bytes_per_vec(self) -> float:
         return self.nbytes() / max(self.n_valid, 1)
 
+    def save(self, path: str) -> None:
+        """Persist the tiles as raw arrays plus a small header (the JAX
+        package's layout), reopened by ``load`` (RAM) or
+        ``load(mmap=True)`` (disk-backed)."""
+        os.makedirs(path, exist_ok=True)
+        self.row_data.tofile(os.path.join(path, "row_data.u8"))
+        self.vals.tofile(os.path.join(path, "vals.u8"))
+        self.meta.astype(np.int32).tofile(os.path.join(path, "meta.i32"))
+        with open(os.path.join(path, "header.json"), "w") as f:
+            json.dump({"row_data_shape": list(self.row_data.shape),
+                       "vals_shape": list(self.vals.shape),
+                       "meta_shape": list(self.meta.shape),
+                       "n_valid": self.n_valid, "M": self.M,
+                       "e_max": self.e_max}, f)
+
+    @classmethod
+    def load(cls, path: str, mmap: bool = False) -> "StreamTiles":
+        """Reopen saved tiles.  ``mmap=True`` maps ``row_data`` and
+        ``vals`` from disk read-only, so host RAM holds only the pages a
+        query touches (an engine copies them before an upload)."""
+        with open(os.path.join(path, "header.json")) as f:
+            h = json.load(f)
+
+        def opener(name, shape):
+            p = os.path.join(path, name)
+            if mmap:
+                return np.memmap(p, np.uint8, "r", shape=tuple(shape))
+            return np.fromfile(p, np.uint8).reshape(shape)
+
+        meta = np.fromfile(os.path.join(path, "meta.i32"), np.int32
+                           ).reshape(h["meta_shape"])
+        return cls(row_data=opener("row_data.u8", h["row_data_shape"]),
+                   vals=opener("vals.u8", h["vals_shape"]), meta=meta,
+                   n_valid=int(h["n_valid"]), M=int(h["M"]),
+                   e_max=int(h["e_max"]))
+
 
 #: one engine's packed value stream stays addressable through the
 #: [2, nT] i32 ``meta``: 2^31 values.  Larger datasets are split into
-#: chunks (the JAX package's ``bigscale.ChunkedCompressedEngine``).
+#: chunks (``bigscale.ChunkedCompressedEngine``).
 MAX_STREAM_VALUES = 2 ** 31
 
 
@@ -77,20 +118,6 @@ def check_stream_capacity(n_values_padded: int) -> None:
             f"engine's i32 meta addressing caps at "
             f"{MAX_STREAM_VALUES}.  Split the index into chunks "
             f"(16M-row chunks keep each stream ~40x under the bound).")
-
-
-def _mask_planes(bits: np.ndarray) -> np.ndarray:
-    """[N, M] bool -> [N, ceil(M/8)] uint8 planes: plane p bit j set
-    iff bits[:, 8p + j]."""
-    n, M = bits.shape
-    P = (M + 7) // 8
-    out = np.zeros((n, P), np.uint8)
-    for p in range(P):
-        sub = bits[:, 8 * p:8 * p + 8]
-        w = (1 << np.arange(sub.shape[1], dtype=np.uint32))[None, :]
-        out[:, p] = (sub.astype(np.uint32) * w).sum(axis=1).astype(
-            np.uint8)
-    return out
 
 
 def _mask_bits(c: np.ndarray) -> np.ndarray:

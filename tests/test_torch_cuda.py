@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from deltapq_tpu_torch.bigscale import ChunkedCompressedEngine
 from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import fused as pfused
 from deltapq_tpu_torch.ops import fused_kernels as fk
-from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
+from deltapq_tpu_torch.ops.adc import adc_query_topk, adc_table, pad_codes
+from deltapq_tpu_torch.ops.delta_tiles import decode_delta_tiles
 from deltapq_tpu_torch.ops.fused import FusedCompressedEngine
 from deltapq_tpu_torch.ops.stream_tiles import decode_stream_tiles
 
@@ -54,7 +56,7 @@ def test_stream_kernel_matches_plain(cuda, n, M, K, Ds, B):
     assert build.launch_counts()["stream_mins"] == before + 1
     ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
         qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
-        M, u=uq)
+        M, u=uq, mode="int16")
     assert torch.equal(codes, ref_c)
     tol = 4e-6 * (pre_max + 2 * cross_max)
     fin = torch.isfinite(ref_m)
@@ -158,7 +160,8 @@ def test_stream_kernel_bf16_matches_plain(cuda, n, M, K, Ds, B):
     torch.cuda.synchronize()
     assert build.launch_counts()["stream_mins_bf16"] == before + 1
     ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
-        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M)
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        mode="bf16")
     assert torch.equal(codes, ref_c)
     _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))
 
@@ -180,7 +183,7 @@ def test_codes_kernel_matches_plain(cuda, precision, n, M, K, Ds, B):
     assert build.launch_counts()[key] == before + 1
     assert echo is eng.codes
     ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(
-        qop, eng.cwbd, eng.codes, eng.n_valid, u=uq)
+        qop, eng.cwbd, eng.codes, eng.n_valid, u=uq, mode=precision)
     tol = (_bf16_tol(pre_max, cross_max) if precision == "bf16"
            else 4e-6 * (pre_max + 2 * cross_max))
     _assert_mins(mins, ref_m, tol)
@@ -261,3 +264,144 @@ def test_index_search_on_card(cuda, engine):
     assert np.array_equal(d, dr.cpu().numpy())
     assert torch.equal(_own_dists(table, torch.from_numpy(codes).to(cuda),
                                   torch.from_numpy(i).to(cuda)), dr)
+
+
+# ---- int8 mode and the slot-tile kernel ----------------------------------
+
+@pytest.mark.parametrize("n,M,K,Ds,B", [(9000, 8, 256, 16, 200),
+                                        (3000, 4, 32, 4, 64),
+                                        (5000, 8, 64, 8, 70)])
+def test_int8_stream_and_codes_kernels_bit_equal(cuda, n, M, K, Ds, B):
+    """B1 and B3 in int8 mode: every partial sum is an exact integer and
+    the two roundings follow the plain version's order, so the mins are
+    bit-equal; the echo is exact."""
+    rng = np.random.default_rng(n + 4)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    eng = FusedCompressedEngine(cw, codes, precision="int8", device=cuda)
+    table, qop, uq, cert, b = eng.prepare(q)
+    before = build.launch_counts()["stream_mins_int8"]
+    mins, echo = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["stream_mins_int8"] == before + 1
+    ref_m, ref_c, _, _ = fk.fused_stream_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, mode="int8")
+    assert torch.equal(echo, ref_c) and torch.equal(mins, ref_m)
+    ce = pfused.FusedCodesEngine(cw, codes, precision="int8", device=cuda)
+    table, qop, uq, cert, b = ce.prepare(q)
+    before = build.launch_counts()["codes_mins_int8"]
+    mins, _ = ce.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["codes_mins_int8"] == before + 1
+    ref_m, _, _, _ = fk.fused_codes_mins_ref(qop, ce.cwbd, ce.codes,
+                                             ce.n_valid, u=uq, mode="int8")
+    assert torch.equal(mins, ref_m)
+
+
+@pytest.mark.parametrize("precision", ["int8", "int16", "bf16"])
+@pytest.mark.parametrize("n,M,K,Ds,B,S", [(9000, 8, 256, 16, 200, None),
+                                          (3000, 4, 32, 4, 64, 1),
+                                          (5000, 8, 64, 8, 70, 7)])
+def test_delta_kernel_matches_plain(cuda, precision, n, M, K, Ds, B, S):
+    """B5 in each mode against its plain version: echo exact and equal to
+    the codes, mins bit-equal (int8) or within the int16 / bf16 bounds."""
+    rng = np.random.default_rng(n + 5)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, fmt="slots",
+                                S=S, device=cuda)
+    assert S is None or eng.tiles.S == S
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    key = {"int16": "delta_mins", "int8": "delta_mins_int8",
+           "bf16": "delta_mins_bf16"}[precision]
+    before = build.launch_counts()[key]
+    mins, echo = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    ref_m, ref_c, pre_max, cross_max = fk.fused_delta_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.ovf, eng.n_valid, eng.tiles.S,
+        u=uq, mode=precision)
+    assert torch.equal(echo, ref_c)
+    assert np.array_equal(echo[:n].cpu().numpy(),
+                          decode_delta_tiles(eng.tiles))
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        tol = (_bf16_tol(pre_max, cross_max) if precision == "bf16"
+               else 4e-6 * (pre_max + 2 * cross_max))
+        _assert_mins(mins, ref_m, tol)
+
+
+@pytest.mark.parametrize("fmt,precision", [("stream", "int8"),
+                                           ("slots", "int8"),
+                                           ("slots", "int16")])
+def test_int8_and_slot_engines_exact_on_card(cuda, fmt, precision):
+    rng = np.random.default_rng(17)
+    n, M, K, Ds = 20000, 8, 256, 16
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    eng = FusedCompressedEngine(cw, _codes(rng, n, M, K),
+                                precision=precision, fmt=fmt, device=cuda)
+    q = rng.normal(size=(300, M * Ds)).astype(np.float32) * 3
+    d, i = eng.query(q, top_k=10)
+    table = eng.prepare(q)[0][:len(q)]
+    dec = (decode_stream_tiles(eng.tiles) if fmt == "stream" else
+           decode_delta_tiles(eng.tiles))
+    codes = torch.from_numpy(pad_codes(dec, 1024)).to(cuda)
+    dr, _ = adc_query_topk(table, codes, n, 10, 1024)
+    assert np.array_equal(d, dr.cpu().numpy())
+
+
+def test_scan_mode_mismatch_raises_on_card(cuda):
+    """Operands of one mode launched in another raise before any launch:
+    int16 digits in the int8 mode (the compact codebook has the int16
+    shape) and int8 operands with an int16 compact codebook."""
+    rng = np.random.default_rng(23)
+    n, M, K, Ds = 3000, 8, 256, 16
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    e16 = FusedCompressedEngine(cw, codes, precision="int16", device=cuda)
+    e8 = FusedCompressedEngine(cw, codes, precision="int8", device=cuda)
+    q = rng.normal(size=(64, M * Ds)).astype(np.float32)
+    _, q16, u16, _, _ = e16.prepare(q)
+    _, q8, u8, _, _ = e8.prepare(q)
+    before = build.launch_counts()
+    with pytest.raises(ValueError):
+        fk.fused_stream_mins(q16, e16.cwbd, e16.row_data, e16.vals,
+                             e16.meta, n, M, u=u16, compact=e16.compact,
+                             mode="int8")
+    with pytest.raises(ValueError):
+        fk.fused_stream_mins(q8, e8.cwbd, e8.row_data, e8.vals, e8.meta,
+                             n, M, u=u8, compact=e16.compact, mode="int8")
+    with pytest.raises(ValueError):
+        fk.fused_stream_mins(q8, e8.cwbd, e8.row_data, e8.vals, e8.meta,
+                             n, M, u=u8, compact=e8.compact, mode="int16")
+    assert build.launch_counts() == before
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_chunked_engine_exact_on_card(cuda, resident, tmp_path):
+    """Three int8 chunks, resident and uploaded per batch from a
+    memory-mapped save: distances bit-equal to the plain exact scan."""
+    rng = np.random.default_rng(29)
+    n, M, K, Ds = 30000, 8, 256, 16
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    eng = ChunkedCompressedEngine(cw, codes, chunk_rows=10240,
+                                  device=cuda)
+    if not resident:
+        eng.save(str(tmp_path / "chunks"))
+        eng = ChunkedCompressedEngine.from_saved(str(tmp_path / "chunks"),
+                                                 mmap=True, device=cuda)
+    q = rng.normal(size=(128, M * Ds)).astype(np.float32) * 3
+    build.reset_launch_counts()
+    d, i = eng.query(q, top_k=10)
+    assert build.launch_counts()["stream_mins_int8"] == 3
+    assert (eng.last_upload_s > 0.0) != resident
+    table = adc_table(torch.from_numpy(cw).to(cuda),
+                      torch.from_numpy(q).to(cuda))
+    dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024))
+                           .to(cuda), n, 10, 1024)
+    assert np.array_equal(d, dr.cpu().numpy())

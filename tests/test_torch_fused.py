@@ -92,7 +92,7 @@ def test_stream_mins_plain_matches_jax_kernel(case):
     uq = torch.from_numpy(case["uq"])
     mins, echo, pre_max, cross_max = fk.fused_stream_mins_ref(
         qop, peng.cwbd, peng.row_data, peng.vals, peng.meta, peng.n_valid,
-        case["M"], u=uq)
+        case["M"], u=uq, mode="int16")
     assert np.array_equal(echo.numpy(), case["jecho"])
     jm = case["jmins"]
     fin = np.isfinite(jm)
@@ -236,15 +236,16 @@ def test_engine_save_load_keeps_precision(case, tmp_path):
     d1, i1 = back.query(queries, top_k=TOPK)
     assert np.array_equal(d0, d1) and np.array_equal(i0, i1)
     # a saved precision is honoured, not rebuilt as int16
-    state["precision"] = np.array("bf16")
-    np.savez(str(tmp_path / "bf16_engine"), **state)
-    back16 = FusedCompressedEngine.load(str(tmp_path / "bf16_engine"))
-    assert back16.precision == "bf16"
-    assert back16.cwbd.dtype == torch.bfloat16
-    d2, _ = back16.query(queries, top_k=TOPK)
-    assert np.array_equal(d2, d0)              # exact in every precision
+    for prec, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        state["precision"] = np.array(prec)
+        np.savez(str(tmp_path / f"{prec}_engine"), **state)
+        back2 = FusedCompressedEngine.load(str(tmp_path / f"{prec}_engine"))
+        assert back2.precision == prec
+        assert back2.cwbd.dtype == dtype
+        d2, _ = back2.query(queries, top_k=TOPK)
+        assert np.array_equal(d2, d0)          # exact in every precision
     # ... and one the port lacks raises
-    state["precision"] = np.array("int8")
+    state["precision"] = np.array("fp8")
     with pytest.raises(NotImplementedError):
         engine_state_from_numpy(state)
 
@@ -268,22 +269,28 @@ def test_engine_from_tree_and_warmup(case):
 
 
 def test_unported_modes_raise(case):
+    """Every precision and tile format of the JAX package is ported; an
+    unknown one, a scan mode its operands do not match, and more than one
+    subspace group raise."""
     cw, codes = case["cw"], case["codes"]
     with pytest.raises(NotImplementedError):
-        FusedCompressedEngine(cw, codes, fmt="slots")
-    with pytest.raises(NotImplementedError):
-        FusedCompressedEngine(cw, codes, precision="int8")
+        FusedCompressedEngine(cw, codes, precision="fp8")
+    with pytest.raises(ValueError):
+        FusedCompressedEngine(cw, codes, fmt="v3")
     peng = case["peng"]
     qop = torch.from_numpy(case["qop"])
-    # mixed operand types (bf16 queries, int8 codebook), and more than
-    # one subspace group
+    args = (peng.cwbd, peng.row_data, peng.vals, peng.meta, peng.n_valid)
+    # mixed operand types (bf16 queries, int8 codebook); int16 operands
+    # in the bf16 mode; an unknown mode
+    with pytest.raises(ValueError):
+        fk.fused_stream_mins(qop.to(torch.bfloat16), *args, case["M"],
+                             mode="int16")
+    with pytest.raises(ValueError):
+        fk.fused_stream_mins(qop, *args, case["M"], mode="bf16")
     with pytest.raises(NotImplementedError):
-        fk.fused_stream_mins(qop.to(torch.bfloat16), peng.cwbd,
-                             peng.row_data, peng.vals, peng.meta,
-                             peng.n_valid, case["M"])
+        fk.fused_stream_mins(qop, *args, case["M"], mode="int4")
     with pytest.raises(NotImplementedError):
-        fk.fused_stream_mins(qop, peng.cwbd, peng.row_data, peng.vals,
-                             peng.meta, peng.n_valid, 16)
+        fk.fused_stream_mins(qop, *args, 16, mode="int16")
 
 
 def test_calibrate_grows_a_too_small_first_rung(case):

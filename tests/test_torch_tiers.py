@@ -127,7 +127,7 @@ def test_codes_mins_plain_matches_jax_kernel(case, precision):
                                      jnp.int32(N), u=ju,
                                      int16=precision == "int16")
     mins, echo, pre_max, cross_max = fk.fused_codes_mins_ref(
-        qop, peng.cwbd, peng.codes, N, u=uq)
+        qop, peng.cwbd, peng.codes, N, u=uq, mode=precision)
     assert np.array_equal(echo.numpy(), np.asarray(jecho))
     tol = (bf16_tol if precision == "bf16" else int16_tol)(pre_max,
                                                           cross_max)
@@ -151,7 +151,8 @@ def test_stream_mins_bf16_plain_matches_jax_kernel(case):
         jq, jeng.cwbd, jeng.row_data, jeng.vals, jeng.meta, jnp.int32(N),
         jeng.tiles.e_max, M, u=ju, int16=False)
     mins, echo, pre_max, cross_max = fk.fused_stream_mins_ref(
-        qop, peng.cwbd, peng.row_data, peng.vals, peng.meta, N, M)
+        qop, peng.cwbd, peng.row_data, peng.vals, peng.meta, N, M,
+        mode="bf16")
     assert np.array_equal(echo.numpy(), np.asarray(jecho))
     assert_mins_close(mins.numpy(), jm, bf16_tol(pre_max, cross_max))
 
@@ -233,17 +234,18 @@ def test_exact_all_topk_matches_jax(case):
 
 
 def test_unported_precisions_raise(case, monkeypatch):
+    """A precision the JAX package lacks raises; above the exact-all
+    regime the dedup tier's inner engine runs at every ported precision,
+    its int8 default included, with the exact-all results."""
     cw, codes = case["cw"], case["codes"]
-    with pytest.raises(NotImplementedError, match="A3"):
-        pfused.FusedCodesEngine(cw, codes, precision="int8")
+    with pytest.raises(NotImplementedError, match="int8, int16 and bf16"):
+        pfused.FusedCodesEngine(cw, codes, precision="fp8")
     d0, _ = pfused.DedupCompressedEngine(cw, codes).query(case["queries"],
                                                           top_k=TOPK)
-    # above the exact-all regime the dedup tier's int8 inner engine
     monkeypatch.setattr(pfused.DedupCompressedEngine, "EXACT_ALL_MAX_ROWS",
                         100)
-    with pytest.raises(NotImplementedError, match="A3"):
-        pfused.DedupCompressedEngine(cw, codes)
-    eng = pfused.DedupCompressedEngine(cw, codes, precision="int16")
-    assert eng.engine is not None
-    d, _ = eng.query(case["queries"], top_k=TOPK)
-    assert np.array_equal(d, d0)
+    for precision in ("int8", "int16"):
+        eng = pfused.DedupCompressedEngine(cw, codes, precision=precision)
+        assert eng.engine is not None and eng.engine.precision == precision
+        d, _ = eng.query(case["queries"], top_k=TOPK)
+        assert np.array_equal(d, d0)
