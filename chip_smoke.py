@@ -62,6 +62,30 @@ Phases, each timed:
    the per-batch upload time; ``DedupCompressedEngine`` at its default
    (int8) over phase 3's codes, two checked batches.
 
+11. the plain-scan kernel family against its plain versions, timed with
+   CUDA events, on the engine benchmark's workload
+   (``bench_engines.workload``) at N = 1,048,576, B=512, top-10: the
+   distance matrix B8 (bit-equal, compared in row chunks; its library
+   yardstick ``embedding_bag``), B6 at bf16 and bf16x2, B9 at f32, bf16
+   and bf16x2 (tile 4096), and B10 (tile 2048) on phase 7's dup_heavy
+   codes in DeltaTree-DFS order, where the dictionary fits (its width is
+   printed).  Every one bit-equal to its plain version;
+12. the plain-scan engines at B=128 and B=512: the gather scan, the
+   distance matrix with ``smallest_k``, argmin at f32 / bf16 / bf16x2,
+   packed at f32 / bf16 / bf16x2 and the decoded engine at bf16x2 with
+   and without rerank and at bf16 on the benchmark's workload, and
+   ``TileDictEngine`` on the dup_heavy codes: ms/batch, QPS, launches of
+   the engine's own kernel, and against the exact scan: the exact
+   engines bit-equal (the packed keys' truncated 12 bits audited in
+   f64), the rounded ones by recall@10; ``DecodedEngine`` save and load
+   on the card and its peak device memory.
+
+Every kernel's entry in the ``kernels`` line carries ``bound_ms``: the
+least time the card could take for the same work, the larger of the
+bytes it must move (each input read once, each output written once) over
+3.35 TB/s and its operations over the published peak of their type (67
+TFLOP/s f32 outside the tensor cores, 989 bf16, 1,979 TOP/s int8).
+
 Any failed check raises, so the script exits non-zero without the last
 line.  Its last two lines are a JSON object of per-kernel measurements
 and ``{"ok": true, "device": {...}}``.
@@ -77,15 +101,20 @@ import time
 import numpy as np
 import torch
 
+from deltapq_tpu_torch import bench_engines
 from deltapq_tpu_torch.bigscale import (BigCompressedIndex,
                                         ChunkedCompressedEngine,
                                         encode_stream)
-from deltapq_tpu_torch.convert import load_jax_engine
+from deltapq_tpu_torch.convert import (load_jax_decoded_engine,
+                                       load_jax_engine)
+from deltapq_tpu_torch.eval.metrics import recall_at_k
 from deltapq_tpu_torch.index import DeltaPQIndex
 from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import adc_kernels as ak
 from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import adc_query_topk, adc_table, pad_codes
+from deltapq_tpu_torch.ops import decoded as pdecoded
+from deltapq_tpu_torch.ops.decoded import DecodedEngine
 from deltapq_tpu_torch.ops.encode import pq_encode
 from deltapq_tpu_torch.ops.delta_tiles import (build_delta_tiles,
                                                decode_delta_tiles)
@@ -125,6 +154,13 @@ REPLACES = {
     "delta_mins": "deltapq_tpu/ops/fused_pallas.py:446",
     "delta_mins_int8": "deltapq_tpu/ops/fused_pallas.py:446",
     "delta_mins_bf16": "deltapq_tpu/ops/fused_pallas.py:446",
+    "adc_dists": "deltapq_tpu/ops/adc_pallas.py:35",
+    "adc_topk_bf16": "deltapq_tpu/ops/adc_pallas.py:104",
+    "adc_topk_bf16x2": "deltapq_tpu/ops/adc_pallas.py:104",
+    "adc_topk_packed": "deltapq_tpu/ops/adc_pallas.py:144",
+    "adc_topk_packed_bf16": "deltapq_tpu/ops/adc_pallas.py:144",
+    "adc_topk_packed_bf16x2": "deltapq_tpu/ops/adc_pallas.py:144",
+    "adc_topk_tiledict": "deltapq_tpu/ops/adc_pallas.py:382",
 }
 SOURCES = {
     "stream_mins": "deltapq_tpu_torch/csrc/stream_mins.cu",
@@ -139,7 +175,21 @@ SOURCES = {
     "delta_mins": "deltapq_tpu_torch/csrc/delta_mins.cu",
     "delta_mins_int8": "deltapq_tpu_torch/csrc/delta_mins.cu",
     "delta_mins_bf16": "deltapq_tpu_torch/csrc/delta_mins.cu",
+    "adc_dists": "deltapq_tpu_torch/csrc/adc_dists.cu",
+    "adc_topk_bf16": "deltapq_tpu_torch/csrc/adc_topk.cu",
+    "adc_topk_bf16x2": "deltapq_tpu_torch/csrc/adc_topk.cu",
+    "adc_topk_packed": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
+    "adc_topk_packed_bf16": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
+    "adc_topk_packed_bf16x2": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
+    "adc_topk_tiledict": "deltapq_tpu_torch/csrc/adc_topk_tiledict.cu",
 }
+#: published peaks of one H100 SXM at its full power limit (NVIDIA's data
+#: sheet): device memory bytes/s; operations/s by type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PACKED_TILE = 4096     # adc_topk_packed's tile
+DICT_TILE = 2048       # adc_topk_tiledict's and TileDictEngine's tile
+ENGINE_BS = (128, 512)
 
 
 def log(*a):
@@ -167,23 +217,50 @@ class Phase:
             log(f"== {self.name}: {time.perf_counter() - self.t0:.2f} s")
 
 
-def cuda_ms(fn, reps):
-    """Mean device ms per call of ``fn`` over ``reps`` calls (warm)."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+cuda_ms = bench_engines.cuda_ms   # mean device ms per warm call
 
 
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes, ops, kind):
+    """The least ms the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def scan_bound(mode, mins, b, d, inputs, outputs):
+    """Bound of a scan kernel: its products are matrix products, 2 N B D
+    operations (int16: four int8 digit products), at the tensor cores'
+    rate for their type."""
+    ops = 2 * mins.shape[0] * fk.SUB * b * d * (4 if mode == "int16" else 1)
+    return bound(nbytes(*inputs, *outputs), ops,
+                 "bf16" if mode == "bf16" else "int8")
+
+
+def engine_operands(e, qop, uq):
+    """The tensors a scan kernel of engine ``e`` reads."""
+    return [qop, uq, e.cwbd] + [getattr(e, name, None) for name in (
+        "row_data", "vals", "meta", "ovf", "codes", "xt")]
+
+
+def lookup_bound(table, inputs, outputs, n_rows, adds_per_m=1):
+    """Bound of an ADC lookup kernel: N B M f32 additions (twice that at
+    bf16x2) outside the tensor cores."""
+    b, m, _ = table.shape
+    return bound(nbytes(table, *inputs, *outputs),
+                 n_rows * b * m * adds_per_m, "f32")
 
 
 def main() -> int:
@@ -215,8 +292,7 @@ def main() -> int:
         log(f"vectors [{N}, {D}]: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(0)
-        cw = pq_learn(gen, x[:TRAIN], M=M, K=K, max_iters=40, n_init=1,
-                      device=dev)
+        cw = pq_learn(gen, x[:TRAIN], M=M, K=K, max_iters=40, n_init=1)
         torch.cuda.synchronize()
         log(f"pq_learn ({TRAIN} rows, 40 iters): "
             f"{time.perf_counter() - t:.1f} s")
@@ -235,7 +311,7 @@ def main() -> int:
         order = tree.vec_id.astype(np.int64)
         t = time.perf_counter()
         eng = FusedCompressedEngine(cw, codes[order], row_to_db=order,
-                                    precision="int16", device=dev)
+                                    precision="int16")
         log(f"stream tiles + upload: {time.perf_counter() - t:.1f} s")
         check(np.array_equal(decode_stream_tiles(eng.tiles),
                              codes[order]), "stream tiles not lossless")
@@ -267,8 +343,10 @@ def main() -> int:
             M, u=uq, mode="int16"), 2)
         log(f"{tag} B1 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B})")
-        kernels["stream_mins"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms)
+        kernels["stream_mins"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **scan_bound("int16", mins, B, D, engine_operands(eng, qop, uq),
+                         (mins, echo)))
         del ref_m, ref_c
 
         # cap-rung-sized candidates, gathered from the echo as the
@@ -287,7 +365,9 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: fk.rerank_table_sums_ref(tab, cand), 5)
         log(f"{tag} B2 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(B={B}, S={S_RERANK})")
-        kernels["rerank"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+        kernels["rerank"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            **bound(nbytes(tab, cand, out), B * S_RERANK * M, "f32"))
         del cand, out, ref, mins, echo
 
     with Phase("5 engine"):
@@ -361,8 +441,9 @@ def main() -> int:
 
     phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels)
     # stream_mins and rerank keep their counts from phase 5's path
-    launches.update(phase7_index(dev, tag, cw, codes, codes_db, codes_db64,
-                                 rng))
+    counts7, dup = phase7_index(dev, tag, cw, codes, codes_db, codes_db64,
+                                rng)
+    launches.update(counts7)
     dt = phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                                       kernels, codes_db, codes_db64,
                                       launches)
@@ -370,6 +451,9 @@ def main() -> int:
     phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
                        launches)
     phase10_big_n(dev, tag, cw, codes, rng, launches)
+    del codes_db, codes_db64
+    tde = phase11_adc_family_kernels(dev, tag, rng, kernels, dup)
+    phase12_plain_scan_engines(dev, tag, rng, dup, tde, launches)
     for k in kernels:
         check(launches.get(k, 0) > 0, f"kernel {k} was never launched on "
                                       f"its path")
@@ -415,7 +499,7 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
         q = rng.normal(size=(B, D)).astype(np.float32)
 
         e = FusedCompressedEngine.from_tiles(cw, eng.tiles, row_to_db=order,
-                                             precision="bf16", device=dev)
+                                             precision="bf16")
         table, qop, uq, cert, b = e.prepare(q)
         mins, echo = e.scan(qop, uq)
         args = (qop, e.cwbd, e.row_data, e.vals, e.meta, e.n_valid, M)
@@ -429,14 +513,15 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
             *args, mode="bf16"), 2)
         log(f"{tag} B1 bf16 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B})")
-        kernels["stream_mins_bf16"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+        kernels["stream_mins_bf16"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **scan_bound("bf16", mins, B, D, engine_operands(e, qop, uq),
+                         (mins, echo)))
         del e, mins, echo, ref_m, ref_c
 
         for prec, name in (("bf16", "codes_mins"),
                            ("int16", "codes_mins_int16")):
-            e = FusedCodesEngine(cw, codes, order=order, precision=prec,
-                                 device=dev)
+            e = FusedCodesEngine(cw, codes, order=order, precision=prec)
             table, qop, uq, cert, b = e.prepare(q)
             mins, echo = e.scan(qop, uq)
             args = (qop, e.cwbd, e.codes, e.n_valid)
@@ -450,12 +535,14 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
                 *args, u=uq, mode=prec), 2)
             log(f"{tag} B3 {prec} {ms:.4f} ms/call, plain {plain_ms:.4f} "
                 f"ms/call (N={N}, B={B})")
-            kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            kernels[name] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **scan_bound(prec, mins, B, D, engine_operands(e, qop, uq),
+                             (mins,)))
             del e, mins, echo, ref_m
 
         t = time.perf_counter()
-        e = FusedDecodedEngine(cw, codes[order], tile=DECODED_TILE,
-                               device=dev)
+        e = FusedDecodedEngine(cw, codes[order], tile=DECODED_TILE)
         log(f"decoded cache [{N}, {D}] bf16 + upload: "
             f"{time.perf_counter() - t:.1f} s")
         table, qop, uq, cert, b = e.prepare(q)
@@ -468,8 +555,9 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
                            2)
         log(f"{tag} B4 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B}, tile {DECODED_TILE})")
-        kernels["decoded_mins"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms)
+        kernels["decoded_mins"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **scan_bound("bf16", mins, B, D, (qop, e.xt), (mins,)))
         del e, mins, ref_m
 
         codes_p = torch.from_numpy(pad_codes(codes, ADC_TILE)).to(dev)
@@ -478,7 +566,8 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
         rd, ri = ak.adc_topk_tiles_ref(tab, codes_p, N, TOP_K, ADC_TILE)
         check(torch.equal(d, rd) and torch.equal(i, ri),
               "B6 tile top-k not bit-equal to the plain version")
-        dm, _ = ak.adc_topk_pallas(tab, codes_p, N, TOP_K, ADC_TILE)
+        dm, _ = ak.adc_topk_pallas(tab, codes_p, N, TOP_K, ADC_TILE,
+                                   "f32")
         dr, _ = adc_query_topk(tab, codes_p, N, TOP_K, ADC_TILE)
         check(torch.equal(dm, dr), "B6 merged top-k != adc_query_topk")
         log("B6 adc_topk: tile top-k bit-equal to the plain version; "
@@ -489,7 +578,9 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
             tab, codes_p, N, TOP_K, ADC_TILE), 2)
         log(f"{tag} B6 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B}, top-{TOP_K}, tile {ADC_TILE})")
-        kernels["adc_topk"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+        kernels["adc_topk"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            **lookup_bound(tab, (codes_p,), (d, i), codes_p.shape[0]))
 
 
 def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
@@ -543,7 +634,7 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
     launches = {}
     with Phase("7 index"):
         t = time.perf_counter()
-        idx = DeltaPQIndex(cw, codes, device=dev)
+        idx = DeltaPQIndex(cw, codes)
         log(f"DeltaPQIndex(cw, codes): tree, table-driven layout, DTC "
             f"stream: {time.perf_counter() - t:.1f} s")
         counts = search_batches(idx, "auto", tag, cw, codes_db, codes_db64,
@@ -555,15 +646,14 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         for name, own in (("fused", ("decoded_mins", "rerank")),
                           ("fused_codes", ("codes_mins", "rerank")),
                           ("pallas", ("adc_topk",))):
-            other = DeltaPQIndex(cw, codes, engine=name, build_tree=False,
-                                 device=dev)
+            other = DeltaPQIndex(cw, codes, engine=name, build_tree=False)
             counts = search_batches(other, name, tag, cw, codes_db,
                                     codes_db64, rng, N, own)
             launches[own[0]] = counts[own[0]]
             del other
 
         # the codes tier at int16, through the engine's own entry point
-        ce = FusedCodesEngine(cw, codes, precision="int16", device=dev)
+        ce = FusedCodesEngine(cw, codes, precision="int16")
         build.reset_launch_counts()
         for _ in range(2):
             q = rng.normal(size=(B, D)).astype(np.float32)
@@ -586,7 +676,7 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as path:
             t = time.perf_counter()
             idx.save(path)
-            back = DeltaPQIndex.load(path, device=dev)
+            back = DeltaPQIndex.load(path)
             log(f"save + load: {time.perf_counter() - t:.1f} s")
         check(np.array_equal(back.tree.vec_id, idx.tree.vec_id)
               and back._stream == idx._stream, "loaded tree differs")
@@ -601,11 +691,10 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         t = time.perf_counter()
         x = workload_vectors(N, seed=0, **WORKLOADS["dup_heavy"])
         gen = torch.Generator(device=dev).manual_seed(0)
-        cw_d = pq_learn(gen, x[:TRAIN], M=M, K=K, max_iters=40, n_init=1,
-                        device=dev)
+        cw_d = pq_learn(gen, x[:TRAIN], M=M, K=K, max_iters=40, n_init=1)
         codes_d = pq_encode(cw_d, x).cpu().numpy()
         del x
-        idx_d = DeltaPQIndex(cw_d, codes_d, device=dev)
+        idx_d = DeltaPQIndex(cw_d, codes_d)
         n_distinct = len(np.unique(codes_d, axis=0))
         log(f"dup_heavy index at N={N}: {n_distinct} distinct codes (dup "
             f"{N / n_distinct:.2f}x), learn + encode + index "
@@ -615,7 +704,9 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
                        cdb[:N].to(torch.int64), rng, N)
         check(idx_d._engine_resolved == "fused_dedup",
               "dup_heavy auto did not resolve to fused_dedup")
-    return launches
+        dup = dict(cw=cw_d.cpu().numpy(), codes=codes_d,
+                   order=idx_d.tree.vec_id.astype(np.int64))
+    return launches, dup
 
 
 def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None):
@@ -638,7 +729,10 @@ def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None):
     plain_ms = cuda_ms(lambda: plain(qop, uq), 2)
     log(f"{tag} {label} {ms:.4f} ms/call, plain {plain_ms:.4f} "
         f"ms/call (N={e.n_valid}, B={q.shape[0]})")
-    kernels[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    kernels[key] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **scan_bound(e.precision, mins, q.shape[0], D,
+                     engine_operands(e, qop, uq), (mins, echo)))
     return echo
 
 
@@ -650,15 +744,14 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
     with Phase("8 int8 and slot-tile kernels"):
         q = rng.normal(size=(B, D)).astype(np.float32)
         e = FusedCompressedEngine.from_tiles(cw, eng.tiles, row_to_db=order,
-                                             precision="int8", device=dev)
+                                             precision="int8")
         scan_vs_plain(tag, "B1 stream_mins int8", e, q,
                       lambda qop, uq: fk.fused_stream_mins_ref(
                           qop, e.cwbd, e.row_data, e.vals, e.meta,
                           e.n_valid, M, u=uq, mode="int8"),
                       kernels, "stream_mins_int8")
         del e
-        e = FusedCodesEngine(cw, codes, order=order, precision="int8",
-                             device=dev)
+        e = FusedCodesEngine(cw, codes, order=order, precision="int8")
         scan_vs_plain(tag, "B3 codes_mins int8", e, q,
                       lambda qop, uq: fk.fused_codes_mins_ref(
                           qop, e.cwbd, e.codes, e.n_valid, u=uq,
@@ -677,7 +770,7 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                                ("int16", "delta_mins", int16_tol),
                                ("bf16", "delta_mins_bf16", bf16_tol)):
             e = FusedCompressedEngine.from_tiles(cw, dt, row_to_db=order,
-                                                 precision=prec, device=dev)
+                                                 precision=prec)
             echo = scan_vs_plain(
                 tag, f"B5 delta_mins {prec}", e, q,
                 lambda qop, uq: fk.fused_delta_mins_ref(
@@ -689,7 +782,7 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
             del e, echo
 
         # the int8 codes tier through its own entry point
-        ce = FusedCodesEngine(cw, codes, precision="int8", device=dev)
+        ce = FusedCodesEngine(cw, codes, precision="int8")
         build.reset_launch_counts()
         for _ in range(2):
             q = rng.normal(size=(B, D)).astype(np.float32)
@@ -750,7 +843,7 @@ def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
                                      ("int8", "delta_mins_int8", N_BATCHES),
                                      ("bf16", "delta_mins_bf16", 2)):
             e = FusedCompressedEngine.from_tiles(cw, dt, row_to_db=order,
-                                                 precision=prec, device=dev)
+                                                 precision=prec)
             build.reset_launch_counts()
             t = time.perf_counter()
             e.warmup(batch_sizes=(B,), top_k=TOP_K)
@@ -777,7 +870,7 @@ def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
                 state = {k: z[k] for k in z.files if k != "fmt"}
             np.savez(f"{path}/nofmt", **state)
             for name in ("slots", "nofmt"):
-                back = load_jax_engine(f"{path}/{name}", device=dev)
+                back = load_jax_engine(f"{path}/{name}")
                 check(back.fmt == "slots" and back.precision == "int8",
                       f"{name}: not reloaded as int8 slot tiles")
                 d1, i1 = back.query(q, top_k=TOP_K)
@@ -808,7 +901,7 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
             f"phase 3's codes: {int((codes8[:N] != codes).any(1).sum())}")
         t = time.perf_counter()
         idx = BigCompressedIndex(cw, codes8, n_parts=8, precision="int8",
-                                 chunk_rows=BIG_CHUNK_ROWS, device=dev)
+                                 chunk_rows=BIG_CHUNK_ROWS)
         st = idx.build_stats
         log(f"BigCompressedIndex: {time.perf_counter() - t:.1f} s (sort "
             f"{st.t_sort:.2f} s, partition builds {st.t_build:.2f} s wall "
@@ -857,8 +950,7 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
             t = time.perf_counter()
             eng.save(path)
             back = ChunkedCompressedEngine.from_saved(path, mmap=True,
-                                                      resident=False,
-                                                      device=dev)
+                                                      resident=False)
             log(f"save + from_saved(mmap=True, resident=False): "
                 f"{time.perf_counter() - t:.1f} s")
             for _ in range(2):
@@ -879,7 +971,7 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
         del idx, eng, cdb, cdb64
 
         t = time.perf_counter()
-        de = DedupCompressedEngine(cw, codes, device=dev)
+        de = DedupCompressedEngine(cw, codes)
         check(isinstance(de.engine, FusedCompressedEngine)
               and de.engine.precision == "int8",
               "the dedup tier did not build its int8 inner engine")
@@ -901,10 +993,301 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
                 f"adc_query_topk")
 
 
+def tiles_vs_plain(tag, label, key, kernels, kernel, plain, reps, bnd):
+    """One ADC lookup kernel against its plain version on the same
+    operands: every output bit-equal; both timed with CUDA events.
+    Returns the kernel's outputs."""
+    out = kernel()
+    ref = plain()
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    check(all(torch.equal(a, b) for a, b in zip(outs, refs)),
+          f"{label} not bit-equal to the plain version")
+    del ref, refs
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, 1)
+    log(f"{tag} {label}: bit-equal to the plain version; {ms:.4f} ms/call, "
+        f"plain {plain_ms:.4f} ms/call")
+    kernels[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                        **bnd(outs))
+    return out
+
+
+def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
+    """B8, the bf16 modes of B6, B9 in its three precisions and B10
+    against their plain versions at N=1,048,576, B=512, top-10, timed.
+    Returns the ``TileDictEngine`` over the dup_heavy codes."""
+    with Phase("11 plain-scan kernel family vs plain"):
+        cw_b, codes_b, q_b = bench_engines.workload(N, B)
+        tab = adc_table(torch.from_numpy(cw_b).to(dev),
+                        torch.from_numpy(q_b).to(dev))
+        codes_p = torch.from_numpy(pad_codes(codes_b, PACKED_TILE)).to(dev)
+        n_pad = codes_p.shape[0]
+        log(f"engine benchmark workload: N={N}, B={B}, M={M}, K={K}; "
+            f"{len(np.unique(codes_b, axis=0))} distinct codes")
+
+        # B8: compared in row chunks, so the plain side never holds a
+        # second [B, N] matrix
+        out = ak.adc_dists_pallas(tab, codes_p)
+        step = 1 << 18
+        for r0 in range(0, n_pad, step):
+            ref = ak.adc_dists_ref(tab, codes_p[r0:r0 + step])
+            check(torch.equal(out[:, r0:r0 + step], ref),
+                  f"B8 rows {r0}.. not bit-equal to the plain version")
+        del ref
+        ms = cuda_ms(lambda: ak.adc_dists_pallas(tab, codes_p), 5)
+        # the one library call that computes the same sums: a bag per row
+        w = tab.reshape(B, M * K).t().contiguous()          # [M*K, B]
+        ix = (codes_p.to(torch.int64)
+              + torch.arange(M, device=dev)[None, :] * K)
+        lib = torch.nn.functional.embedding_bag(ix, w, mode="sum")
+        lib_err = float((lib.t() - out).abs().max())
+        bnd = lookup_bound(tab, (codes_p,), (out,), n_pad)
+        del lib, out
+        library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            ix, w, mode="sum"), 3)
+        del ix, w
+        plain_ms = cuda_ms(lambda: ak.adc_dists_ref(tab, codes_p), 1)
+        log(f"{tag} B8 adc_dists [{B}, {n_pad}]: bit-equal to the plain "
+            f"version; {ms:.4f} ms/call, plain {plain_ms:.4f}, "
+            f"embedding_bag {library_ms:.4f} (max |diff| {lib_err:.3g}: "
+            f"its own summation order)")
+        kernels["adc_dists"] = dict(max_abs_err=0.0, ms=ms,
+                                    plain_ms=plain_ms,
+                                    **{**bnd, "library_ms": library_ms})
+
+        for prec in ("bf16", "bf16x2"):
+            tiles_vs_plain(
+                tag, f"B6 adc_topk {prec} (tile {ADC_TILE})",
+                f"adc_topk_{prec}", kernels,
+                lambda: ak.adc_topk_tiles(tab, codes_p, N, TOP_K, ADC_TILE,
+                                          prec),
+                lambda: ak.adc_topk_tiles_ref(tab, codes_p, N, TOP_K,
+                                              ADC_TILE, prec),
+                10, lambda outs: lookup_bound(
+                    tab, (codes_p,), outs, n_pad,
+                    2 if prec == "bf16x2" else 1))
+        keys_f32 = None
+        for prec in ("f32", "bf16", "bf16x2"):
+            keys = tiles_vs_plain(
+                tag, f"B9 adc_topk_packed {prec} (tile {PACKED_TILE})",
+                ak._mode_name("adc_topk_packed", prec), kernels,
+                lambda: ak.adc_topk_packed_tiles(tab, codes_p, N, TOP_K,
+                                                 PACKED_TILE, prec),
+                lambda: ak.adc_topk_packed_tiles_ref(tab, codes_p, N, TOP_K,
+                                                     PACKED_TILE, prec),
+                10, lambda outs: lookup_bound(
+                    tab, (codes_p,), outs, n_pad,
+                    2 if prec == "bf16x2" else 1))
+            if prec == "f32":
+                keys_f32 = keys
+        # exact keys select the exact scan's rows up to 12 truncated bits
+        d, ids = ak._merge_packed(keys_f32, tab, codes_p, N, TOP_K,
+                                  PACKED_TILE)
+        check_packed(tab, codes_p, d, ids.to(torch.int64), N)
+        del keys_f32, codes_p, tab
+
+        # B10 on the dup_heavy codes in DeltaTree-DFS order
+        t = time.perf_counter()
+        for max_dict in (64, 128, 256):     # the JAX default first
+            eng = ak.TileDictEngine(dup["cw"], dup["codes"],
+                                    order=dup["order"], tile_n=DICT_TILE,
+                                    max_dict=max_dict)
+            if eng.ok:
+                break
+            log(f"a tile of the dup_heavy codes in DFS order has more than "
+                f"{max_dict} distinct values in a subspace: wider")
+        check(eng.ok, "no tile dictionary of u8 indexes fits")
+        log(f"TileDictEngine over dup_heavy in DFS order: dictionary width "
+            f"{eng.dict_width} (K={K}), {eng.dicts.shape[0]} tiles of "
+            f"{DICT_TILE}, {time.perf_counter() - t:.1f} s")
+        tab = adc_table(eng.codewords, torch.from_numpy(
+            rng.normal(size=(B, D)).astype(np.float32)).to(dev))
+        n_rows = eng.idx.shape[0]
+        keys = tiles_vs_plain(
+            tag, f"B10 adc_topk_tiledict (tile {DICT_TILE}, width "
+                 f"{eng.dict_width})", "adc_topk_tiledict", kernels,
+            lambda: ak.adc_topk_tiledict_tiles(tab, eng.idx, eng.dicts, N,
+                                               TOP_K, DICT_TILE),
+            lambda: ak.adc_topk_tiledict_tiles_ref(tab, eng.idx, eng.dicts,
+                                                   N, TOP_K, DICT_TILE),
+            10, lambda outs: lookup_bound(tab, (eng.idx, eng.dicts), outs,
+                                          n_rows))
+        check(torch.equal(keys, ak.adc_topk_packed_tiles(
+            tab, eng.codes_reordered, N, TOP_K, DICT_TILE, "f32")),
+            "B10 keys != B9 f32 keys on the same rows")
+        log("B10 keys equal B9's f32 keys on the same rows")
+    return eng
+
+
+def check_packed(table, codes_pad, d, ids, n):
+    """Results selected on exact packed keys against the plain exact
+    scan: each id carries its exact distance, bit-equal; the id sets may
+    differ only inside the 12 bits the key drops -- every returned
+    distance is, in f64, within 2^-11 relative of the exact scan's
+    k-th."""
+    dr, ir = adc_query_topk(table, pad_codes(codes_pad, 16384), n, TOP_K,
+                            16384)
+    own = ak._exact_dists_for_ids(table, codes_pad, ids)
+    check(torch.equal(own, d), "an id does not carry its exact distance")
+    srt = torch.sort(d, 1).values
+    same = torch.sort(ids, 1).values == torch.sort(ir, 1).values
+    exact_rows = same.all(1)
+    check(torch.equal(srt[exact_rows], dr[exact_rows]),
+          "equal id sets with different distances")
+    t64 = table.to(torch.float64)
+    Mq = table.shape[1]
+    c64 = codes_pad[:n].to(torch.int64)
+    n_audit = 0
+    for b in torch.nonzero(~exact_rows).flatten().tolist():
+        d64 = t64[b][torch.arange(Mq, device=t64.device)[None, :],
+                     c64].sum(1)
+        kth = torch.sort(d64).values[TOP_K - 1]
+        worst = d64[ids[b]].max()
+        check(float(worst) <= float(kth) + abs(float(kth)) * 2.0 ** -11,
+              f"query {b}: a returned row lies beyond the key's truncation "
+              f"({float(worst)} against the k-th {float(kth)})")
+        n_audit += 1
+    return n_audit
+
+
+def time_engine(fn, q, reps):
+    """(ms/batch, results) of ``fn(q)``: one warm call, then ``reps``
+    synchronised calls between CUDA events."""
+    res = fn(q)
+    return cuda_ms(lambda: fn(q), reps), res
+
+
+def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
+    """The plain-scan engine family through its entry points; ``eng`` is
+    phase 11's ``TileDictEngine``."""
+    own_kernel = {
+        "dists-smallest_k": "adc_dists",
+        "pallas-argmin-f32": "adc_topk",
+        "pallas-argmin-bf16": "adc_topk_bf16",
+        "pallas-argmin-bf16x2": "adc_topk_bf16x2",
+        "pallas-packed-f32": "adc_topk_packed",
+        "pallas-packed-bf16": "adc_topk_packed_bf16",
+        "pallas-packed-bf16x2": "adc_topk_packed_bf16x2"}
+    exact = ("dists-smallest_k", "pallas-argmin-f32")
+    with Phase("12 plain-scan engines"):
+        cw_b, codes_b, _ = bench_engines.workload(N, B)
+        t = time.perf_counter()
+        engs = bench_engines.engines(cw_b, codes_b, all_modes=True)
+        check(engs.pop("pallas-tiledict-f32") is None,
+              "the unordered benchmark codes fit a 64-wide dictionary?")
+        log(f"engines over the benchmark workload (decoded cache "
+            f"included): {time.perf_counter() - t:.1f} s; its unordered "
+            f"codes do not fit a 64-wide tile dictionary, so "
+            f"TileDictEngine runs on the dup_heavy codes below")
+        codes_p = torch.from_numpy(pad_codes(codes_b, 16384)).to(dev)
+        codes_p64 = codes_p[:N].to(torch.int64)
+        cwd = torch.from_numpy(cw_b).to(dev)
+        for b in ENGINE_BS:
+            q = torch.from_numpy(
+                rng.normal(size=(b, D)).astype(np.float32)).to(dev)
+            table = adc_table(cwd, q)
+            dr, ir = adc_query_topk(table, codes_p, N, TOP_K, 16384)
+            for name, fn in engs.items():
+                build.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                ms, (d, ids) = time_engine(
+                    fn, q, 2 if name in ("xla-gather",
+                                         "dists-smallest_k") else 5)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                counts = build.launch_counts()
+                ids = ids.to(torch.int64)
+                note = ""
+                if name in exact or name == "xla-gather":
+                    check(torch.equal(d, dr), f"{name}: distances differ "
+                                              f"from adc_query_topk")
+                    check_batch(table, codes_p, codes_p64, d, ids)
+                    note = "bit-equal to adc_query_topk"
+                elif name == "pallas-packed-f32":
+                    n_audit = check_packed(table, codes_p, d, ids, N)
+                    note = (f"exact distances; ids equal to adc_query_topk"
+                            f" but for {n_audit} queries inside the key's "
+                            f"12 truncated bits (f64 audit)")
+                else:
+                    rec = recall_at_k(ids.cpu().numpy(), ir.cpu().numpy())
+                    note = f"recall@{TOP_K} against the exact scan {rec:.4f}"
+                    one_bf16 = "bf16" in name and "bf16x2" not in name
+                    check(rec > (0.5 if one_bf16 else 0.99),
+                          f"{name}: recall {rec}")
+                key = own_kernel.get(name)
+                if key:
+                    check(counts[key] > 0, f"{name} never launched {key}")
+                    launches[key] = launches.get(key, 0) + counts[key]
+                log(f"{tag} {name} (B={b}): {ms:.4f} ms/batch -> "
+                    f"{b / ms * 1e3:.1f} QPS; {note}; launches "
+                    f"{({k: v for k, v in counts.items() if v})}; peak "
+                    f"device memory {peak:.2f} GiB")
+        del engs, codes_p, codes_p64
+        log("decoded_topk's matrix products ran as "
+            + ("torch.mm(bf16, bf16, out_dtype=f32)" if pdecoded._mm_out_dtype
+               else "f32 torch.mm of the widened operands, TF32 off"))
+
+        # TileDictEngine, through its query(), on the dup_heavy codes
+        codes_d = torch.from_numpy(pad_codes(dup["codes"], 16384)).to(dev)
+        for b in ENGINE_BS:
+            q = rng.normal(size=(b, D)).astype(np.float32)
+            build.reset_launch_counts()
+            eng.query(q, top_k=TOP_K)
+            walls = []
+            for _ in range(N_BATCHES):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                d, ids = eng.query(q, top_k=TOP_K)
+                walls.append(time.perf_counter() - t)
+            counts = build.launch_counts()
+            check(counts["adc_topk_tiledict"] > 0,
+                  "TileDictEngine never launched adc_topk_tiledict")
+            launches["adc_topk_tiledict"] = (
+                launches.get("adc_topk_tiledict", 0)
+                + counts["adc_topk_tiledict"])
+            table = adc_table(eng.codewords, torch.from_numpy(q).to(dev))
+            n_audit = check_packed(table, codes_d,
+                                   torch.from_numpy(d).to(dev),
+                                   torch.from_numpy(ids).to(dev).to(
+                                       torch.int64), N)
+            wall = float(np.mean(walls))
+            log(f"{tag} TileDictEngine (dup_heavy, DFS order, width "
+                f"{eng.dict_width}, B={b}): host wall {wall * 1e3:.4f} "
+                f"ms/batch -> {b / wall:.1f} QPS; exact distances; ids "
+                f"equal to adc_query_topk but for {n_audit} queries inside "
+                f"the key's 12 truncated bits; launches "
+                f"{({k: v for k, v in counts.items() if v})}")
+        del eng, codes_d
+
+        # DecodedEngine through query(), and its file, on the card
+        n_small = N // 8
+        dec = DecodedEngine(cw_b, codes_b[:n_small])
+        q = rng.normal(size=(BIG_B, D)).astype(np.float32)
+        d0, i0 = dec.query(q, top_k=TOP_K)
+        big_check(cwd, q, torch.from_numpy(pad_codes(
+            codes_b[:n_small], 16384)).to(dev), None, d0,
+            i0.astype(np.int64), n_small)
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as path:
+            t = time.perf_counter()
+            dec.save(f"{path}/decoded.npz")
+            back = load_jax_decoded_engine(f"{path}/decoded.npz")
+            secs = time.perf_counter() - t
+        check(back.device.type == "cuda" and back.precision == "bf16x2",
+              "the decoded cache did not load onto the card")
+        d1, i1 = back.query(q, top_k=TOP_K)
+        check(np.array_equal(d0, d1) and np.array_equal(i0, i1),
+              "the reloaded decoded cache answers differently")
+        log(f"DecodedEngine.query over {n_small} rows bit-equal to "
+            f"adc_query_topk; save + load on the card {secs:.1f} s, same "
+            f"results")
+
+
 def big_check(cw, q, codes_db, codes_db64, d, ids, n):
     """Results of an engine without ``prepare`` against the plain exact
     scan over the table of the same queries."""
     dev = codes_db.device
+    if codes_db64 is None:
+        codes_db64 = codes_db[:n].to(torch.int64)
     table = adc_table(cw, torch.from_numpy(q).to(dev))
     check_batch(table, codes_db, codes_db64, torch.from_numpy(d).to(dev),
                 torch.from_numpy(ids).to(dev), n)

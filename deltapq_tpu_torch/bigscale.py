@@ -37,6 +37,7 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import resolve_device
 from .ops.encode import pq_encode
 from .ops.fused import FusedCompressedEngine, _np_f32
 from .ops.stream_tiles import StreamTiles, build_stream_tiles
@@ -150,7 +151,7 @@ class BigCompressedIndex:
     def __init__(self, codewords, codes: np.ndarray, n_parts: int = 16,
                  method: int = 1, workers: Optional[int] = None,
                  batch_b: int = 128, precision: str = "int8",
-                 chunk_rows: Optional[int] = None, device="cpu"):
+                 chunk_rows: Optional[int] = None, device=None):
         codewords = _np_f32(codewords)
         K = codewords.shape[1]
         codes = np.asarray(codes)
@@ -204,14 +205,14 @@ class ChunkedCompressedEngine:
     def __init__(self, codewords, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
                  precision: str = "int8", chunk_rows: int = CHUNK_ROWS,
-                 resident: bool = True, mesh=None, device="cpu"):
+                 resident: bool = True, mesh=None, device=None):
         _no_mesh(mesh)
         n = len(codes_scan)
         chunk_rows = max(1024, (chunk_rows // 1024) * 1024)
         self.codewords = _np_f32(codewords)
         self.precision = precision
         self.resident = resident
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.chunks: List = []
         self._host: List = []
         for lo in range(0, n, chunk_rows):
@@ -268,7 +269,7 @@ class ChunkedCompressedEngine:
 
     @classmethod
     def from_saved(cls, path: str, mmap: bool = True,
-                   resident: bool = False, mesh=None, device="cpu"
+                   resident: bool = False, mesh=None, device=None
                    ) -> "ChunkedCompressedEngine":
         """Reopen a saved chunked engine.  ``mmap=True`` with
         ``resident=False`` is the beyond-host-RAM mode: tiles stay on
@@ -281,7 +282,7 @@ class ChunkedCompressedEngine:
         self.codewords = np.load(os.path.join(path, "codewords.npy"))
         self.precision = h["precision"]
         self.resident = resident
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.chunks, self._host = [], []
         for i in range(int(h["n_chunks"])):
             cdir = os.path.join(path, f"chunk_{i:04d}")

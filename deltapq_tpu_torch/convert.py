@@ -26,7 +26,10 @@ from typing import Mapping, Optional
 
 import numpy as np
 
+from . import resolve_device
 from .index import DeltaPQIndex
+from .ops.adc_kernels import TileDictEngine
+from .ops.decoded import DecodedEngine
 from .ops.delta_tiles import DeltaTiles
 from .ops.fused import FusedCompressedEngine
 from .ops.stream_tiles import StreamTiles
@@ -34,7 +37,7 @@ from .ops.stream_tiles import StreamTiles
 
 def engine_state_from_numpy(d: Mapping[str, np.ndarray],
                             precision: Optional[str] = None,
-                            device="cpu") -> FusedCompressedEngine:
+                            device=None) -> FusedCompressedEngine:
     """Port engine from the arrays a JAX (or port) ``save`` wrote.
     ``precision=None`` takes the file's own, else int16."""
     fmt = str(d["fmt"]) if "fmt" in d else "slots"
@@ -61,7 +64,7 @@ def engine_state_from_numpy(d: Mapping[str, np.ndarray],
 
 
 def load_jax_engine(path: str, precision: Optional[str] = None,
-                    device="cpu") -> FusedCompressedEngine:
+                    device=None) -> FusedCompressedEngine:
     """Read an engine ``.npz`` (``np.savez`` appends the suffix)."""
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"
@@ -70,8 +73,32 @@ def load_jax_engine(path: str, precision: Optional[str] = None,
                                        device=device)
 
 
-def load_jax_index(path: str, device="cpu") -> DeltaPQIndex:
+def load_jax_index(path: str, device=None) -> DeltaPQIndex:
     """Open an index directory the JAX package saved (``index.npz``,
     ``config.json``, ``compressed.dtc``, ``tree_soa.npz``): the port
     reads that layout as it is, so this is ``DeltaPQIndex.load``."""
     return DeltaPQIndex.load(path, device=device)
+
+
+def load_jax_decoded_engine(path: str, device=None) -> DecodedEngine:
+    """Open a decoded cache the JAX package's ``DecodedEngine.save``
+    wrote: the port keeps that ``.npz`` layout, so this is
+    ``DecodedEngine.load``."""
+    return DecodedEngine.load(path, device=device)
+
+
+def tile_dict_state_from_numpy(codewords, dicts, idx, codes_reordered,
+                               row_to_db, n_valid: int, tile_n: int = 2048,
+                               device=None) -> TileDictEngine:
+    """A ``TileDictEngine`` from the arrays of the JAX engine (its
+    ``codewords``, ``dicts``, ``idx``, ``codes_reordered``, ``row_to_db``
+    and ``n_valid``), so both engines answer from the same state."""
+    eng = TileDictEngine.__new__(TileDictEngine)
+    eng.device = resolve_device(device)
+    eng.n_valid = int(n_valid)
+    eng.order = np.asarray(row_to_db, np.int64)[:eng.n_valid]
+    eng.ok = True
+    eng._set_state(codewords, np.asarray(dicts), np.asarray(idx),
+                   np.asarray(codes_reordered), np.asarray(row_to_db),
+                   tile_n)
+    return eng

@@ -1,15 +1,17 @@
-// ADC distances per tile + tile-local top-k (f32, exact).
+// ADC distances per tile + tile-local top-k by mask-argmin.
 //
 // Replaces the TPU kernel deltapq_tpu/ops/adc_pallas.py:_adc_topk_kernel
-// (with _accumulate_onehot) in its "f32" precision, reached from
+// (with _accumulate_onehot) in its three precisions, reached from
 // adc_topk_pallas.  Python wrapper, plain PyTorch version and the
 // cross-tile merge: deltapq_tpu_torch/ops/adc_kernels.py.
 //
 // What it computes, per tile t of tile_n rows and query b:
 //   dist[r] = sum_m tab[b, m*K + codes[t*tile_n + r, m]], added in
-//             ascending m from 0.0f with __fadd_rn (bit-equal to the
-//             plain scan, ops/adc.py adc_query_topk); +inf at rows >=
-//             n_valid;
+//             ascending m from 0.0f with __fadd_rn: of f32 table values
+//             ("f32", bit-equal to the plain scan, ops/adc.py
+//             adc_query_topk), of the table rounded to bf16 ("bf16"), or of
+//             its bf16 hi and lo parts, hi then lo for each m ("bf16x2");
+//             +inf at rows >= n_valid;
 //   then top_k rounds of mask-argmin, as the TPU kernel: each round takes
 //   the smallest (value, row) -- the lower row wins a tie, as argmin --
 //   writes it to out_d/out_i[t, j, b] (tile-local row) and sets that
@@ -19,25 +21,27 @@
 //
 // What bounds it on an H100: shared-memory table lookups (N*B*M = 4.3e9
 // at N=1M, B=512, M=8) and, for small top_k, the latency of the
-// selection rounds (two block barriers each).
+// selection rounds (two block barriers each).  The bf16 modes buy no
+// speed here (the TPU takes them for fewer matrix-unit passes); they
+// exist because they select on rounded tables.
 //
 // Design: the TPU has no per-lane gather and does a one-hot [tile, K] x
 // [K, B] matmul per subspace.  Here a block holds QC queries' [M*K] table
-// rows in shared memory (QC*M*K*4 bytes, dynamic shared memory above
-// 48 KB) and the current query's tile distances; every thread keeps the
-// (value, row) minimum of its strided rows, so a selection round is a
-// warp shuffle-reduce, a block reduce over the warps, and one rescan by
-// the winning thread.
+// rows in shared memory (QC*M*K entries of 4 or 2 bytes, dynamic shared
+// memory above 48 KB) and the current query's tile distances; every
+// thread keeps the (value, row) minimum of its strided rows, so a
+// selection round is a warp shuffle-reduce, a block reduce over the
+// warps, and one rescan by the winning thread.
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "adc_lookup.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
+using adc::FULL;
+using adc::THREADS;
+using adc::WARPS;
 
 __device__ __forceinline__ bool less_vr(float v, int r, float ov, int orr) {
   return ov < v || (ov == v && orr < r);
@@ -58,18 +62,20 @@ __device__ __forceinline__ void local_min(const float* dist_s, int tile_n,
   }
 }
 
-template <typename CodeT>
+template <int P, typename CodeT>
 __global__ void __launch_bounds__(THREADS)
-adc_topk_kernel(const float* __restrict__ tab,      // [B, M*K]
+adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
+                                                    // [B, M*K] entries
                 const CodeT* __restrict__ codes,    // [N_pad, M]
                 float* __restrict__ out_d,          // [nT, top_k, B]
                 int* __restrict__ out_i,            // [nT, top_k, B]
                 int B, int M, int K, int tile_n, int n_valid, int top_k,
                 int QC) {
-  extern __shared__ __align__(16) float smem[];
+  using E = typename adc::Entry<P>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int MK = M * K;
-  float* tab_s = smem;                      // [QC, MK]
-  float* dist_s = smem + (size_t)QC * MK;   // [tile_n]
+  float* dist_s = reinterpret_cast<float*>(smem);             // [tile_n]
+  E* tab_s = reinterpret_cast<E*>(smem + sizeof(float) * tile_n);  // [QC, MK]
   __shared__ float red_v[WARPS];
   __shared__ int red_r[WARPS];
   __shared__ int win_s;
@@ -78,17 +84,15 @@ adc_topk_kernel(const float* __restrict__ tab,      // [B, M*K]
   const int t = blockIdx.x;
   const int q0 = blockIdx.y * QC;
   const int nq = min(QC, B - q0);
-  for (int i = tid; i < nq * MK; i += THREADS)
-    tab_s[i] = tab[(size_t)q0 * MK + i];
+  adc::stage(tab_s, tab + (size_t)q0 * MK, nq * MK);
   __syncthreads();
 
   const long long row0 = (long long)t * tile_n;
   for (int j = 0; j < nq; ++j) {
-    const float* T = tab_s + (size_t)j * MK;
+    const E* T = tab_s + (size_t)j * MK;
     for (int r = tid; r < tile_n; r += THREADS) {
-      const CodeT* c = codes + (row0 + r) * M;
-      float acc = 0.0f;
-      for (int m = 0; m < M; ++m) acc = __fadd_rn(acc, T[m * K + (int)c[m]]);
+      const float acc = adc::row_sum<P, CodeT>(T, codes + (row0 + r) * M, M,
+                                               K);
       dist_s[r] = row0 + r < n_valid ? acc : CUDART_INF_F;
     }
     __syncthreads();
@@ -142,42 +146,68 @@ adc_topk_kernel(const float* __restrict__ tab,      // [B, M*K]
   }
 }
 
+template <int P, typename CodeT>
+cudaError_t launch(const void* tab, const void* codes, float* out_d,
+                   int* out_i, int B, int M, int K, int n_pad, int tile_n,
+                   int n_valid, int top_k, int QC, cudaStream_t st) {
+  const size_t smem = sizeof(float) * tile_n
+                      + adc::entry_bytes(P) * (size_t)QC * M * K;
+  // every template instance needs its own opt-in above 48 KB
+  cudaError_t e = cudaFuncSetAttribute(
+      adc_topk_kernel<P, CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(n_pad / tile_n, (B + QC - 1) / QC);
+  adc_topk_kernel<P, CodeT><<<grid, THREADS, smem, st>>>(
+      static_cast<const typename adc::Entry<P>::type*>(tab),
+      static_cast<const CodeT*>(codes), out_d, out_i, B, M, K, tile_n,
+      n_valid, top_k, QC);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_codes(int code_bytes, const void* tab, const void* codes,
+                         float* out_d, int* out_i, int B, int M, int K,
+                         int n_pad, int tile_n, int n_valid, int top_k,
+                         int QC, cudaStream_t st) {
+  if (code_bytes == 1)
+    return launch<P, uint8_t>(tab, codes, out_d, out_i, B, M, K, n_pad,
+                              tile_n, n_valid, top_k, QC, st);
+  if (code_bytes == 4)
+    return launch<P, int32_t>(tab, codes, out_d, out_i, B, M, K, n_pad,
+                              tile_n, n_valid, top_k, QC, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// code_bytes 1 (u8 codes) or 4 (int32 codes, K > 256); tile_n a multiple
-// of 256 dividing n_pad; QC queries per block, sized by the Python
-// wrapper so that 4*(QC*M*K + tile_n) bytes fit in shared memory.
+// prec 0 (tab f32 [B, M*K]), 1 (bf16 [B, M*K]) or 2 (bf16 [B, M*K, 2]: hi,
+// lo); code_bytes 1 (u8 codes) or 4 (int32 codes, K > 256); tile_n a
+// multiple of 256 dividing n_pad; QC queries per block, sized by the
+// Python wrapper so that 4*tile_n + QC*M*K entries fit in shared memory.
 // Returns cudaGetLastError() after the launch.
 extern "C" int adc_topk_launch(const void* tab, const void* codes,
                                void* out_d, void* out_i, int B, int M, int K,
                                int n_pad, int tile_n, int n_valid, int top_k,
-                               int QC, int code_bytes, void* stream) {
+                               int QC, int code_bytes, int prec,
+                               void* stream) {
   if (n_pad == 0 || B == 0 || top_k == 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * ((size_t)QC * M * K + tile_n);
-  dim3 grid(n_pad / tile_n, (B + QC - 1) / QC);
   auto st = static_cast<cudaStream_t>(stream);
-  auto* tp = static_cast<const float*>(tab);
   auto* dp = static_cast<float*>(out_d);
   auto* ip = static_cast<int*>(out_i);
-  cudaError_t e;
-  if (code_bytes == 1) {
-    e = cudaFuncSetAttribute(adc_topk_kernel<uint8_t>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    adc_topk_kernel<uint8_t><<<grid, THREADS, smem, st>>>(
-        tp, static_cast<const uint8_t*>(codes), dp, ip, B, M, K, tile_n,
-        n_valid, top_k, QC);
-  } else if (code_bytes == 4) {
-    e = cudaFuncSetAttribute(adc_topk_kernel<int32_t>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    adc_topk_kernel<int32_t><<<grid, THREADS, smem, st>>>(
-        tp, static_cast<const int32_t*>(codes), dp, ip, B, M, K, tile_n,
-        n_valid, top_k, QC);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (prec) {
+    case adc::F32:
+      return (int)launch_codes<adc::F32>(code_bytes, tab, codes, dp, ip, B,
+                                         M, K, n_pad, tile_n, n_valid, top_k,
+                                         QC, st);
+    case adc::BF16:
+      return (int)launch_codes<adc::BF16>(code_bytes, tab, codes, dp, ip, B,
+                                          M, K, n_pad, tile_n, n_valid,
+                                          top_k, QC, st);
+    case adc::BF16X2:
+      return (int)launch_codes<adc::BF16X2>(code_bytes, tab, codes, dp, ip,
+                                            B, M, K, n_pad, tile_n, n_valid,
+                                            top_k, QC, st);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,20 +4,19 @@ Counterpart of ``deltapq_tpu/index.py``: codebook learning -> encoding
 -> DeltaTree compression -> engine selection -> query, with live
 inserts (an uncompressed tail buffer, folded in once it outgrows
 ``rebuild_fraction``), masked deletes and persistence.  Every tensor of
-the index lives on ``device``.  ``save`` and ``load`` use the JAX
-package's on-disk layout (``index.npz``, ``config.json``,
+the index lives on ``device`` (``None``: the card).  ``save`` and
+``load`` use the JAX package's on-disk layout (``index.npz``, ``config.json``,
 ``compressed.dtc``, ``tree_soa.npz``), so each package loads the
 other's directory.
 
 Example::
 
-    idx = DeltaPQIndex.build(train_vecs, base_vecs, M=8, K=256,
-                             device="cuda")
+    idx = DeltaPQIndex.build(train_vecs, base_vecs, M=8, K=256)
     dists, ids = idx.search(queries, top_k=10)
     idx.add(new_vecs)
     idx.remove([3, 17])
     idx.save("index_dir")
-    idx2 = DeltaPQIndex.load("index_dir", device="cuda")
+    idx2 = DeltaPQIndex.load("index_dir")
 """
 
 from __future__ import annotations
@@ -29,6 +28,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import resolve_device
+
 FUSED_ENGINES = ("fused", "fused_codes", "fused_compressed", "fused_dedup")
 
 
@@ -36,7 +37,7 @@ class DeltaPQIndex:
     def __init__(self, codewords, codes: np.ndarray, engine: str = "auto",
                  tree_method: int = 1, height: int = 1,
                  rebuild_fraction: float = 0.2, build_tree: bool = True,
-                 device="cpu"):
+                 device=None):
         self.codewords = (codewords.detach().cpu().numpy()
                           if isinstance(codewords, torch.Tensor)
                           else np.asarray(codewords, np.float32))
@@ -47,7 +48,7 @@ class DeltaPQIndex:
         self.tree_method = tree_method
         self.height = height
         self.rebuild_fraction = rebuild_fraction
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tail = np.empty((0, self.M), self.codes.dtype)
         self.deleted = np.zeros(0, bool)  # lazily sized
         self.tree = None
@@ -63,14 +64,14 @@ class DeltaPQIndex:
     @classmethod
     def build(cls, train_vecs: np.ndarray, base_vecs: np.ndarray,
               M: int = 8, K: int = 256, seed: int = 0,
-              max_iters: int = 100, device="cpu", **kw) -> "DeltaPQIndex":
+              max_iters: int = 100, device=None, **kw) -> "DeltaPQIndex":
         """Learn the codebook on ``train_vecs`` (k-means seeded from a
         ``torch.Generator`` seeded with ``seed``), encode ``base_vecs``
         and index them."""
         from .ops.encode import pq_encode
         from .ops.kmeans import pq_learn
 
-        device = torch.device(device)
+        device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         cw = pq_learn(gen, np.asarray(train_vecs), M=M, K=K,
                       max_iters=max_iters, device=device)
@@ -299,7 +300,7 @@ class DeltaPQIndex:
                      M=t.M, K=t.K)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "DeltaPQIndex":
+    def load(cls, path: str, device=None) -> "DeltaPQIndex":
         """Open an index directory written by either package."""
         from .tree.layout import DeltaTree
         from .tree.serialize import serialize_dtc

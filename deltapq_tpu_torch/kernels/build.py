@@ -56,9 +56,19 @@ SIGNATURES = {
     # q, xt, mins, B, D, n_rows, n_valid, stream
     "decoded_mins_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # tab, codes, out_d, out_i, B, M, K, n_pad, tile_n, n_valid, top_k,
-    # QC, code_bytes, stream
+    # QC, code_bytes, prec, stream
     "adc_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+                        _I, _I, _P],
+    # tab, codes, out, B, M, K, n, rows, QC, code_bytes, stream
+    "adc_dists_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tab, codes, out, B, M, K, n_pad, tile_n, n_valid, top_k, QC,
+    # code_bytes, prec, stream
+    "adc_topk_packed_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
+    # tab, idx, dict, out, B, M, K, D, n_pad, tile_n, n_valid, top_k, QC,
+    # stream
+    "adc_topk_tiledict_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
     # tab, cand, out, B, M, K, S, code_bytes, stream
     "rerank_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -175,12 +185,16 @@ def check(err: int, what: str) -> None:
 
 
 #: kernel launches made by the wrappers (not by the plain versions), one
-#: key per kernel and scan mode: stream_mins (int16), codes_mins (bf16)
-#: and delta_mins (int16) carry their first mode's bare name
+#: key per kernel and scan mode: stream_mins (int16), codes_mins (bf16),
+#: delta_mins (int16), adc_topk (f32) and adc_topk_packed (f32) carry
+#: their first mode's bare name
 LAUNCHES = {"stream_mins": 0, "stream_mins_bf16": 0, "stream_mins_int8": 0,
             "codes_mins": 0, "codes_mins_int16": 0, "codes_mins_int8": 0,
             "delta_mins": 0, "delta_mins_int8": 0, "delta_mins_bf16": 0,
-            "decoded_mins": 0, "adc_topk": 0, "rerank": 0}
+            "decoded_mins": 0, "adc_topk": 0, "rerank": 0,
+            "adc_topk_bf16": 0, "adc_topk_bf16x2": 0, "adc_dists": 0,
+            "adc_topk_packed": 0, "adc_topk_packed_bf16": 0,
+            "adc_topk_packed_bf16x2": 0, "adc_topk_tiledict": 0}
 
 
 def count(kernel: str) -> None:

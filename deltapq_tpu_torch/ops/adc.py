@@ -17,6 +17,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @contextlib.contextmanager
 def no_tf32() -> Iterator[None]:
@@ -112,7 +114,7 @@ def pad_codes(codes, tile_n: int):
 
 
 def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
-                tile_n: int = 16384, engine: str = "auto", device="cpu"
+                tile_n: int = 16384, engine: str = "auto", device=None
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """End-to-end plain ADC query (reference ``PQTree::QueryPlain``):
     build tables, scan, top-k, on ``device``.
@@ -123,7 +125,7 @@ def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
     ("pallas" on a CUDA device, "xla" on the CPU).  ``codes`` is a NumPy
     array or a tensor (kept on the device by a caller that queries it
     often).  Returns NumPy (dists [B, top_k], ids [B, top_k])."""
-    device = torch.device(device)
+    device = resolve_device(device)
     cw = codewords if isinstance(codewords, torch.Tensor) else \
         torch.from_numpy(np.asarray(codewords, np.float32))
     cw = cw.to(device=device, dtype=torch.float32)
@@ -145,7 +147,7 @@ def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
         if c.dtype not in (torch.uint8, torch.int32):
             c = c.to(torch.int32)
         d, i = adc_topk_pallas(table, pad_codes(c, TILE_N).contiguous(),
-                               n_valid, top_k)
+                               n_valid, top_k, TILE_N, "f32")
     elif engine == "xla":
         tile_n = min(tile_n, max(256, 1 << (n_valid - 1).bit_length()))
         d, i = adc_query_topk(table, pad_codes(c, tile_n), n_valid, top_k,

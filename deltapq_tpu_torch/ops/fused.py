@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .adc import adc_query_topk, adc_table, adc_tile_dists
 from .decoded import build_decoded_cache
 from .delta_tiles import build_delta_tiles
@@ -402,7 +403,7 @@ def _common_init(self, codewords, device):
     """Codebook fields every fused engine holds."""
     codewords = _np_f32(codewords)
     M, K, Ds = codewords.shape
-    self.device = torch.device(device)
+    self.device = resolve_device(device)
     self.codewords = torch.from_numpy(codewords).to(self.device)
     self.M, self.K, self.Ds = M, K, Ds
     self.D = M * Ds
@@ -438,7 +439,7 @@ class FusedDecodedEngine(_FusedEngine):
     (M B/vec).  Also the index's tier for K > 256."""
 
     def __init__(self, codewords, codes: np.ndarray, tile: int = 8192,
-                 device="cpu"):
+                 device=None):
         codewords = _common_init(self, codewords, device)
         codes = np.asarray(codes)
         self.n_valid = codes.shape[0]
@@ -467,7 +468,7 @@ class FusedCodesEngine(_FusedEngine):
 
     def __init__(self, codewords, codes: np.ndarray,
                  order: Optional[np.ndarray] = None,
-                 precision: str = "bf16", device="cpu"):
+                 precision: str = "bf16", device=None):
         codewords = _common_init(self, codewords, device)
         if self.K > 256:
             raise NotImplementedError(
@@ -512,7 +513,7 @@ class FusedCompressedEngine(_FusedEngine):
     def __init__(self, codewords, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
                  precision: str = "int16", fmt: str = "stream",
-                 S: Optional[int] = None, device="cpu"):
+                 S: Optional[int] = None, device=None):
         codes_scan = np.asarray(codes_scan)
         if fmt == "stream":
             tiles = build_stream_tiles(codes_scan)
@@ -545,7 +546,7 @@ class FusedCompressedEngine(_FusedEngine):
     @classmethod
     def from_tree(cls, codewords, tree, precision: str = "int16",
                   fmt: str = "stream", S: Optional[int] = None,
-                  device="cpu") -> "FusedCompressedEngine":
+                  device=None) -> "FusedCompressedEngine":
         codes_db = tree.decode_codes()
         order = tree.vec_id.astype(np.int64)
         return cls(codewords, codes_db[order], row_to_db=order,
@@ -554,7 +555,7 @@ class FusedCompressedEngine(_FusedEngine):
     @classmethod
     def from_tiles(cls, codewords, tiles,
                    row_to_db: Optional[np.ndarray] = None,
-                   precision: str = "int16", device="cpu"
+                   precision: str = "int16", device=None
                    ) -> "FusedCompressedEngine":
         """Engine over pre-built ``StreamTiles`` or ``DeltaTiles``
         (construction = upload)."""
@@ -595,7 +596,7 @@ class FusedCompressedEngine(_FusedEngine):
                      Cap=self.tiles.Cap, **common)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "FusedCompressedEngine":
+    def load(cls, path: str, device=None) -> "FusedCompressedEngine":
         """Reopen a saved engine at its saved precision (a file without
         ``precision`` -- one the JAX package wrote -- loads at int16, and
         one without ``fmt`` as slot tiles; see
@@ -640,10 +641,10 @@ class DedupCompressedEngine:
 
     def __init__(self, codewords, codes_db: np.ndarray,
                  precision: str = "int8", fmt: str = "stream",
-                 chunked_min_rows: int = CHUNKED_MIN_ROWS, device="cpu"):
+                 chunked_min_rows: int = CHUNKED_MIN_ROWS, device=None):
         codes_db = np.asarray(codes_db)
         cwf = _np_f32(codewords)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.codewords = torch.from_numpy(cwf).to(self.device)
         self.M, _, self.Ds = cwf.shape
         self.D = self.M * self.Ds

@@ -18,6 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .adc import no_tf32
 
 
@@ -111,13 +112,13 @@ def _as_f32(a, device) -> torch.Tensor:
 
 def pq_learn(gen: torch.Generator, vecs, M: int, K: int,
              max_iters: int = 1000, tol: float = 1.0, n_init: int = 3,
-             device="cpu") -> torch.Tensor:
+             device=None) -> torch.Tensor:
     """Learn a PQ codebook: codewords f32 [M, K, Ds] on ``device``.
 
     The (zero-padded) dimensions split into M contiguous slices, one
     k-means problem each.
     """
-    x = _as_f32(vecs, device)
+    x = _as_f32(vecs, resolve_device(device))
     n, D = x.shape
     pad = (-D) % M
     if pad:

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import resolve_device
+
 #: calibrated recipes (N=1M, M=8, K=256): (rows/cluster, noise sigma)
 #: -> code duplication factor measured with the JAX pipeline
 WORKLOADS = {
@@ -39,6 +41,22 @@ def chain_codes(n: int, M: int = 8, K: int = 256, seed: int = 0
         m = ms[i - 1]
         codes[i, m] = (int(codes[i, m]) + int(deltas[i - 1])) % K
     return codes
+
+
+def clustered_codes(n: int, M: int = 8, K: int = 256, seed: int = 0,
+                    rng=None) -> np.ndarray:
+    """The engine benchmark's codes u8 [n, M]: a pool of max(n // 200,
+    16) random codes, each row a pool member with 15% of its bytes
+    redrawn.  ``rng`` continues a caller's generator (the benchmark draws
+    its codewords first and its queries after), else one is made from
+    ``seed``."""
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    pool = rng.integers(0, K, size=(max(n // 200, 16), M))
+    codes = pool[rng.integers(0, len(pool), n)]
+    mut = rng.random((n, M)) < 0.15
+    return np.where(mut, rng.integers(0, K, size=(n, M)),
+                    codes).astype(np.uint8)
 
 
 def clustered_vectors(n: int, dim: int, n_clusters: int = 64,
@@ -67,7 +85,7 @@ def workload_vectors(n: int, rows_per_cluster: int = 256,
 
 def make_clustered_codes(n: int, M: int, K: int,
                          rows_per_cluster: int = 256, sigma: float = 0.35,
-                         seed: int = 0, device="cpu",
+                         seed: int = 0, device=None,
                          n_train: int = 20000
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Workload codes from the real pipeline: clustered vectors -> PQ
@@ -77,6 +95,7 @@ def make_clustered_codes(n: int, M: int, K: int,
     from .ops.encode import pq_encode
     from .ops.kmeans import pq_learn
 
+    device = resolve_device(device)
     x = workload_vectors(n, rows_per_cluster, sigma, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     cw = pq_learn(gen, x[:n_train], M=M, K=K, max_iters=40, n_init=1,

@@ -5,6 +5,10 @@ Inputs are made with NumPy from a seed and handed to both packages.
 
 import numpy as np
 
+#: the port's entry points run on the card unless asked otherwise; the
+#: CPU tests ask for the CPU
+CPU = "cpu"
+
 
 def structured_codes(rng, n, M, K):
     """Delta-compressible codes: repeated rows + sparse flips."""

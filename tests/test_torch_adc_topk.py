@@ -1,5 +1,6 @@
 """The port's ADC top-k (B6, f32) plain version against the JAX Pallas
-kernel in interpret mode, and ``query_plain`` for each engine."""
+kernel in interpret mode, and ``query_plain`` for each engine.  The
+``bf16`` and ``bf16x2`` precisions: tests/test_torch_adc_family.py."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import adc as padc
 from deltapq_tpu_torch.ops import adc_kernels as ak
 
-from _torch_port import assert_ids_up_to_ties, codebook, structured_codes
+from _torch_port import CPU, assert_ids_up_to_ties, codebook, structured_codes
 
 
 @pytest.fixture
@@ -51,7 +52,7 @@ def test_adc_topk_plain_matches_jax_kernel(interpret, B, M, K, n, tile, k,
         jnp.asarray(table), jnp.asarray(codes), jnp.int32(n), top_k=k,
         tile_n=tile, precision="f32")
     d, i = ak.adc_topk_pallas(torch.from_numpy(table),
-                              torch.from_numpy(codes), n, k, tile)
+                              torch.from_numpy(codes), n, k, tile, "f32")
     # one-hot products select exact table values; both sum in ascending m
     assert np.array_equal(d.numpy(), np.asarray(jd))
     fin = np.isfinite(d.numpy())
@@ -92,12 +93,12 @@ def test_query_plain_matches_jax(engine, M, K, Ds):
     codes = structured_codes(rng, 5000, M, K)
     q = rng.normal(size=(40, M * Ds)).astype(np.float32) * 3
     jd, ji = jadc.query_plain(cw, q, codes, top_k=10, engine="xla")
-    d, i = padc.query_plain(cw, q, codes, top_k=10, engine=engine)
+    d, i = padc.query_plain(cw, q, codes, top_k=10, engine=engine, device=CPU)
     np.testing.assert_allclose(d, jd, rtol=1e-5, atol=1e-4)
     table = padc.adc_table(torch.from_numpy(cw), torch.from_numpy(q))
     assert_ids_up_to_ties(table.numpy(), codes, i, np.asarray(ji), 10)
     dx, _ = padc.query_plain(cw, q, torch.from_numpy(codes), top_k=10,
-                             engine="xla")
+                             engine="xla", device=CPU)
     assert np.array_equal(d, dx)             # every engine: the same bits
 
 
@@ -112,4 +113,5 @@ def test_bad_operands_raise():
     with pytest.raises(ValueError):
         padc.query_plain(np.zeros((4, 16, 2), np.float32),
                          np.zeros((2, 8), np.float32),
-                         np.zeros((10, 4), np.uint8), engine="nope")
+                         np.zeros((10, 4), np.uint8), engine="nope",
+                         device=CPU)

@@ -29,7 +29,7 @@ from deltapq_tpu_torch.ops.stream_tiles import (StreamTiles,
                                                 build_stream_tiles,
                                                 decode_stream_tiles)
 
-from _torch_port import (assert_ids_carry_dists, assert_ids_up_to_ties,
+from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
 M, K, Ds = 8, 16, 4
@@ -88,7 +88,8 @@ def test_stream_tiles_save_load_across_packages(data, tmp_path, mmap):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         eng = pfused.FusedCompressedEngine.from_tiles(data["cw"], back,
-                                                      precision="int8")
+                                                      precision="int8",
+                                                      device=CPU)
     assert torch.equal(eng.vals, torch.from_numpy(st.vals))
 
 
@@ -128,7 +129,7 @@ def test_big_index_matches_jax(data, chunk_rows):
     resident chunks.  Both at the int8 default."""
     cw, codes = data["cw"], data["codes"]
     idx = pbig.BigCompressedIndex(cw, codes, n_parts=2, workers=1,
-                                  chunk_rows=chunk_rows)
+                                  chunk_rows=chunk_rows, device=CPU)
     jidx = jbig.BigCompressedIndex(cw, codes, n_parts=2, workers=1,
                                    chunk_rows=chunk_rows)
     assert np.array_equal(idx.row_to_db, jidx.row_to_db)
@@ -149,7 +150,8 @@ def test_chunked_engine_matches_jax(data, resident):
     cw, codes = data["cw"], data["codes"]
     order = np.lexsort(codes.T[::-1])
     eng = pbig.ChunkedCompressedEngine(cw, codes[order], row_to_db=order,
-                                       chunk_rows=CHUNK, resident=resident)
+                                       chunk_rows=CHUNK, resident=resident,
+                                       device=CPU)
     jeng = jbig.ChunkedCompressedEngine(cw, codes[order], row_to_db=order,
                                         chunk_rows=CHUNK, resident=resident)
     assert (len(eng.chunks) if resident else len(eng._host)) == 3
@@ -169,12 +171,12 @@ def test_chunked_from_saved_mmap_across_packages(data, tmp_path):
     cw, codes = data["cw"], data["codes"]
     order = np.lexsort(codes.T[::-1])
     eng = pbig.ChunkedCompressedEngine(cw, codes[order], row_to_db=order,
-                                       chunk_rows=CHUNK)
+                                       chunk_rows=CHUNK, device=CPU)
     d0, i0 = eng.query(data["queries"], top_k=TOPK)
     _check(data, d0, i0)
     eng.save(str(tmp_path / "port"))
     back = pbig.ChunkedCompressedEngine.from_saved(str(tmp_path / "port"),
-                                                   mmap=True)
+                                                   mmap=True, device=CPU)
     assert not back.resident and back.precision == "int8"
     assert isinstance(back._host[0][0].vals, np.memmap)
     d, i = back.query(data["queries"], top_k=TOPK)
@@ -186,11 +188,11 @@ def test_chunked_from_saved_mmap_across_packages(data, tmp_path):
     jback.save(str(tmp_path / "jax"))
     for resident in (True, False):
         b2 = pbig.ChunkedCompressedEngine.from_saved(
-            str(tmp_path / "jax"), mmap=True, resident=resident)
+            str(tmp_path / "jax"), mmap=True, resident=resident, device=CPU)
         d2, i2 = b2.query(data["queries"], top_k=TOPK)
         assert np.array_equal(d2, d0) and np.array_equal(i2, i0)
     with pytest.raises(NotImplementedError, match="A9"):
-        pbig.ChunkedCompressedEngine(cw, codes, mesh=object())
+        pbig.ChunkedCompressedEngine(cw, codes, mesh=object(), device=CPU)
 
 
 def test_dedup_int8_inner_engine_above_exact_all(data, monkeypatch):
@@ -200,7 +202,7 @@ def test_dedup_int8_inner_engine_above_exact_all(data, monkeypatch):
     cw, codes = data["cw"], data["codes"]
     for cls in (pfused.DedupCompressedEngine, jfused.DedupCompressedEngine):
         monkeypatch.setattr(cls, "EXACT_ALL_MAX_ROWS", 100)
-    eng = pfused.DedupCompressedEngine(cw, codes)
+    eng = pfused.DedupCompressedEngine(cw, codes, device=CPU)
     jeng = jfused.DedupCompressedEngine(cw, codes)
     assert eng.n_unique == jeng.n_unique > 100
     assert isinstance(eng.engine, pfused.FusedCompressedEngine)
@@ -209,7 +211,8 @@ def test_dedup_int8_inner_engine_above_exact_all(data, monkeypatch):
     d, i = eng.query(data["queries"], top_k=TOPK)
     jd, ji = jeng.query(data["queries"], top_k=TOPK)
     _check(data, d, i, jd, ji)
-    idx = DeltaPQIndex(cw, codes, engine="fused_dedup", build_tree=False)
+    idx = DeltaPQIndex(cw, codes, engine="fused_dedup", build_tree=False,
+                       device=CPU)
     d2, i2 = idx.search(data["queries"], top_k=TOPK)
     assert idx._fused_engine.engine.precision == "int8"
     assert np.array_equal(d2, d) and np.array_equal(i2, i)
@@ -221,7 +224,8 @@ def test_dedup_chunked_inner_engine(data, monkeypatch):
     cw, codes = data["cw"], data["codes"]
     for cls in (pfused.DedupCompressedEngine, jfused.DedupCompressedEngine):
         monkeypatch.setattr(cls, "EXACT_ALL_MAX_ROWS", 100)
-    eng = pfused.DedupCompressedEngine(cw, codes, chunked_min_rows=500)
+    eng = pfused.DedupCompressedEngine(cw, codes, chunked_min_rows=500,
+                                       device=CPU)
     jeng = jfused.DedupCompressedEngine(cw, codes, chunked_min_rows=500)
     assert isinstance(eng.engine, pbig.ChunkedCompressedEngine)
     assert isinstance(jeng.engine, jbig.ChunkedCompressedEngine)
@@ -247,7 +251,7 @@ def test_jax_slot_file_loads(data, tmp_path, with_fmt):
         with np.load(path) as z:
             state = {k: z[k] for k in z.files if k != "fmt"}
         np.savez(path, **state)
-    peng = load_jax_engine(path)
+    peng = load_jax_engine(path, device=CPU)
     assert peng.fmt == "slots" and peng.precision == "int16"
     for name in ("row_data", "ovf"):
         assert np.array_equal(getattr(peng.tiles, name),
@@ -258,7 +262,8 @@ def test_jax_slot_file_loads(data, tmp_path, with_fmt):
     _check(data, d, i, jd, ji)
     # the port's own slot file keeps its precision and format
     peng.save(str(tmp_path / "port_slots"))
-    back = pfused.FusedCompressedEngine.load(str(tmp_path / "port_slots"))
+    back = pfused.FusedCompressedEngine.load(str(tmp_path / "port_slots"),
+                                             device=CPU)
     assert back.fmt == "slots" and back.precision == "int16"
     d2, i2 = back.query(data["queries"], top_k=TOPK)
     assert np.array_equal(d2, d) and np.array_equal(i2, i)

@@ -229,7 +229,7 @@ def test_adc_topk_kernel_bit_equal(cuda, B, M, K, n, tile, k):
     assert build.launch_counts()["adc_topk"] == before + 1
     rd, ri = ak.adc_topk_tiles_ref(table, codes, n, k, tile)
     assert torch.equal(d, rd) and torch.equal(i, ri)
-    dm, _ = ak.adc_topk_pallas(table, codes, n, k, tile)
+    dm, _ = ak.adc_topk_pallas(table, codes, n, k, tile, "f32")
     dr, _ = adc_query_topk(table, pad_codes(codes, 1024), n, k, 1024)
     assert torch.equal(dm, dr)
 
@@ -405,3 +405,148 @@ def test_chunked_engine_exact_on_card(cuda, resident, tmp_path):
     dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024))
                            .to(cuda), n, 10, 1024)
     assert np.array_equal(d, dr.cpu().numpy())
+
+
+# ---- the plain-scan kernel family (ops/adc_kernels.py) --------------------
+
+ADC_SHAPES = [
+    # B, M, K, n, tile, k
+    (200, 8, 256, 20000, 4096, 10),
+    (37, 4, 16, 3000, 1024, 7),         # B not a multiple of the queries
+                                        # per block, n_valid inside a tile
+    (20, 8, 512, 9000, 4096, 10),       # K > 256: int32 codes
+    (16, 8, 16, 300, 256, 40)]          # top_k beyond a tile's valid rows
+
+
+def _adc_problem(cuda, B, M, K, n, tile, k):
+    rng = np.random.default_rng(n + k)
+    table = torch.from_numpy(
+        rng.normal(size=(B, M, K)).astype(np.float32) * 10).to(cuda)
+    dt = np.uint8 if K <= 256 else np.int32
+    codes = torch.from_numpy(pad_codes(
+        _codes(rng, n, M, min(K, 256)).astype(dt), tile)).to(cuda)
+    if K > 256:
+        codes[::3, 0] = 300
+    return table, codes
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x2"])
+@pytest.mark.parametrize("B,M,K,n,tile,k", ADC_SHAPES)
+def test_adc_topk_kernel_bf16_modes_bit_equal(cuda, precision, B, M, K, n,
+                                              tile, k):
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    table, codes = _adc_problem(cuda, B, M, K, n, tile, k)
+    name = f"adc_topk_{precision}"
+    before = build.launch_counts()[name]
+    d, i = ak.adc_topk_tiles(table, codes, n, k, tile, precision)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 1
+    rd, ri = ak.adc_topk_tiles_ref(table, codes, n, k, tile, precision)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("B,M,K,n,tile", [(200, 8, 256, 20480, 512),
+                                          (37, 4, 16, 3000, 8),
+                                          (20, 8, 512, 9000, 8),
+                                          (5, 32, 16, 1000, 8)])
+def test_adc_dists_kernel_bit_equal(cuda, B, M, K, n, tile):
+    """Rows that are no multiple of a block's, int32 codes, M beyond the
+    codes a thread keeps in registers."""
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    table, codes = _adc_problem(cuda, B, M, K, n, tile, 0)
+    before = build.launch_counts()["adc_dists"]
+    d = ak.adc_dists_pallas(table, codes, tile)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["adc_dists"] == before + 1
+    assert d.shape == (B, codes.shape[0])
+    assert torch.equal(d, ak.adc_dists_ref(table, codes))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("B,M,K,n,tile,k", ADC_SHAPES + [
+    (9, 8, 64, 5000, 192, 12)])         # a tile that is no multiple of 256
+def test_adc_topk_packed_kernel_bit_equal(cuda, precision, B, M, K, n, tile,
+                                          k):
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    table, codes = _adc_problem(cuda, B, M, K, n, tile, k)
+    name = ak._mode_name("adc_topk_packed", precision)
+    before = build.launch_counts()[name]
+    keys = ak.adc_topk_packed_tiles(table, codes, n, k, tile, precision)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 1
+    assert torch.equal(keys, ak.adc_topk_packed_tiles_ref(
+        table, codes, n, k, tile, precision))
+    d, i = ak.adc_topk_packed(table, codes, n, k, tile, precision)
+    dc, ic = ak.adc_topk_packed(table.cpu(), codes.cpu(), n, k, tile,
+                                precision)
+    assert torch.equal(d.cpu(), dc) and torch.equal(i.cpu(), ic)
+
+
+@pytest.mark.parametrize("B,M,K,n,tile,k,pool", [
+    (200, 8, 256, 20000, 2048, 10, 24),
+    (37, 4, 64, 3000, 256, 7, 24),      # n_valid inside a tile
+    (130, 8, 256, 9000, 4096, 10, 200),  # a wide dictionary (max_dict 256)
+    (16, 4, 64, 300, 256, 60, 8)])      # top_k beyond the valid rows
+def test_adc_topk_tiledict_kernel_bit_equal(cuda, B, M, K, n, tile, k, pool):
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    rng = np.random.default_rng(n + k)
+    table = torch.from_numpy(
+        rng.normal(size=(B, M, K)).astype(np.float32) * 10).to(cuda)
+    base = rng.integers(0, K, size=(pool, M))
+    codes = base[rng.integers(0, pool, n)]
+    flip = rng.random(codes.shape) < 0.01
+    codes = np.where(flip, rng.integers(0, K, codes.shape), codes).astype(
+        np.uint8)
+    codes = pad_codes(codes[np.lexsort(codes.T[::-1])], tile)
+    dicts, idx, width = ak.build_tile_dict(codes, tile_n=tile, max_dict=256)
+    idx_d, dicts_d = (torch.from_numpy(a).to(cuda) for a in (idx, dicts))
+    codes_d = torch.from_numpy(codes).to(cuda)
+    before = build.launch_counts()["adc_topk_tiledict"]
+    keys = ak.adc_topk_tiledict_tiles(table, idx_d, dicts_d, n, k, tile)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["adc_topk_tiledict"] == before + 1
+    assert torch.equal(keys, ak.adc_topk_tiledict_tiles_ref(
+        table, idx_d, dicts_d, n, k, tile))
+    # both stages select exact f32 values: the packed kernel's f32 keys
+    assert torch.equal(keys, ak.adc_topk_packed_tiles(
+        table, codes_d, n, k, tile, "f32"))
+    d, i = ak.adc_topk_tiledict(table, idx_d, dicts_d, codes_d, n, k, tile)
+    dp, ip = ak.adc_topk_packed(table, codes_d, n, k, tile, "f32")
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def test_plain_scan_engines_on_card(cuda):
+    """TileDictEngine and DecodedEngine with the default device (the
+    card), held to the plain exact scan."""
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+    from deltapq_tpu_torch.ops.decoded import DecodedEngine
+
+    rng = np.random.default_rng(11)
+    M, K, Ds, n = 8, 256, 16, 30000
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    base = rng.integers(0, K, size=(40, M))
+    codes = base[rng.integers(0, 40, n)].astype(np.uint8)
+    order = np.lexsort(codes.T[::-1])
+    q = rng.normal(size=(100, M * Ds)).astype(np.float32) * 3
+    table = adc_table(torch.from_numpy(cw).to(cuda),
+                      torch.from_numpy(q).to(cuda))
+    dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024)
+                                                   ).to(cuda), n, 10, 1024)
+    eng = ak.TileDictEngine(cw, codes, order=order)
+    assert eng.ok and eng.device.type == "cuda"
+    build.reset_launch_counts()
+    d, i = eng.query(q, top_k=10)
+    assert build.launch_counts()["adc_topk_tiledict"] == 1
+    own = ak._exact_dists_for_ids(table, torch.from_numpy(codes).to(cuda),
+                                  torch.from_numpy(i).to(cuda))
+    assert np.array_equal(own.cpu().numpy(), d)
+    np.testing.assert_allclose(np.sort(d, axis=1), dr.cpu().numpy(),
+                               rtol=2e-3)
+    dec = DecodedEngine(cw, codes)
+    assert dec.device.type == "cuda"
+    dd, _ = dec.query(q, top_k=10)
+    assert np.array_equal(dd, dr.cpu().numpy())

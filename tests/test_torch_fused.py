@@ -22,7 +22,7 @@ from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
 from deltapq_tpu_torch.tree.build import find_edges_by_diff
 from deltapq_tpu_torch.tree.layout import build_layout
 
-from _torch_port import (assert_ids_carry_dists, assert_ids_up_to_ties,
+from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
 CONFIGS = {"m8k256": (8, 256, 4), "m4k32": (4, 32, 4)}
@@ -42,7 +42,7 @@ def case(request, tmp_path_factory):
                                         precision="int16")
     path = str(tmp_path_factory.mktemp("eng") / "jax_engine.npz")
     jeng.save(path)
-    peng = load_jax_engine(path)
+    peng = load_jax_engine(path, device=CPU)
     rows = codes[rng.integers(0, N, B)]
     queries = (np.concatenate([cw[m][rows[:, m]] for m in range(M)], 1)
                + rng.normal(size=(B, M * Ds)).astype(np.float32))
@@ -227,7 +227,7 @@ def test_engine_save_load_keeps_precision(case, tmp_path):
     with np.load(path + ".npz") as z:
         assert str(z["precision"]) == "int16"
         state = dict(z)
-    back = FusedCompressedEngine.load(path)
+    back = FusedCompressedEngine.load(path, device=CPU)
     assert back.precision == "int16"
     for name in ("row_data", "vals", "meta"):
         assert np.array_equal(getattr(back.tiles, name),
@@ -239,7 +239,8 @@ def test_engine_save_load_keeps_precision(case, tmp_path):
     for prec, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
         state["precision"] = np.array(prec)
         np.savez(str(tmp_path / f"{prec}_engine"), **state)
-        back2 = FusedCompressedEngine.load(str(tmp_path / f"{prec}_engine"))
+        back2 = FusedCompressedEngine.load(str(tmp_path / f"{prec}_engine"),
+                                           device=CPU)
         assert back2.precision == prec
         assert back2.cwbd.dtype == dtype
         d2, _ = back2.query(queries, top_k=TOPK)
@@ -247,14 +248,14 @@ def test_engine_save_load_keeps_precision(case, tmp_path):
     # ... and one the port lacks raises
     state["precision"] = np.array("fp8")
     with pytest.raises(NotImplementedError):
-        engine_state_from_numpy(state)
+        engine_state_from_numpy(state, device=CPU)
 
 
 def test_engine_from_tree_and_warmup(case):
     M, K, codes, cw = case["M"], case["K"], case["codes"], case["cw"]
     res = find_edges_by_diff(codes, K=K, method=1)
     tree = build_layout(codes, res.edges, res.root_id, K=K, tables="skip")
-    eng = FusedCompressedEngine.from_tree(cw, tree)
+    eng = FusedCompressedEngine.from_tree(cw, tree, device=CPU)
     assert np.array_equal(decode_stream_tiles(eng.tiles),
                           codes[tree.vec_id.astype(np.int64)])
     assert eng.bytes_per_vec() < M       # compressed below plain codes
@@ -274,9 +275,9 @@ def test_unported_modes_raise(case):
     subspace group raise."""
     cw, codes = case["cw"], case["codes"]
     with pytest.raises(NotImplementedError):
-        FusedCompressedEngine(cw, codes, precision="fp8")
+        FusedCompressedEngine(cw, codes, precision="fp8", device=CPU)
     with pytest.raises(ValueError):
-        FusedCompressedEngine(cw, codes, fmt="v3")
+        FusedCompressedEngine(cw, codes, fmt="v3", device=CPU)
     peng = case["peng"]
     qop = torch.from_numpy(case["qop"])
     args = (peng.cwbd, peng.row_data, peng.vals, peng.meta, peng.n_valid)
@@ -298,7 +299,7 @@ def test_calibrate_grows_a_too_small_first_rung(case):
     ``ns_hint`` and the results stay exact."""
     peng = case["peng"]
     eng = FusedCompressedEngine.from_tiles(case["cw"], peng.tiles,
-                                           row_to_db=case["order"])
+                                           row_to_db=case["order"], device=CPU)
     eng.ns_hint = 1
     eng.calibrate(top_k=TOPK)
     assert eng.ns_hint > 1

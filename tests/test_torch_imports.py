@@ -6,6 +6,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "deltapq_tpu_torch"
 
@@ -31,3 +33,22 @@ def test_no_jax_in_port_sources():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for p in files:
         assert not pat.search(p.read_text()), p
+
+
+@pytest.mark.parametrize("module", [
+    "deltapq_tpu_torch.ops.topk", "deltapq_tpu_torch.ops.decoded",
+    "deltapq_tpu_torch.ops.adc_kernels", "deltapq_tpu_torch.eval",
+    "deltapq_tpu_torch.eval.metrics", "deltapq_tpu_torch.eval.groundtruth",
+    "deltapq_tpu_torch.bench_engines"])
+def test_module_alone_imports_without_jax(module):
+    """Each module of the plain-scan family on its own, in a fresh
+    interpreter: it is there, and brings in neither jax nor the JAX
+    package."""
+    path = ROOT.joinpath(*module.split("."))
+    assert path.with_suffix(".py").exists() or (path / "__init__.py").exists()
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "assert 'jax' not in sys.modules, 'jax was imported'; "
+            "assert 'deltapq_tpu' not in sys.modules")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

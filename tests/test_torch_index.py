@@ -13,7 +13,7 @@ from deltapq_tpu_torch.index import DeltaPQIndex
 from deltapq_tpu_torch.ops.adc import adc_query_topk, adc_table, pad_codes
 from deltapq_tpu_torch.ops.fused import DedupCompressedEngine
 
-from _torch_port import assert_ids_carry_dists, assert_ids_up_to_ties
+from _torch_port import CPU, assert_ids_carry_dists, assert_ids_up_to_ties
 
 ENGINES = ("xla", "pallas", "fused", "fused_codes", "fused_compressed",
            "fused_dedup")
@@ -32,7 +32,8 @@ def built(small_dataset):
 
 def _pair(built, **kw):
     return (JIndex(built.codewords, built.codes.copy(), **kw),
-            DeltaPQIndex(built.codewords, built.codes.copy(), **kw))
+            DeltaPQIndex(built.codewords, built.codes.copy(), **kw,
+                         device=CPU))
 
 
 def _table(idx, q):
@@ -80,7 +81,7 @@ def test_build_from_vectors(small_dataset):
     """``build`` learns with a torch.Generator: another codebook than
     JAX's, the same pipeline."""
     idx = DeltaPQIndex.build(small_dataset[:1000], small_dataset, M=4,
-                             K=16, max_iters=15, seed=3)
+                             K=16, max_iters=15, seed=3, device=CPU)
     assert idx.codes.shape == (len(small_dataset), 4)
     d, i = idx.search(small_dataset[:8], top_k=5)
     for b in range(8):
@@ -133,7 +134,7 @@ def test_compact_drops_deleted(built):
 
 def test_search_topk_exceeds_n(built):
     idx = DeltaPQIndex(built.codewords, built.codes[:7].copy(),
-                       build_tree=False)
+                       build_tree=False, device=CPU)
     q = np.random.default_rng(0).normal(size=(3, 32)).astype(np.float32)
     d, i = idx.search(q, top_k=12)
     assert d.shape == (3, 12) and i.shape == (3, 12)
@@ -147,7 +148,7 @@ def test_search_topk_exceeds_n(built):
 @pytest.mark.parametrize("engine", ["xla", "fused_compressed"])
 def test_search_mass_delete(built, small_dataset, engine):
     idx = DeltaPQIndex(built.codewords, built.codes.copy(), engine=engine,
-                       build_tree=engine != "xla")
+                       build_tree=engine != "xla", device=CPU)
     keep = [5, 123]
     idx.remove([j for j in range(idx.n) if j not in keep])
     d, i = idx.search(small_dataset[:4], top_k=10)
@@ -161,14 +162,16 @@ def test_every_engine_by_name(built, small_dataset, engine):
     """Each engine through the facade: against the JAX index's plain
     search, and bit-equal to the port's exact scan."""
     jidx = JIndex(built.codewords, built.codes.copy(), engine="xla")
-    idx = DeltaPQIndex(built.codewords, built.codes.copy(), engine=engine)
+    idx = DeltaPQIndex(built.codewords, built.codes.copy(), engine=engine,
+                       device=CPU)
     _check_search(jidx, idx, small_dataset[:8] + 0.01, 5)
     if engine == "fused_compressed":
         assert idx._fused_engine.precision == "bf16"   # as the JAX index
 
 
 def test_fused_search_with_deletes(built, small_dataset):
-    idx = DeltaPQIndex(built.codewords, built.codes.copy(), engine="fused")
+    idx = DeltaPQIndex(built.codewords, built.codes.copy(), engine="fused",
+                       device=CPU)
     q = small_dataset[:4]
     d0, i0 = idx.search(q, top_k=10)
     idx.remove(i0[0, :5][i0[0, :5] >= 0])
@@ -185,13 +188,14 @@ def test_index_m16_compressed_raises(rng):
     x = rng.normal(size=(n, M * Ds)).astype(np.float32)
     jidx = JIndex.build(x, x, M=M, K=K, max_iters=10)
     idx = DeltaPQIndex(jidx.codewords, jidx.codes,
-                       engine="fused_compressed")
+                       engine="fused_compressed", device=CPU)
     assert idx.tree is not None and idx._stream is None
     with pytest.raises(NotImplementedError, match="A3"):
         idx.search(x[:8] + 0.01, top_k=5)
     jidx.engine = "xla"
     for engine in ("pallas", "fused", "fused_dedup"):
-        idx = DeltaPQIndex(jidx.codewords, jidx.codes, engine=engine)
+        idx = DeltaPQIndex(jidx.codewords, jidx.codes, engine=engine,
+                           device=CPU)
         _check_search(jidx, idx, x[:8] + 0.01, 5)
     assert "bytes_per_vec" not in idx.stats()
 
@@ -217,7 +221,7 @@ def test_save_in_jax_load_in_port(built, small_dataset, tmp_path):
 
 def test_save_in_port_load_in_jax(built, small_dataset, tmp_path):
     idx = DeltaPQIndex(built.codewords, built.codes.copy(),
-                       engine="fused_codes")
+                       engine="fused_codes", device=CPU)
     idx.add(small_dataset[:5] + 0.02)
     path = str(tmp_path / "port_idx")
     idx.save(path)                             # folds the tail in
@@ -227,7 +231,7 @@ def test_save_in_port_load_in_jax(built, small_dataset, tmp_path):
     for name in TREE_FIELDS:
         assert np.array_equal(getattr(jidx.tree, name),
                               getattr(idx.tree, name)), name
-    back = DeltaPQIndex.load(path)
+    back = DeltaPQIndex.load(path, device=CPU)
     _check_search(jidx, back, small_dataset[:6], 5)
 
 
@@ -235,7 +239,7 @@ def test_resolve_auto(built, monkeypatch):
     """The port's rule: the JAX accelerator branch on a CUDA device, the
     plain scan on the CPU; "auto" on CUDA never resolves to "xla"."""
     idx = DeltaPQIndex(built.codewords, built.codes.copy(),
-                       build_tree=False)
+                       build_tree=False, device=CPU)
     assert idx._resolve_auto("cpu") == "xla"
     assert idx._resolve_auto() == "xla"            # the index is on cpu
     assert idx._resolve_auto("cuda") == "fused_dedup"
@@ -243,10 +247,11 @@ def test_resolve_auto(built, monkeypatch):
     assert idx._resolve_auto("cuda") == "fused_compressed"
     rng = np.random.default_rng(1)
     wide = DeltaPQIndex(rng.normal(size=(2, 512, 4)).astype(np.float32),
-                        rng.integers(0, 512, (100, 2)).astype(np.int32))
+                        rng.integers(0, 512, (100, 2)).astype(np.int32),
+                        device=CPU)
     assert wide._resolve_auto("cuda") == "pallas"
     assert wide._resolve_auto("cpu") == "xla"
-    empty = DeltaPQIndex(built.codewords, built.codes[:0].copy())
+    empty = DeltaPQIndex(built.codewords, built.codes[:0].copy(), device=CPU)
     assert empty._resolve_auto("cuda") == "pallas"
 
 
@@ -259,5 +264,5 @@ def test_wide_codes_take_the_decoded_tier(rng):
     q = rng.normal(size=(6, M * Ds)).astype(np.float32)
     jidx = JIndex(cw, codes, engine="xla")
     for engine in ("fused_codes", "pallas", "fused"):
-        idx = DeltaPQIndex(cw, codes, engine=engine)
+        idx = DeltaPQIndex(cw, codes, engine=engine, device=CPU)
         _check_search(jidx, idx, q, 5)

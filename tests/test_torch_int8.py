@@ -19,7 +19,7 @@ from deltapq_tpu_torch.ops import fused as pfused
 from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
 
-from _torch_port import (assert_ids_carry_dists, assert_ids_up_to_ties,
+from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
 CONFIGS = {"m8k256": (8, 256, 4), "m4k16": (4, 16, 4)}
@@ -85,7 +85,8 @@ def test_int8_host_operands_equal(case):
     assert (pfused._int8_codeword_radius(cw, jeng.mu, jeng.scale)
             == jfused._int8_codeword_radius(cw, jeng.mu, jeng.scale))
     peng = pfused.FusedCompressedEngine(cw, case["codes"][case["order"]],
-                                        precision="int8", fmt="slots")
+                                        precision="int8", fmt="slots",
+                                        device=CPU)
     assert peng.scale == jeng.scale and peng.err_c == jeng.err_c
     assert np.array_equal(peng.cwbd.numpy(), np.asarray(jeng.cwbd))
     _, jq, _, ju, jeq = case["jops"]["int8"]
@@ -116,7 +117,7 @@ def test_int8_stream_mins_plain_bit_equal_to_jax(case):
     jeng = jfused.FusedCompressedEngine(case["cw"], codes[order],
                                         row_to_db=order, precision="int8")
     peng = pfused.FusedCompressedEngine.from_tiles(
-        case["cw"], jeng.tiles, row_to_db=order, precision="int8")
+        case["cw"], jeng.tiles, row_to_db=order, precision="int8", device=CPU)
     _, jq, _, ju, _ = case["jops"]["int8"]
     qop, uq, _ = _port_ops(case, "int8")
     jm, jecho = jfp.fused_stream_mins(
@@ -134,7 +135,7 @@ def test_int8_codes_mins_plain_bit_equal_to_jax(case):
     jeng = jfused.FusedCodesEngine(case["cw"], case["codes"],
                                    precision="int8")
     peng = pfused.FusedCodesEngine(case["cw"], case["codes"],
-                                   precision="int8")
+                                   precision="int8", device=CPU)
     assert np.array_equal(peng.codes.numpy(), np.asarray(jeng.codes))
     _, jq, _, ju, _ = case["jops"]["int8"]
     qop, uq, _ = _port_ops(case, "int8")
@@ -154,7 +155,7 @@ def test_delta_mins_plain_matches_jax(case, precision):
     jeng = case["jeng"][precision]
     peng = pfused.FusedCompressedEngine.from_tiles(
         case["cw"], jeng.tiles, row_to_db=case["order"],
-        precision=precision)
+        precision=precision, device=CPU)
     assert peng.fmt == "slots"
     _, jq, _, ju, _ = case["jops"][precision]
     qop, uq, _ = _port_ops(case, precision)
@@ -230,13 +231,14 @@ def test_int8_engines_match_jax(case, tier):
     if tier == "codes":
         perm = np.random.default_rng(3).permutation(N)
         peng = pfused.FusedCodesEngine(cw, codes, order=perm,
-                                       precision="int8")
+                                       precision="int8", device=CPU)
         jeng = jfused.FusedCodesEngine(cw, codes, order=perm,
                                        precision="int8")
     else:
         peng = pfused.FusedCompressedEngine(cw, codes[order],
                                             row_to_db=order,
-                                            precision="int8", fmt=tier)
+                                            precision="int8", fmt=tier,
+                                            device=CPU)
         jeng = (case["jeng"]["int8"] if tier == "slots" else
                 jfused.FusedCompressedEngine(cw, codes[order],
                                              row_to_db=order,
@@ -253,7 +255,8 @@ def test_scan_mode_mismatch_raises(case):
     as on the card."""
     e8 = case["jeng"]["int8"]
     peng = pfused.FusedCompressedEngine.from_tiles(case["cw"], e8.tiles,
-                                                   precision="int8")
+                                                   precision="int8",
+                                                   device=CPU)
     qop, uq, _ = _port_ops(case, "int8")
     args = (peng.row_data, peng.ovf, N, peng.tiles.S)
     # int8 operands ([Dg]-wide) in the int16 mode ([2*Dg]-wide)

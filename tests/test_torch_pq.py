@@ -19,7 +19,7 @@ from deltapq_tpu import synth as jsynth
 from deltapq_tpu_torch import synth as psynth
 from deltapq_tpu_torch.synth import make_clustered_codes, workload_vectors
 
-from _torch_port import assert_ids_up_to_ties, codebook, structured_codes
+from _torch_port import CPU, assert_ids_up_to_ties, codebook, structured_codes
 
 # the JAX package's ops/__init__ re-exports a function named ``kmeans``
 jkm = importlib.import_module("deltapq_tpu.ops.kmeans")
@@ -116,7 +116,7 @@ def test_workload_recipe_is_the_benchmarks():
         np.float32) * 0.8
     assert np.array_equal(x, want)
     cw, codes = make_clustered_codes(4000, 8, 16, rows_per_cluster=8,
-                                     sigma=0.8, n_train=1000)
+                                     sigma=0.8, n_train=1000, device=CPU)
     assert cw.shape == (8, 16, 16) and codes.shape == (4000, 8)
     assert codes.dtype == torch.uint8
 
@@ -127,3 +127,29 @@ def test_synth_generators_equal():
     assert np.array_equal(
         psynth.clustered_vectors(700, 24, n_clusters=9, seed=2),
         jsynth.clustered_vectors(700, 24, n_clusters=9, seed=2))
+
+
+def test_clustered_codes_is_the_engine_benchmarks_recipe():
+    """``synth.clustered_codes`` draws what tools/bench_engines.py draws
+    (a pool of max(N // 200, 16) codes, 15% of the bytes redrawn), from
+    the same generator state."""
+    N, M, K = 5000, 8, 256
+    rng = np.random.default_rng(0)
+    cw = rng.normal(size=(M, K, 16)).astype(np.float32)
+    pool = rng.integers(0, K, size=(max(N // 200, 16), M))
+    want = pool[rng.integers(0, len(pool), N)]
+    mut = rng.random((N, M)) < 0.15
+    want = np.where(mut, rng.integers(0, K, size=(N, M)),
+                    want).astype(np.uint8)
+    q = rng.normal(size=(4, M * 16)).astype(np.float32)
+
+    from deltapq_tpu_torch.bench_engines import workload
+    cw2, codes, q2 = workload(N, 4)
+    assert np.array_equal(cw, cw2) and np.array_equal(q, q2)
+    assert codes.dtype == np.uint8 and np.array_equal(codes, want)
+    rng2 = np.random.default_rng(0)
+    rng2.normal(size=(M, K, 16))
+    assert np.array_equal(psynth.clustered_codes(N, M, K, rng=rng2), want)
+    a = psynth.clustered_codes(300, 4, 16, seed=3)
+    assert np.array_equal(a, psynth.clustered_codes(300, 4, 16, seed=3))
+    assert a.shape == (300, 4) and a.max() < 16

@@ -19,7 +19,7 @@ from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
 from deltapq_tpu_torch.ops.decoded import build_decoded_cache
 
-from _torch_port import (assert_ids_carry_dists, assert_ids_up_to_ties,
+from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
 CONFIGS = {"m8k256": (8, 256, 4), "m4k32": (4, 32, 4),
@@ -84,7 +84,7 @@ def test_decoded_cache_bit_equal(case):
 
 
 def test_decoded_mins_plain_matches_jax_kernel(case):
-    peng = pfused.FusedDecodedEngine(case["cw"], case["codes"])
+    peng = pfused.FusedDecodedEngine(case["cw"], case["codes"], device=CPU)
     qc = _centered(case, peng.d_pad, peng.mu)
     qop, uq, (q2, _, _) = peng._query_operands(qc)
     jq = jnp.asarray(qc.astype(jnp.bfloat16).T)
@@ -105,7 +105,7 @@ def test_codes_mins_plain_matches_jax_kernel(case, precision):
     jeng = jfused.FusedCodesEngine(case["cw"], case["codes"],
                                    precision=precision)
     peng = pfused.FusedCodesEngine(case["cw"], case["codes"],
-                                   precision=precision)
+                                   precision=precision, device=CPU)
     if precision == "bf16":
         assert np.array_equal(peng.cwbd.view(torch.int16).numpy(),
                               np.asarray(jeng.cwbd).view(np.int16))
@@ -140,7 +140,7 @@ def test_stream_mins_bf16_plain_matches_jax_kernel(case):
     jeng = jfused.FusedCompressedEngine(case["cw"], codes[order],
                                         row_to_db=order, precision="bf16")
     peng = pfused.FusedCompressedEngine.from_tiles(
-        case["cw"], jeng.tiles, row_to_db=order, precision="bf16")
+        case["cw"], jeng.tiles, row_to_db=order, precision="bf16", device=CPU)
     qc = _centered(case, peng.d_pad, peng.mu)
     qk = fk.pack_query_grouped(qc[:, :peng.D], M, Ds)
     jq, _, ju, _ = jfused._mins_query_args(qk, "bf16", None)
@@ -179,7 +179,8 @@ def _check_engine(case, peng, jeng):
 
 def test_decoded_engine_matches_jax(case):
     _check_engine(case,
-                  pfused.FusedDecodedEngine(case["cw"], case["codes"]),
+                  pfused.FusedDecodedEngine(case["cw"], case["codes"],
+                                            device=CPU),
                   jfused.FusedDecodedEngine(case["cw"], case["codes"]))
 
 
@@ -188,7 +189,8 @@ def test_codes_engine_matches_jax(case, precision):
     order = np.random.default_rng(3).permutation(N)
     _check_engine(case,
                   pfused.FusedCodesEngine(case["cw"], case["codes"],
-                                          order=order, precision=precision),
+                                          order=order, precision=precision,
+                                          device=CPU),
                   jfused.FusedCodesEngine(case["cw"], case["codes"],
                                           order=order, precision=precision))
 
@@ -197,7 +199,8 @@ def test_compressed_bf16_engine_matches_jax(case):
     codes = case["codes"]
     order = np.lexsort(codes.T[::-1])
     peng = pfused.FusedCompressedEngine(case["cw"], codes[order],
-                                        row_to_db=order, precision="bf16")
+                                        row_to_db=order, precision="bf16",
+                                        device=CPU)
     assert peng.precision == "bf16" and peng.scale is None
     _check_engine(case, peng,
                   jfused.FusedCompressedEngine(case["cw"], codes[order],
@@ -206,7 +209,7 @@ def test_compressed_bf16_engine_matches_jax(case):
 
 
 def test_dedup_engine_matches_jax(case):
-    peng = pfused.DedupCompressedEngine(case["cw"], case["codes"])
+    peng = pfused.DedupCompressedEngine(case["cw"], case["codes"], device=CPU)
     jeng = jfused.DedupCompressedEngine(case["cw"], case["codes"])
     assert peng.n_unique == jeng.n_unique
     assert np.array_equal(peng.order, jeng.order)
@@ -239,13 +242,15 @@ def test_unported_precisions_raise(case, monkeypatch):
     its int8 default included, with the exact-all results."""
     cw, codes = case["cw"], case["codes"]
     with pytest.raises(NotImplementedError, match="int8, int16 and bf16"):
-        pfused.FusedCodesEngine(cw, codes, precision="fp8")
-    d0, _ = pfused.DedupCompressedEngine(cw, codes).query(case["queries"],
+        pfused.FusedCodesEngine(cw, codes, precision="fp8", device=CPU)
+    d0, _ = pfused.DedupCompressedEngine(cw, codes,
+                                         device=CPU).query(case["queries"],
                                                           top_k=TOPK)
     monkeypatch.setattr(pfused.DedupCompressedEngine, "EXACT_ALL_MAX_ROWS",
                         100)
     for precision in ("int8", "int16"):
-        eng = pfused.DedupCompressedEngine(cw, codes, precision=precision)
+        eng = pfused.DedupCompressedEngine(cw, codes, precision=precision,
+                                           device=CPU)
         assert eng.engine is not None and eng.engine.precision == precision
         d, _ = eng.query(case["queries"], top_k=TOPK)
         assert np.array_equal(d, d0)
