@@ -80,6 +80,28 @@ Phases, each timed:
    f64), the rounded ones by recall@10; ``DecodedEngine`` save and load
    on the card and its peak device memory.
 
+13. the pipelined stream kernel B7 on phase 3's tiles at B=512, int8 and
+   bf16: mins and codes equal to B1's bit for bit and held to the plain
+   version (int8 bit-equal, bf16 within the bound of phase 6), timed in
+   turns with B1 (B1, B7, B7, B1); then ``FusedCompressedEngine(
+   pipelined=True)`` at int8 and bf16, warmup and five timed batches each,
+   every batch held to ``adc_query_topk``; on that path the pipelined
+   kernel's launch count must be > 0 and the serial stream kernel's 0;
+14. the GIST shape at full width (M=16, K=256, Ds=60, D=960, top-100,
+   B=500, which the engines pad to 512): ``synth.make_gist_workload`` at
+   N = 1,000,000, the M=16 DeltaTree, its DFS order, B/vec (DFS, lexsort,
+   plain 16); B1, B3 and B5 in their three modes and B4 against their
+   plain versions (codes exact, int8 bit-equal, int16 and bf16 within the
+   bounds of phases 4 and 6), timed; every one of those engines then
+   answers the benchmark's batch through ``query`` and is verified as
+   ``bench_gist.verify`` does (distances allclose to ``adc_query_topk``,
+   ids up to f64-audited ties, 0 real divergences), and the decoded,
+   codes, stream (bf16, int16, int8) and slot (bf16) engines are timed;
+   ``DeltaPQIndex(engine="auto")`` over these codes (whatever it resolves
+   to) and over a second, near-distinct GIST-shape code set of 250,000
+   rows, where it must resolve to ``fused_compressed`` and run.  The
+   kernels of this phase are listed as ``<name>@gist``.
+
 Every kernel's entry in the ``kernels`` line carries ``bound_ms``: the
 least time the card could take for the same work, the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -101,7 +123,7 @@ import time
 import numpy as np
 import torch
 
-from deltapq_tpu_torch import bench_engines
+from deltapq_tpu_torch import bench_engines, bench_gist
 from deltapq_tpu_torch.bigscale import (BigCompressedIndex,
                                         ChunkedCompressedEngine,
                                         encode_stream)
@@ -126,7 +148,8 @@ from deltapq_tpu_torch.ops.fused import (DedupCompressedEngine,
 from deltapq_tpu_torch.ops.kmeans import pq_learn
 from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
                                                 decode_stream_tiles)
-from deltapq_tpu_torch.synth import WORKLOADS, workload_vectors
+from deltapq_tpu_torch.synth import (WORKLOADS, gist_vectors,
+                                     make_gist_workload, workload_vectors)
 from deltapq_tpu_torch.tree.build import find_edges_by_diff
 from deltapq_tpu_torch.tree.layout import build_layout
 
@@ -161,6 +184,8 @@ REPLACES = {
     "adc_topk_packed_bf16": "deltapq_tpu/ops/adc_pallas.py:144",
     "adc_topk_packed_bf16x2": "deltapq_tpu/ops/adc_pallas.py:144",
     "adc_topk_tiledict": "deltapq_tpu/ops/adc_pallas.py:382",
+    "stream_mins_pipelined_int8": "deltapq_tpu/ops/fused_pallas.py:663",
+    "stream_mins_pipelined_bf16": "deltapq_tpu/ops/fused_pallas.py:663",
 }
 SOURCES = {
     "stream_mins": "deltapq_tpu_torch/csrc/stream_mins.cu",
@@ -182,6 +207,10 @@ SOURCES = {
     "adc_topk_packed_bf16": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
     "adc_topk_packed_bf16x2": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
     "adc_topk_tiledict": "deltapq_tpu_torch/csrc/adc_topk_tiledict.cu",
+    "stream_mins_pipelined_int8":
+        "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
+    "stream_mins_pipelined_bf16":
+        "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
 }
 #: published peaks of one H100 SXM at its full power limit (NVIDIA's data
 #: sheet): device memory bytes/s; operations/s by type
@@ -190,6 +219,9 @@ PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 PACKED_TILE = 4096     # adc_topk_packed's tile
 DICT_TILE = 2048       # adc_topk_tiledict's and TileDictEngine's tile
 ENGINE_BS = (128, 512)
+GIST_N = 1_000_000     # phase 14: rows of the GIST-shape workload
+GIST_B = 500           # its batch (the engines pad it to 512)
+GIST_IDX_N = 250_000   # rows of the near-distinct code set for the index
 
 
 def log(*a):
@@ -251,8 +283,8 @@ def scan_bound(mode, mins, b, d, inputs, outputs):
 
 def engine_operands(e, qop, uq):
     """The tensors a scan kernel of engine ``e`` reads."""
-    return [qop, uq, e.cwbd] + [getattr(e, name, None) for name in (
-        "row_data", "vals", "meta", "ovf", "codes", "xt")]
+    return [qop, uq] + [getattr(e, name, None) for name in (
+        "cwbd", "row_data", "vals", "meta", "ovf", "codes", "xt")]
 
 
 def lookup_bound(table, inputs, outputs, n_rows, adds_per_m=1):
@@ -447,6 +479,8 @@ def main() -> int:
     dt = phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                                       kernels, codes_db, codes_db64,
                                       launches)
+    phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
+                      codes_db64, launches)
     del eng
     phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
                        launches)
@@ -454,14 +488,17 @@ def main() -> int:
     del codes_db, codes_db64
     tde = phase11_adc_family_kernels(dev, tag, rng, kernels, dup)
     phase12_plain_scan_engines(dev, tag, rng, dup, tde, launches)
+    del tde, dup
+    phase14_gist(dev, tag, kernels, launches)
     for k in kernels:
         check(launches.get(k, 0) > 0, f"kernel {k} was never launched on "
                                       f"its path")
 
     log(card)
     log(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
-             launches=launches[k], **v) for k, v in kernels.items()]}))
+        dict(name=k, route="cuda", source=SOURCES[k.split("@")[0]],
+             replaces=REPLACES[k.split("@")[0]], launches=launches[k], **v)
+        for k, v in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -709,12 +746,13 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
     return launches, dup
 
 
-def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None):
+def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None, reps=20):
     """One engine's scan kernel against its plain version on the same
     operands: echo exact, mins bit-equal (``tol`` None) or within
     ``tol(pre_max, cross_max)``; both timed with CUDA events.  ``plain``
     maps (qop, uq) to the plain version's (mins, echo, pre_max,
-    cross_max).  Returns the kernel's echo."""
+    cross_max).  The bound counts the kernel's own batch (``q`` padded as
+    the engine pads it).  Returns the kernel's echo."""
     table, qop, uq, cert, b = e.prepare(q)
     mins, echo = e.scan(qop, uq)
     ref_m, ref_c, pre_max, cross_max = plain(qop, uq)
@@ -725,14 +763,14 @@ def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None):
         log(f"{label}: mins bit-equal to the plain version, echo exact")
     else:
         err = mins_err(mins, ref_m, tol(pre_max, cross_max), label)
-    ms = cuda_ms(lambda: e.scan(qop, uq), 20)
+    ms = cuda_ms(lambda: e.scan(qop, uq), reps)
     plain_ms = cuda_ms(lambda: plain(qop, uq), 2)
     log(f"{tag} {label} {ms:.4f} ms/call, plain {plain_ms:.4f} "
-        f"ms/call (N={e.n_valid}, B={q.shape[0]})")
+        f"ms/call (N={e.n_valid}, B={qop.shape[1]})")
     kernels[key] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **scan_bound(e.precision, mins, q.shape[0], D,
-                     engine_operands(e, qop, uq), (mins, echo)))
+        **scan_bound(getattr(e, "precision", "bf16"), mins, qop.shape[1],
+                     e.D, engine_operands(e, qop, uq), (mins, echo)))
     return echo
 
 
@@ -880,6 +918,253 @@ def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
         del e8
         log("slot file round trip (with fmt, and without it): int8 slot "
             "tiles back, same results")
+
+
+def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
+                      codes_db64, launches):
+    """B7 on phase 3's tiles: against B1 bit for bit and against the plain
+    version, timed in turns with B1; then the pipelined engines."""
+    with Phase("13 pipelined stream kernel"):
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        for prec, tol in (("int8", None), ("bf16", bf16_tol)):
+            key = f"stream_mins_pipelined_{prec}"
+            e1 = FusedCompressedEngine.from_tiles(
+                cw, eng.tiles, row_to_db=order, precision=prec)
+            e7 = FusedCompressedEngine.from_tiles(
+                cw, eng.tiles, row_to_db=order, precision=prec,
+                pipelined=True)
+            table, qop, uq, cert, b = e1.prepare(q)
+            m1, c1 = e1.scan(qop, uq)
+            m7, c7 = e7.scan(qop, uq)
+            check(torch.equal(c7, c1) and torch.equal(m7, m1),
+                  f"B7 {prec}: mins or codes differ from B1's")
+            ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+                qop, e7.cwbd, e7.row_data, e7.vals, e7.meta, e7.n_valid, M,
+                u=uq, mode=prec, pipelined=True)
+            check(torch.equal(c7, ref_c), f"B7 {prec} echo != plain decode")
+            if tol is None:
+                check(torch.equal(m7, ref_m), f"B7 {prec} mins not bit-equal")
+                err = 0.0
+            else:
+                err = mins_err(m7, ref_m, tol(pre_max, cross_max),
+                               f"B7 stream_mins_pipelined {prec}")
+            del ref_m, ref_c
+            b1a = cuda_ms(lambda: e1.scan(qop, uq), 20)
+            b7a = cuda_ms(lambda: e7.scan(qop, uq), 20)
+            b7b = cuda_ms(lambda: e7.scan(qop, uq), 20)
+            b1b = cuda_ms(lambda: e1.scan(qop, uq), 20)
+            plain_ms = cuda_ms(lambda: fk.fused_stream_mins_ref(
+                qop, e7.cwbd, e7.row_data, e7.vals, e7.meta, e7.n_valid, M,
+                u=uq, mode=prec, pipelined=True), 2)
+            ms = (b7a + b7b) / 2
+            log(f"{tag} B7 {prec}: mins and codes equal to B1's bit for bit, "
+                f"{'bit-equal to' if tol is None else 'within tol of'} the "
+                f"plain version; B7 {b7a:.4f} / {b7b:.4f} ms/call against "
+                f"B1 {b1a:.4f} / {b1b:.4f} (B7 / B1 = "
+                f"{ms / ((b1a + b1b) / 2):.4f}), plain {plain_ms:.4f} "
+                f"(N={N}, B={B})")
+            kernels[key] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **scan_bound(prec, m7, B, D, engine_operands(e7, qop, uq),
+                             (m7, c7)))
+            del e1, m1, c1, m7, c7
+
+            build.reset_launch_counts()
+            t = time.perf_counter()
+            e7.warmup(batch_sizes=(B,), top_k=TOP_K)
+            torch.cuda.synchronize()
+            log(f"pipelined {prec}: warmup {time.perf_counter() - t:.2f} s, "
+                f"ns_hint {getattr(e7, 'ns_hint', None)}")
+            timed_batches(tag, f"pipelined stream engine {prec}", e7, B,
+                          N_BATCHES, rng, codes_db, codes_db64, N)
+            counts = build.launch_counts()
+            serial = fk._launch_name("stream_mins", prec)
+            check(counts[key] > 0 and counts["rerank"] > 0
+                  and counts[serial] == 0,
+                  f"the pipelined {prec} path launched {counts}")
+            launches[key] = counts[key]
+            log(f"  launches on the pipelined {prec} path: "
+                f"{({k: v for k, v in counts.items() if v})}")
+            del e7
+
+
+def gist_check(name, d, ids, table, d_ref, ids_ref, codes):
+    """Results at the GIST shape against the exact scan, as
+    ``bench_gist.verify``: distances allclose, ids up to f64-audited
+    ties."""
+    dists_ok = bool(np.allclose(d, d_ref, rtol=1e-5, atol=1e-3))
+    agree, flips, real = bench_gist.tie_audit(table, codes, ids, ids_ref)
+    check(dists_ok and real == 0,
+          f"{name}: dists_match={dists_ok}, {real} real divergences")
+    return agree, flips
+
+
+def phase14_gist(dev, tag, kernels, launches):
+    """The GIST shape at full width: workload, tree, kernels against
+    their plain versions, engines through ``bench_gist``'s entry points,
+    and the index."""
+    Mg, Kg, Dsg, top_k = bench_gist.M, bench_gist.K, bench_gist.DS, \
+        bench_gist.TOP_K
+    with Phase("14 GIST shape (M=16, D=960, top-100)"):
+        t = time.perf_counter()
+        cw, codes, x = make_gist_workload(GIST_N, Mg, Kg, Dsg)
+        log(f"make_gist_workload [{GIST_N}, {Mg * Dsg}] (vectors, pq_learn "
+            f"on 20000 rows, encode): {time.perf_counter() - t:.1f} s")
+        queries = bench_gist.gist_queries(x, GIST_B)
+        del x
+        order, n_diffs, t_tree = bench_gist.tree_order(codes)
+        codes_scan = codes[order]
+        st = build_stream_tiles(codes_scan)
+        check(np.array_equal(decode_stream_tiles(st), codes_scan),
+              "GIST stream tiles not lossless")
+        bpv_lex = build_stream_tiles(
+            codes[np.lexsort(codes.T[::-1])]).bytes_per_vec()
+        n_distinct = len(np.unique(codes, axis=0))
+        log(f"M={Mg} DeltaTree + DFS {t_tree:.1f} s ({n_diffs} diffs); "
+            f"{n_distinct} distinct codes of {GIST_N} (dup "
+            f"{GIST_N / n_distinct:.2f}x); stream B/vec DFS "
+            f"{st.bytes_per_vec():.4f}, lexsort {bpv_lex:.4f}, plain {Mg}; "
+            f"planes {st.n_planes}, e_max {st.e_max}")
+        dt = build_delta_tiles(codes_scan)
+        check(np.array_equal(decode_delta_tiles(dt), codes_scan),
+              "GIST slot tiles not lossless")
+        log(f"slot tiles: S {dt.S}, Cap {dt.Cap}, planes {dt.n_planes}, "
+            f"B/vec {dt.bytes_per_vec():.4f}")
+        table, d_ref, i_ref = bench_gist.exact_reference(cw, codes_scan,
+                                                         queries, dev)
+        d_ref, ids_ref = d_ref.cpu().numpy(), i_ref.cpu().numpy()
+        del i_ref
+
+        def stream(prec):
+            return FusedCompressedEngine.from_tiles(cw, st, precision=prec)
+
+        def slots(prec):
+            return FusedCompressedEngine.from_tiles(cw, dt, precision=prec)
+
+        def codes_eng(prec):
+            return FusedCodesEngine(cw, codes_scan, precision=prec)
+
+        def plain_of(e):
+            if isinstance(e, FusedDecodedEngine):
+                return lambda qop, uq: (lambda m, p, c: (m, e.codes, p, c))(
+                    *fk.fused_decoded_mins_ref(qop, e.xt, e.n_valid))
+            if isinstance(e, FusedCodesEngine):
+                return lambda qop, uq: fk.fused_codes_mins_ref(
+                    qop, e.cwbd, e.codes, e.n_valid, u=uq, mode=e.precision)
+            if e.fmt == "slots":
+                return lambda qop, uq: fk.fused_delta_mins_ref(
+                    qop, e.cwbd, e.row_data, e.ovf, e.n_valid, dt.S, u=uq,
+                    mode=e.precision)
+            return lambda qop, uq: fk.fused_stream_mins_ref(
+                qop, e.cwbd, e.row_data, e.vals, e.meta, e.n_valid, Mg,
+                u=uq, mode=e.precision)
+
+        tols = {"int8": None, "int16": int16_tol, "bf16": bf16_tol}
+        # (label, kernel key, engine, timed through query())
+        specs = [("B1 stream_mins", "stream_mins", stream, "int16", True),
+                 ("B1 stream_mins", "stream_mins", stream, "int8", True),
+                 ("B1 stream_mins", "stream_mins", stream, "bf16", True),
+                 ("B3 codes_mins", "codes_mins", codes_eng, "bf16", True),
+                 ("B3 codes_mins", "codes_mins", codes_eng, "int16", False),
+                 ("B3 codes_mins", "codes_mins", codes_eng, "int8", False),
+                 ("B5 delta_mins", "delta_mins", slots, "int16", False),
+                 ("B5 delta_mins", "delta_mins", slots, "int8", False),
+                 ("B5 delta_mins", "delta_mins", slots, "bf16", True),
+                 ("B4 decoded_mins", "decoded_mins",
+                  lambda prec: FusedDecodedEngine(cw, codes_scan), "bf16",
+                  True)]
+        for label, kernel, make, prec, timed in specs:
+            e = make(prec)
+            key = (kernel if kernel == "decoded_mins"
+                   else fk._launch_name(kernel, prec))
+            name = f"{key}@gist"
+            echo = scan_vs_plain(tag, f"GIST {label} {prec}", e, queries,
+                                 plain_of(e), kernels, name, tols[prec],
+                                 reps=5)
+            check(np.array_equal(echo[:GIST_N].cpu().numpy(), codes_scan),
+                  f"GIST {label} {prec}: echo != the codes")
+            del echo
+            # the engine's own path, as bench_gist drives it
+            build.reset_launch_counts()
+            res = bench_gist.verify(e, f"{label} {prec}", queries, table,
+                                    d_ref, ids_ref, codes_scan)
+            line = ""
+            if timed:
+                ms_batch, _ = bench_gist.time_engine(e, queries)
+                line = (f"; {ms_batch:.4f} ms/batch -> "
+                        f"{GIST_B / ms_batch * 1e3:.1f} QPS (host wall, "
+                        f"B={GIST_B}, top-{top_k})")
+            counts = build.launch_counts()
+            check(counts[key] > 0 and counts["rerank"] > 0,
+                  f"GIST {label} {prec}: the engine launched {counts}")
+            launches[name] = counts[key]
+            log(f"{tag} GIST engine {type(e).__name__} "
+                f"{getattr(e, 'fmt', '')} {prec}: id agreement "
+                f"{res['id_agree']:.4f}, {res['flips']} tie flips, 0 real "
+                f"divergences, first-shot {res['first_shot']:.4f}{line}; "
+                f"launches {({k: v for k, v in counts.items() if v})}")
+            del e
+
+        # the index on these codes, whatever auto resolves to
+        idx = DeltaPQIndex(cw, codes, build_tree=False)
+        d, ids = idx.search(queries, top_k)
+        tab_db, dr_db, ir_db = bench_gist.exact_reference(cw, codes, queries,
+                                                          dev)
+        agree, flips = gist_check("index auto", d, ids, tab_db,
+                                  dr_db.cpu().numpy(), ir_db.cpu().numpy(),
+                                  codes)
+        log(f"DeltaPQIndex(auto) over the GIST codes -> "
+            f"{idx._engine_resolved} ({n_distinct} distinct codes): "
+            f"distances match, id agreement {agree:.4f}, {flips} tie flips, "
+            f"0 real divergences")
+        del idx, tab_db, dr_db, ir_db, table
+
+        # auto -> fused_compressed needs more than 65,536 distinct codes:
+        # the same codebook over vectors of 125,000 clusters
+        t = time.perf_counter()
+        x2 = gist_vectors(GIST_IDX_N, Mg * Dsg, n_clusters=GIST_IDX_N // 2,
+                          seed=1)
+        codes2 = pq_encode(torch.from_numpy(cw).to(dev), x2,
+                           batch_size=65536).cpu().numpy()
+        q2 = bench_gist.gist_queries(x2, GIST_B, seed=1)
+        del x2
+        n2 = len(np.unique(codes2, axis=0))
+        log(f"near-distinct GIST-shape codes [{GIST_IDX_N}, {Mg}]: {n2} "
+            f"distinct, {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        idx = DeltaPQIndex(cw, codes2)
+        log(f"DeltaPQIndex(cw, codes) at M={Mg}: "
+            f"{time.perf_counter() - t:.1f} s")
+        tab2, dr2, ir2 = bench_gist.exact_reference(cw, codes2, q2, dev)
+        dr2, ir2 = dr2.cpu().numpy(), ir2.cpu().numpy()
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        d, ids = idx.search(q2, top_k)
+        first = time.perf_counter() - t
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d, ids = idx.search(q2, top_k)
+            walls.append(time.perf_counter() - t)
+            agree, flips = gist_check("index auto (near-distinct)", d, ids,
+                                      tab2, dr2, ir2, codes2)
+        counts = build.launch_counts()
+        e = idx._fused_engine
+        check(idx._engine_resolved == "fused_compressed"
+              and e.precision == "bf16" and e.row_data.shape[1] == 2
+              and counts["stream_mins_bf16"] > 0 and counts["rerank"] > 0,
+              f"auto at M=16 resolved to {idx._engine_resolved}, launches "
+              f"{counts}")
+        wall = float(np.mean(walls))
+        log(f"{tag} DeltaPQIndex(auto) at M={Mg}, N={GIST_IDX_N} -> "
+            f"{idx._engine_resolved} (bf16, 2 mask planes): first search "
+            f"{first:.2f} s; {wall * 1e3:.4f} ms/batch -> "
+            f"{GIST_B / wall:.1f} QPS (B={GIST_B}, top-{top_k}); distances "
+            f"match, id agreement {agree:.4f}, {flips} tie flips, 0 real "
+            f"divergences; first-shot {e.last_exact_frac:.4f}; "
+            f"stats {idx.stats()}; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
 
 
 def sift_chunks(n_chunks):

@@ -6,7 +6,8 @@
 // wrapper and plain PyTorch version: deltapq_tpu_torch/ops/fused_kernels.py.
 //
 // What it computes, per 1024-row stream tile t and query b:
-//   decode   mask plane -> per-row diff count nd, block exclusive scan
+//   decode   mask planes (P = ceil(M/8); bit j of plane p is subspace
+//            8p + j) -> per-row diff count nd, block exclusive scan
 //            -> row offset; each set subspace m reads its value from the
 //            packed stream at p = meta[0,t]*1024 + meta[1,t] + off + rank
 //            (flat layout (p/1024)*1024 + (p%8)*128 + (p/8)%128, see
@@ -27,11 +28,14 @@
 //
 // Design: the TPU used one-hot matmuls in place of gathers (stream
 // value window, codes -> x^ decode); here each is a plain gather from
-// global or shared memory.  One block per (tile, 64-query block): the
-// block decodes its tile into shared memory (1024 x 8 code bytes) and
-// hands it to the shared tail, which keeps the compact codebook, the
-// per-codeword norms and its 64 queries in shared memory.  wgmma /
-// tensor cores are later work.
+// global or shared memory.  One block per (tile, query block): the block
+// decodes its tile into shared memory (tile_decode.cuh: 1024 x 8 code
+// bytes, or 1024 x 16 with two mask planes at M > 8) and hands it to the
+// shared tail.  At M <= 8 and D <= 128 the tail keeps the compact
+// codebook, the per-codeword norms and 64 queries in shared memory; at
+// the GIST shape (M=16, D=960) it takes the wide form described in
+// scan_tail.cuh (codebook in global memory, 32 queries staged, the row
+// walked chunk by chunk).  wgmma / tensor cores are later work.
 
 #include "tile_decode.cuh"
 
@@ -44,7 +48,7 @@ template <class Tail>
 __global__ void __launch_bounds__(THREADS, 2)
 stream_mins_kernel(const void* __restrict__ q, const void* __restrict__ cw,
                    const void* __restrict__ nrm,
-                   const uint8_t* __restrict__ row_data,  // [nT, 1, TILE]
+                   const uint8_t* __restrict__ row_data,  // [nT, P, TILE]
                    const uint8_t* __restrict__ vals,      // packed stream
                    const int* __restrict__ meta,          // [2, nT]
                    const float* __restrict__ u,           // [B] or null
@@ -52,47 +56,21 @@ stream_mins_kernel(const void* __restrict__ q, const void* __restrict__ cw,
                    uint8_t* __restrict__ codes_out,       // [nT*TILE, M]
                    int B, int Dg, int nT, int n_valid, int M, int K,
                    int Ds) {
+  constexpr int MS = Tail::MS;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Scratch sc = scratch(smem + Tail::layout(M, K, Ds).total);
-  const int tid = threadIdx.x;
+  const Scratch sc = scratch<MS>(smem + Tail::layout(M, K, Ds).total);
   const int t = blockIdx.x;
-  const int qb0 = blockIdx.y * QB;
+  const int qb0 = blockIdx.y * Tail::QBLK;
+  const int P = (M + 7) / 8;
 
   Tail::load(smem, q, cw, nrm, u, B, Dg, qb0, M, K, Ds);
 
-  // ---- per-row diff counts and their block exclusive scan ---------------
-  const int r0 = tid * RPT;
-  unsigned mask[RPT];
-  int nd[RPT], tsum = 0;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    mask[i] = row_data[(size_t)t * TILE + r0 + i];
-    nd[i] = __popc(mask[i]);
-    tsum += nd[i];
-  }
-  int off = block_exclusive_sum(tsum, sc.wsum);
+  stream_decode<MS>(
+      row_data + (size_t)t * P * TILE, vals,
+      (long long)meta[t] * 1024 + meta[nT + t], sc, M,
+      blockIdx.y == 0 ? codes_out + (size_t)t * TILE * M : nullptr);
 
-  // ---- gather each set subspace's value from the stream -----------------
-  const long long base = (long long)meta[t] * 1024 + meta[nT + t];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    int j = 0;
-    for (int m = 0; m < M; ++m) {
-      if (mask[i] >> m & 1u) {
-        const long long p = base + off + j;
-        const long long idx = (p >> 10 << 10) + (p & 7) * 128
-                              + ((p >> 3) & 127);
-        sc.codes[(r0 + i) * MMAX + m] = vals[idx];
-        ++j;
-      }
-    }
-    off += nd[i];
-  }
-
-  forward_fill(mask, sc.codes, sc.wlast, M,
-               blockIdx.y == 0 ? codes_out + (size_t)t * TILE * M : nullptr);
-
-  Tail::scan(smem, sc.codes, mins, t, B, qb0, n_valid, M, K, Ds);
+  Tail::scan(smem, sc.codes, mins, t, B, qb0, n_valid, M, K, Ds, cw, nrm);
 }
 
 template <class Tail>
@@ -100,12 +78,13 @@ int launch(const void* q, const void* cw, const void* nrm, const void* rd,
            const void* vals, const void* meta, const void* u, void* mins,
            void* codes_out, int B, int Dg, int nT, int n_valid, int M, int K,
            int Ds, void* stream) {
-  const size_t smem = Tail::layout(M, K, Ds).total + scratch_bytes();
+  const size_t smem = Tail::layout(M, K, Ds).total
+                      + scratch_bytes<Tail::MS>();
   cudaError_t e = cudaFuncSetAttribute(
       stream_mins_kernel<Tail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(nT, (B + QB - 1) / QB);
+  dim3 grid(nT, (B + Tail::QBLK - 1) / Tail::QBLK);
   stream_mins_kernel<Tail><<<grid, THREADS, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       q, cw, nrm, static_cast<const uint8_t*>(rd),
@@ -118,8 +97,10 @@ int launch(const void* q, const void* cw, const void* nrm, const void* rd,
 }  // namespace
 
 // mode 0: int16 (Ds % 4 == 0); mode 1: bf16 (Ds % 2 == 0); mode 2: int8
-// (Ds % 4 == 0); M <= 8 and M*Ds <= 128 (checked by the Python wrapper).
-// Returns cudaGetLastError() after the launch.
+// (Ds % 4 == 0); M <= 16; Dg is the rows of one plane of q (checked by the
+// Python wrapper).  M <= 8 with M*Ds <= 128 takes the narrow tails, any
+// other shape the wide ones.  Returns cudaGetLastError() after the launch
+// (or the error of a shared-memory request the card refuses).
 extern "C" int stream_mins_launch(const void* q, const void* cw,
                                   const void* nrm, const void* row_data,
                                   const void* vals, const void* meta,
@@ -127,11 +108,16 @@ extern "C" int stream_mins_launch(const void* q, const void* cw,
                                   int B, int Dg, int nT, int n_valid, int M,
                                   int K, int Ds, int mode, void* stream) {
   if (nT == 0 || B == 0) return (int)cudaSuccess;
+  if (M < 1 || M > MSW) return (int)cudaErrorInvalidValue;
   const int D = M * Ds;
 #define STREAM_LAUNCH(T)                                                   \
   return launch<T>(q, cw, nrm, row_data, vals, meta, u, mins, codes_out, B, \
                    Dg, nT, n_valid, M, K, Ds, stream)
-  if (mode == 0) {
+  if (M > MMAX || D > 128) {
+    if (mode == 0) STREAM_LAUNCH(Int16Wide);
+    if (mode == 1) STREAM_LAUNCH(Bf16Wide);
+    if (mode == 2) STREAM_LAUNCH(Int8Wide);
+  } else if (mode == 0) {
     if (D <= 16) STREAM_LAUNCH(Int16Tail<4>);
     if (D <= 32) STREAM_LAUNCH(Int16Tail<8>);
     if (D <= 64) STREAM_LAUNCH(Int16Tail<16>);

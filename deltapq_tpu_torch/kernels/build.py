@@ -46,6 +46,10 @@ SIGNATURES = {
     # B, Dg, nT, n_valid, M, K, Ds, mode, stream
     "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, cw, nrm, row_data, vals, meta, u, mins, codes_out,
+    # B, Dg, nT, n_groups, n_valid, M, K, Ds, mode, stream
+    "stream_mins_pipelined_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, cw, nrm, codes, u, mins, B, Dg, nT, n_valid, M, K, Ds, mode, stream
     "codes_mins_launch": [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -189,6 +193,7 @@ def check(err: int, what: str) -> None:
 #: delta_mins (int16), adc_topk (f32) and adc_topk_packed (f32) carry
 #: their first mode's bare name
 LAUNCHES = {"stream_mins": 0, "stream_mins_bf16": 0, "stream_mins_int8": 0,
+            "stream_mins_pipelined_int8": 0, "stream_mins_pipelined_bf16": 0,
             "codes_mins": 0, "codes_mins_int16": 0, "codes_mins_int8": 0,
             "delta_mins": 0, "delta_mins_int8": 0, "delta_mins_bf16": 0,
             "decoded_mins": 0, "adc_topk": 0, "rerank": 0,

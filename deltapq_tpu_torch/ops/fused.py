@@ -32,10 +32,11 @@ Each batch of the fused tiers:
    and the terminal exact scan; the JAX package's ``lax.cond`` rungs
    become host checks of ``ok.all()`` -- then scan rows -> database ids.
 
-Every precision of the JAX package (int8, int16, bf16) is ported, at
-M <= 8; not ported yet: M > 8 (ROADMAP A3) and the sharded (``mesh=``)
-inner engine of the dedup tier (ROADMAP A9).  ``bigscale.py`` holds the
-chunked engine.
+Every precision of the JAX package (int8, int16, bf16) is ported, for
+M <= 16 (the GIST shape M=16, Ds=60 runs with two mask planes and the
+grouped query layout of ``fused_kernels.group_geometry``); not ported
+yet: the sharded (``mesh=``) inner engine of the dedup tier (ROADMAP
+A9).  ``bigscale.py`` holds the chunked engine.
 """
 
 from __future__ import annotations
@@ -508,12 +509,18 @@ class FusedCompressedEngine(_FusedEngine):
     pre-built tiles.  ``device`` holds every tensor of the engine.  The
     port's default precision is int16 (the benchmark's); the JAX
     package's is bf16, which ``DeltaPQIndex`` asks for.
+
+    ``pipelined=True`` scans stream tiles with the pipelined stream
+    kernel (``fused_stream_mins(pipelined=True)``: M <= 8, int8 or bf16;
+    the JAX package switches it on with an environment variable).  It is
+    not written to a saved engine.
     """
 
     def __init__(self, codewords, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
                  precision: str = "int16", fmt: str = "stream",
-                 S: Optional[int] = None, device=None):
+                 S: Optional[int] = None, device=None,
+                 pipelined: bool = False):
         codes_scan = np.asarray(codes_scan)
         if fmt == "stream":
             tiles = build_stream_tiles(codes_scan)
@@ -521,9 +528,11 @@ class FusedCompressedEngine(_FusedEngine):
             tiles = build_delta_tiles(codes_scan, S=S)
         else:
             raise ValueError(f"unknown delta-tile format {fmt!r}")
-        self._init(codewords, tiles, row_to_db, precision, device)
+        self._init(codewords, tiles, row_to_db, precision, device,
+                   pipelined)
 
-    def _init(self, codewords, tiles, row_to_db, precision, device):
+    def _init(self, codewords, tiles, row_to_db, precision, device,
+              pipelined=False):
         codewords = _common_init(self, codewords, device)
         if self.K > 256:
             raise NotImplementedError("the compressed tier requires "
@@ -539,6 +548,12 @@ class FusedCompressedEngine(_FusedEngine):
         self.row_data = _upload(tiles.row_data, self.device)
         self.n_valid = tiles.n_valid
         self.precision = precision
+        self.pipelined = bool(pipelined)
+        if self.pipelined and (self.fmt != "stream" or self.M > 8
+                               or precision == "int16"):
+            raise NotImplementedError(
+                "pipelined=True takes stream tiles with M <= 8 at int8 or "
+                "bf16")
         _setup_precision(self, codewords, precision)
         self.row_to_db = (_upload(_row_ids_i32(row_to_db), self.device)
                           if row_to_db is not None else None)
@@ -546,21 +561,24 @@ class FusedCompressedEngine(_FusedEngine):
     @classmethod
     def from_tree(cls, codewords, tree, precision: str = "int16",
                   fmt: str = "stream", S: Optional[int] = None,
-                  device=None) -> "FusedCompressedEngine":
+                  device=None, pipelined: bool = False
+                  ) -> "FusedCompressedEngine":
         codes_db = tree.decode_codes()
         order = tree.vec_id.astype(np.int64)
         return cls(codewords, codes_db[order], row_to_db=order,
-                   precision=precision, fmt=fmt, S=S, device=device)
+                   precision=precision, fmt=fmt, S=S, device=device,
+                   pipelined=pipelined)
 
     @classmethod
     def from_tiles(cls, codewords, tiles,
                    row_to_db: Optional[np.ndarray] = None,
-                   precision: str = "int16", device=None
-                   ) -> "FusedCompressedEngine":
+                   precision: str = "int16", device=None,
+                   pipelined: bool = False) -> "FusedCompressedEngine":
         """Engine over pre-built ``StreamTiles`` or ``DeltaTiles``
         (construction = upload)."""
         self = cls.__new__(cls)
-        self._init(codewords, tiles, row_to_db, precision, device)
+        self._init(codewords, tiles, row_to_db, precision, device,
+                   pipelined)
         return self
 
     def bytes_per_vec(self) -> float:
@@ -577,7 +595,7 @@ class FusedCompressedEngine(_FusedEngine):
         return fk.fused_stream_mins(
             qop, self.cwbd, self.row_data, self.vals, self.meta,
             self.n_valid, self.M, u=uq, compact=self.compact,
-            mode=self.precision)
+            mode=self.precision, pipelined=self.pipelined)
 
     def save(self, path: str) -> None:
         """Persist the tiles, mapping and precision (the JAX package's

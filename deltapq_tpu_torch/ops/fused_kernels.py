@@ -8,7 +8,10 @@ module and a launch count in ``kernels.build.LAUNCHES``:
 
 * ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
   ``_stream_mins_kernel``): decode stream tiles, the scan, 32-row
-  subtile minima and the decoded-codes echo;
+  subtile minima and the decoded-codes echo; with ``pipelined=True`` ->
+  ``csrc/stream_mins_pipelined.cu`` (replaces
+  ``_stream_mins_pipelined_kernel``): the same function, one block
+  walking a run of tiles with the next tile's decode inside the scan;
 * ``fused_codes_mins`` -> ``csrc/codes_mins.cu`` (replaces
   ``_codes_mins_kernel``): the same scan tail (``csrc/scan_tail.cuh``)
   on resident u8 codes;
@@ -29,11 +32,17 @@ precision), where the JAX package takes a static ``int16=`` flag and
 reads int8 against bf16 from the operand types:
 
 * ``"int16"``: codebook and queries as two base-128 int8 digits, q
-  [2*Dg, B] int8, cwbd [M*K, 2*Dg] int8, per-query headroom u;
-* ``"int8"``: one int8 digit, q [Dg, B] int8, cwbd [M*K, Dg] int8, u;
-* ``"bf16"``: q [Dg, B] bf16, cwbd [M*K, Dg] bf16, no u.
+  [2*G*Dg, B] int8 (all a-planes, then all b-planes), cwbd [G*Mg*K,
+  2*Dg] int8 (a | b side by side), per-query headroom u;
+* ``"int8"``: one int8 digit, q [G*Dg, B] int8, cwbd [G*Mg*K, Dg]
+  int8, u;
+* ``"bf16"``: q [G*Dg, B] bf16, cwbd [G*Mg*K, Dg] bf16, no u.
 
-A call whose operand types or shapes do not match its mode raises.  The
+(G, Mg, Dg) is ``group_geometry(M, Ds)``: one group for M <= 8, two
+groups of 8 subspaces for the GIST shape M=16.  The operands keep the JAX
+package's grouped layout; the CUDA kernels read it as it is and band the
+work their own way (``csrc/scan_tail.cuh``).  A call whose operand types
+or shapes do not match its mode raises.  The
 distance decomposition, the digit arithmetic and the exactness
 certificate are the JAX package's; see the docstrings there.
 """
@@ -54,6 +63,10 @@ SUB = 32      # rows per subtile-min
 REF_CHUNK_TILES = 64
 #: scan modes -> the CUDA kernels' mode argument
 MODES = {"int16": 0, "bf16": 1, "int8": 2}
+#: widest query row the wide scan tails stage in shared memory, per digit
+#: plane, each subspace padded to 16 bytes (GIST: 16 x 64 at int8 and
+#: int16, 16 x 128 at bf16)
+WIDE_ROW_BYTES = 2048
 
 # --------------------------------------------------------------------------
 # Host half: codebook and query operands (NumPy, as in the JAX package)
@@ -138,28 +151,38 @@ def quantize_blockdiag_int16(cwbd_or_cw, center=None):
     return out, scale
 
 
+def _codebook_k(cwbd: torch.Tensor, M: int) -> int:
+    """K of a grouped block-diagonal codebook [G*Mg*K, width]."""
+    G = (M + 7) // 8
+    return cwbd.shape[0] // (G * -(-M // G))
+
+
 def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int, mode: str
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scan kernels' codebook operands, built once per engine from
     the block-diagonal ``cwbd``: the nonzero blocks (each codeword's own
     Ds dims) and per-codeword norms.
 
-    * int16 (``cwbd`` [M*K, 2*Dg] int8): ``cw`` [2, M, K, Ds/4] int32,
-      the a- then b-digit planes, four int8 digits per word; ``nrm``
-      [M, K] int64, sum of A^2 with A = 128a + b, exact;
-    * int8 (``cwbd`` [M*K, Dg] int8): ``cw`` [M, K, Ds/4] int32, four
+    * int16 (``cwbd`` [G*Mg*K, 2*Dg] int8): ``cw`` [2, M, K, Ds/4]
+      int32, the a- then b-digit planes, four int8 digits per word;
+      ``nrm`` [M, K] int64, sum of A^2 with A = 128a + b, exact;
+    * int8 (``cwbd`` [G*Mg*K, Dg] int8): ``cw`` [M, K, Ds/4] int32, four
       int8 values per word; ``nrm`` [M, K] int32, sum of c^2, exact;
-    * bf16 (``cwbd`` [M*K, Dg] bf16): ``cw`` [M, K, Ds/2] int32, two
+    * bf16 (``cwbd`` [G*Mg*K, Dg] bf16): ``cw`` [M, K, Ds/2] int32, two
       bf16 values per word; ``nrm`` [M, K] f32, sum of the squared bf16
       values.
+
+    Subspace m's codewords are rows m*K .. (m+1)*K of ``cwbd`` and its
+    dims sit at columns (m % Mg)*Ds .. inside its own group's rows.
     """
-    MK, width = cwbd.shape
-    K = MK // M
+    width = cwbd.shape[1]
+    K = _codebook_k(cwbd, M)
+    _, Mg, _ = group_geometry(M, Ds)
     dev = cwbd.device
-    cols = (torch.arange(M, device=dev)[:, None] * Ds
+    cols = ((torch.arange(M, device=dev) % Mg)[:, None] * Ds
             + torch.arange(Ds, device=dev)[None, :])        # [M, Ds]
     idx = cols[:, None, :].expand(M, K, Ds)
-    bd = cwbd.reshape(M, K, width)
+    bd = cwbd[:M * K].reshape(M, K, width)
     if mode == "bf16":
         if Ds % 2:
             raise NotImplementedError("the bf16 scan kernels need Ds even")
@@ -201,8 +224,9 @@ def pack_xhat_tiles(xhat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
 def _scan_mode(q: torch.Tensor, cwbd: torch.Tensor, M: int, mode: str
                ) -> int:
     """Check the operands against the scan ``mode``; returns the
-    kernels' mode code.  int16 operands are [2*Dg]-wide (two digit
-    planes, so a multiple of 256), int8 and bf16 ones [Dg]-wide."""
+    kernels' mode code.  int16 codebooks are [2*Dg]-wide (two digit
+    planes, so a multiple of 256), int8 and bf16 ones [Dg]-wide; q has
+    one such block of rows per subspace group."""
     if mode not in MODES:
         raise NotImplementedError(f"scan mode {mode!r}: the int16, int8 "
                                   f"and bf16 scans are ported")
@@ -210,11 +234,12 @@ def _scan_mode(q: torch.Tensor, cwbd: torch.Tensor, M: int, mode: str
     if q.dtype != want or cwbd.dtype != want:
         raise ValueError(f"{mode} scan: q and cwbd must be {want}, got q "
                          f"{q.dtype}, cwbd {cwbd.dtype}")
-    if M > 8:
-        raise NotImplementedError("only one subspace group (M <= 8) is "
-                                  "ported (M = 16: ROADMAP A3)")
+    if not 1 <= M <= 16:
+        raise NotImplementedError("the scan kernels take M <= 16 (two "
+                                  "subspace groups, two mask planes)")
     width = cwbd.shape[1]
-    if (width != q.shape[0] or cwbd.shape[0] % M
+    G = (M + 7) // 8
+    if (G * width != q.shape[0] or cwbd.shape[0] % (G * -(-M // G))
             or width % (256 if mode == "int16" else 128)):
         raise ValueError(f"cwbd {tuple(cwbd.shape)} does not match "
                          f"q {tuple(q.shape)}, M={M} in {mode} mode")
@@ -233,7 +258,8 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
       with TF32 off and are exact (every partial sum is an integer below
       2^24); the bound is max |u*cross|;
     * int8 (q [Dg, B] int8): pre = sum x^2 and cross = x . q are
-      integers below 127^2 * 128 < 2^24, exact in f32 in any order, then
+      integers below 127^2 * M*Ds < 2^24 (M*Ds <= 1040; the GIST shape
+      has 960), exact in f32 in any order, then
       cross*u and pre - 2 cross round once each, in the JAX order -- a
       kernel matches this bit for bit; the bound is max |u*cross|;
     * bf16 (q [Dg, B] bf16): x^ and q hold bf16 values, whose products
@@ -241,45 +267,59 @@ def _scan_tail_ref(codes: torch.Tensor, q: torch.Tensor,
       bounds sum |x^ q| (Cauchy-Schwarz), the size that the f32 sums'
       round-off scales with.
 
-    Work goes in chunks of ``REF_CHUNK_TILES`` tiles to bound the
-    [rows, B] intermediates.
+    With G = 2 subspace groups (M > 8) each group's rows decode against
+    its own [Mg*K, width] block of ``cwbd`` and meet its own rows of q;
+    the groups' x^ are laid side by side and the sums run over the whole
+    row at once (the TPU kernel adds the groups' pre and cross in f32).
+
+    Work goes in chunks of ``REF_CHUNK_TILES`` tiles (a quarter of that
+    at G = 2) to bound the [rows, B] and [rows, G*Dg] intermediates.
     """
     code = _scan_mode(q, cwbd, M, mode)
     D2, B = q.shape
     dev = q.device
     n_rows = codes.shape[0]
-    K = cwbd.shape[0] // M
-    bd = cwbd.to(torch.float32).reshape(M, K, cwbd.shape[1])
+    K = _codebook_k(cwbd, M)
+    G = (M + 7) // 8
+    Mg = -(-M // G)
+    width = cwbd.shape[1]
+    bd = cwbd.to(torch.float32).reshape(G * Mg, K, width)
     qf = q.to(torch.float32)
     if code == MODES["int16"]:
-        Dg = D2 // 2
-        qa, qb = qf[:Dg], qf[Dg:]
+        Dg = width // 2
+        qa, qb = qf[:G * Dg], qf[G * Dg:]
     if u is None:
         u = torch.ones((1, B), dtype=torch.float32, device=dev)
     mins = torch.empty((n_rows // SUB, B), dtype=torch.float32, device=dev)
     pre_max = 0.0
     cross_max = 0.0
-    ar_m = torch.arange(M, device=dev)
+    step = (REF_CHUNK_TILES if G == 1 else REF_CHUNK_TILES // 4) * TILE
     with no_tf32():
-        for r0 in range(0, n_rows, REF_CHUNK_TILES * TILE):
-            c = codes[r0:r0 + REF_CHUNK_TILES * TILE].to(torch.int64)
-            # block-diagonal decode: exactly one subspace is nonzero per
-            # column, so the sum over m is exact
-            x = bd[ar_m[None, :], c].sum(dim=1)
+        for r0 in range(0, n_rows, step):
+            c = codes[r0:r0 + step].to(torch.int64)
+            # block-diagonal decode, a group at a time: exactly one
+            # subspace is nonzero per column, so the sum over m is exact
+            xg = []
+            for g in range(G):
+                ms = torch.arange(g * Mg, min((g + 1) * Mg, M), device=dev)
+                xg.append(bd[ms[None, :], c[:, ms]].sum(dim=1))
             if code == MODES["int16"]:
-                xa, xb = x[:, :Dg], x[:, Dg:]
+                xa = torch.cat([x[:, :Dg] for x in xg], dim=1)
+                xb = torch.cat([x[:, Dg:] for x in xg], dim=1)
+                del xg
                 A = 128.0 * xa + xb
                 pre = torch.sum(A * A, dim=1, keepdim=True)
                 caa = xa @ qa
                 p2 = xa @ qb + xb @ qa
                 cbb = xb @ qb
                 cross = ((16384.0 * caa + 128.0 * p2) + cbb) * u
-            elif code == MODES["int8"]:
-                pre = torch.sum(x * x, dim=1, keepdim=True)
-                cross = (x @ qf) * u
             else:
+                x = torch.cat(xg, dim=1) if G > 1 else xg[0]
+                del xg
                 pre = torch.sum(x * x, dim=1, keepdim=True)
                 cross = x @ qf
+                if code == MODES["int8"]:
+                    cross = cross * u
             if code != MODES["bf16"]:
                 cross_max = max(cross_max, float(cross.abs().max()))
             d = pre - 2.0 * cross
@@ -312,7 +352,7 @@ def _compact_operands(q, cwbd, M, compact, u, code):
                          "compact_codebook(cwbd, M, Ds, mode)")
     cw, nrm = compact
     B = q.shape[1]
-    K = cwbd.shape[0] // M
+    K = _codebook_k(cwbd, M)
     if code == MODES["bf16"]:
         Ds = 2 * cw.shape[-1]
         want = (M, K, Ds // 2)
@@ -328,11 +368,22 @@ def _compact_operands(q, cwbd, M, compact, u, code):
     _check_operands(dict(cw=cw, nrm=nrm, u=u),
                     dict(cw=torch.int32, nrm=nrm_dtype, u=torch.float32),
                     q.device)
-    Dg = q.shape[0] // (2 if code == MODES["int16"] else 1)
+    G, Mg, Dg_pad = group_geometry(M, Ds)
+    planes = 2 if code == MODES["int16"] else 1
     if (tuple(cw.shape) != want or tuple(nrm.shape) != (M, K)
-            or M * Ds > min(Dg, 128) or K > 256 or u.numel() != B):
+            or q.shape[0] != planes * G * Dg_pad or K > 256
+            or u.numel() != B):
         raise ValueError("scan kernel operand shapes disagree with the "
                          "mode")
+    sub_bytes = Ds * (2 if code == MODES["bf16"] else 1)
+    if M * (-(-sub_bytes // 16) * 16) > WIDE_ROW_BYTES:
+        raise NotImplementedError(
+            f"the scan kernels stage a query row of at most "
+            f"{WIDE_ROW_BYTES} bytes a plane (M={M}, Ds={Ds})")
+    if code == MODES["int8"] and M * Ds * 127 * 127 >= 2 ** 24:
+        raise NotImplementedError(
+            f"the int8 scan is exact in f32 only while 127^2 * M*Ds < "
+            f"2^24 (M*Ds <= 1040); got M*Ds = {M * Ds}")
     return cw, nrm, u, Ds
 
 
@@ -340,7 +391,7 @@ def _launch_name(kernel: str, mode: str) -> str:
     """LAUNCHES key of a scan kernel in a mode (the names the earlier
     modes were counted under stay)."""
     first = {"stream_mins": "int16", "codes_mins": "bf16",
-             "delta_mins": "int16"}[kernel]
+             "delta_mins": "int16", "stream_mins_pipelined": None}[kernel]
     return kernel if mode == first else f"{kernel}_{mode}"
 
 
@@ -370,24 +421,31 @@ def decode_stream_tiles_torch(row_data: torch.Tensor, vals: torch.Tensor,
     return H.reshape(nt * T, M)
 
 
-def _check_stream_args(q, cwbd, row_data, M, mode) -> int:
+def _check_stream_args(q, cwbd, row_data, M, mode, pipelined=False
+                       ) -> int:
     code = _scan_mode(q, cwbd, M, mode)
-    if row_data.dtype != torch.uint8 or row_data.shape[1] != 1:
-        raise ValueError("row_data must be u8 [nT, 1, TILE]")
+    if row_data.dtype != torch.uint8 or row_data.shape[1] != (M + 7) // 8:
+        raise ValueError("row_data must be u8 [nT, ceil(M/8), TILE]")
+    if pipelined and (mode == "int16" or M > 8):
+        raise NotImplementedError(
+            "the pipelined stream kernel takes one subspace group "
+            "(M <= 8) at int8 or bf16, as the TPU kernel it replaces")
     return code
 
 
 def fused_stream_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
                           row_data: torch.Tensor, vals: torch.Tensor,
                           meta: torch.Tensor, n_valid: int, M: int,
-                          u: Optional[torch.Tensor] = None, *, mode: str
+                          u: Optional[torch.Tensor] = None, *, mode: str,
+                          pipelined: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      float, float]:
-    """Plain PyTorch version of ``fused_stream_mins`` (one group).
+    """Plain PyTorch version of ``fused_stream_mins``, pipelined or not
+    (the function is the same).
 
     Returns (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre, cross
     bound); see ``_scan_tail_ref`` for the two maxima."""
-    _check_stream_args(q, cwbd, row_data, M, mode)
+    _check_stream_args(q, cwbd, row_data, M, mode, pipelined)
     codes = decode_stream_tiles_torch(row_data, vals, meta, M)
     mins, pre_max, cross_max = _scan_tail_ref(codes, q, cwbd, n_valid, M,
                                               mode, u=u)
@@ -415,21 +473,25 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                       u: Optional[torch.Tensor] = None,
                       compact: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
-                      *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                      *, mode: str, pipelined: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stream tier scan in ``mode`` ("int16", "int8" or "bf16"; the
-    operands of each in the module docstring).  row_data [nT, 1, TILE]
-    u8; vals [A, 8, 128] u8; meta [2, nT] i32.  Returns (mins [nT*32, B]
-    f32, decoded codes [nT*TILE, M] u8).
+    operands of each in the module docstring).  row_data [nT, P, TILE]
+    u8 (P = ceil(M/8) mask planes); vals [A, 8, 128] u8; meta [2, nT]
+    i32.  Returns (mins [nT*32, B] f32, decoded codes [nT*TILE, M] u8).
 
-    On CUDA tensors this launches ``csrc/stream_mins.cu``; ``compact``
-    is ``compact_codebook(cwbd, M, Ds, mode)`` (the kernel needs Ds,
-    which ``cwbd`` does not carry).  On CPU tensors it runs the plain
-    version.
+    On CUDA tensors this launches ``csrc/stream_mins.cu``, or with
+    ``pipelined=True`` ``csrc/stream_mins_pipelined.cu`` (M <= 8, D <=
+    128, int8 or bf16; anything else raises, where the JAX package goes
+    back to its serial kernel without a word); ``compact`` is
+    ``compact_codebook(cwbd, M, Ds, mode)`` (the kernels need Ds, which
+    ``cwbd`` does not carry).  On CPU tensors it runs the plain version.
     """
-    code = _check_stream_args(q, cwbd, row_data, M, mode)
+    code = _check_stream_args(q, cwbd, row_data, M, mode, pipelined)
     if q.device.type == "cpu":
         return fused_stream_mins_ref(q, cwbd, row_data, vals, meta,
-                                     n_valid, M, u=u, mode=mode)[:2]
+                                     n_valid, M, u=u, mode=mode,
+                                     pipelined=pipelined)[:2]
     _check_operands(dict(q=q, row_data=row_data, vals=vals, meta=meta),
                     dict(q=q.dtype, row_data=torch.uint8,
                          vals=torch.uint8, meta=torch.int32), q.device)
@@ -438,14 +500,33 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
     if row_data.shape[2] != TILE or tuple(meta.shape) != (2, nt):
         raise ValueError("stream kernel operand shapes disagree")
     codes = torch.empty((nt * TILE, M), dtype=torch.uint8, device=q.device)
+    K = _codebook_k(cwbd, M)
+    if pipelined:
+        if (vals.dim() != 3 or tuple(vals.shape[1:]) != (8, 128)
+                or row_data.data_ptr() % 16 or vals.data_ptr() % 16):
+            raise ValueError("the pipelined stream kernel copies 16-byte "
+                             "pieces: vals [A, 8, 128] and 16-byte aligned "
+                             "row_data and vals required")
+
+        def launch(cw, nrm, u_, Ds, out, stream):
+            if M * Ds > 128:
+                raise NotImplementedError(
+                    "the pipelined stream kernel takes M*Ds <= 128")
+            return build.library().stream_mins_pipelined_launch(
+                q.data_ptr(), cw, nrm, row_data.data_ptr(), vals.data_ptr(),
+                meta.data_ptr(), u_, out, codes.data_ptr(), B, D2, nt,
+                vals.shape[0], int(n_valid), M, K, Ds, code, stream)
+
+        return _launch_scan("stream_mins_pipelined", mode, code, q, cwbd,
+                            M, compact, u, nt, launch), codes
     mins = _launch_scan(
         "stream_mins", mode, code, q, cwbd, M, compact, u, nt,
         lambda cw, nrm, u_, Ds, out, stream:
         build.library().stream_mins_launch(
             q.data_ptr(), cw, nrm, row_data.data_ptr(), vals.data_ptr(),
             meta.data_ptr(), u_, out, codes.data_ptr(), B,
-            D2 // (2 if code == 0 else 1), nt, int(n_valid), M,
-            cwbd.shape[0] // M, Ds, code, stream))
+            D2 // (2 if code == 0 else 1), nt, int(n_valid), M, K, Ds,
+            code, stream))
     return mins, codes
 
 
@@ -501,7 +582,7 @@ def fused_codes_mins(q: torch.Tensor, cwbd: torch.Tensor,
         build.library().codes_mins_launch(
             q.data_ptr(), cw, nrm, codes.data_ptr(), u_, out, B,
             D2 // (2 if code == 0 else 1), nt, int(n_valid), M,
-            cwbd.shape[0] // M, Ds, code, stream))
+            _codebook_k(cwbd, M), Ds, code, stream))
     return mins, codes
 
 
@@ -542,10 +623,11 @@ def _check_delta_args(q, cwbd, row_data, ovf, S, mode) -> int:
     M = ovf.shape[1]
     code = _scan_mode(q, cwbd, M, mode)
     if (row_data.dtype != torch.uint8 or ovf.dtype != torch.uint8
-            or row_data.shape[1] != 1 + S or row_data.shape[2] != TILE
+            or row_data.shape[1] != (M + 7) // 8 + S
+            or row_data.shape[2] != TILE
             or ovf.shape[0] != row_data.shape[0] or not 1 <= S < M):
-        raise ValueError("slot tiles: row_data u8 [nT, 1+S, TILE] and ovf "
-                         "u8 [nT, M, Cap] with 1 <= S < M required")
+        raise ValueError("slot tiles: row_data u8 [nT, ceil(M/8)+S, TILE] "
+                         "and ovf u8 [nT, M, Cap] with 1 <= S < M required")
     return code
 
 
@@ -555,7 +637,7 @@ def fused_delta_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
                          u: Optional[torch.Tensor] = None, *, mode: str
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     float, float]:
-    """Plain PyTorch version of ``fused_delta_mins`` (one group):
+    """Plain PyTorch version of ``fused_delta_mins``:
     (mins [nT*32, B] f32, codes [nT*TILE, M] u8, max pre, cross bound);
     see ``_scan_tail_ref``."""
     _check_delta_args(q, cwbd, row_data, ovf, S, mode)
@@ -573,9 +655,9 @@ def fused_delta_mins(q: torch.Tensor, cwbd: torch.Tensor,
                      compact: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None,
                      *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Slot-tile scan (``delta_tiles.py``, M <= 8): row_data [nT, 1+S,
-    TILE] u8 (mask plane + S value slots), ovf [nT, M, Cap] u8 overflow
-    bank; q, cwbd, u and ``mode`` as in ``fused_stream_mins``.  Returns
+    """Slot-tile scan (``delta_tiles.py``, M <= 16): row_data [nT, P+S,
+    TILE] u8 (P = ceil(M/8) mask planes + S value slots), ovf [nT, M,
+    Cap] u8 overflow bank; q, cwbd, u and ``mode`` as in ``fused_stream_mins``.  Returns
     (mins [nT*32, B] f32, decoded codes [nT*TILE, M] u8).
 
     On CUDA tensors this launches ``csrc/delta_mins.cu``; on CPU tensors
@@ -596,7 +678,8 @@ def fused_delta_mins(q: torch.Tensor, cwbd: torch.Tensor,
         build.library().delta_mins_launch(
             q.data_ptr(), cw, nrm, row_data.data_ptr(), ovf.data_ptr(), u_,
             out, codes.data_ptr(), B, D2 // (2 if code == 0 else 1), nt,
-            int(n_valid), M, cwbd.shape[0] // M, Ds, S, Cap, code, stream))
+            int(n_valid), M, _codebook_k(cwbd, M), Ds, S, Cap, code,
+            stream))
     return mins, codes
 
 
@@ -654,10 +737,11 @@ def fused_decoded_mins(q: torch.Tensor, xt: torch.Tensor, n_valid: int
     _check_operands(dict(q=q, xt=xt),
                     dict(q=torch.bfloat16, xt=torch.bfloat16), q.device)
     D, B = q.shape
-    if D % 8 or D > 128:
-        raise NotImplementedError("the decoded kernel takes D % 8 == 0, "
-                                  "D <= 128")
     n_rows = xt.shape[0] * xt.shape[1]
+    if D % 8 or D > 2048 or (D > 128 and n_rows > 65535 * TILE):
+        raise NotImplementedError(
+            "the decoded kernel takes D % 8 == 0, D <= 2048, and above "
+            "D = 128 at most 65,535 x 1024 rows")
     mins = torch.empty((n_rows // SUB, B), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -60,6 +60,10 @@ class StreamTiles:
     M: int
     e_max: int             # max per-tile segment length (values)
 
+    @property
+    def n_planes(self) -> int:
+        return (self.M + 7) // 8
+
     def nbytes(self) -> int:
         return self.row_data.nbytes + self.vals.nbytes
 

@@ -1,7 +1,8 @@
 """Synthetic datasets for tests and the GPU smoke run.
 
-Counterpart of ``deltapq_tpu/synth.py`` plus the benchmark's workload
-recipe (``bench.py``: ``WORKLOADS``, ``make_clustered_codes``).  Vectors
+Counterpart of ``deltapq_tpu/synth.py`` plus the benchmarks' workload
+recipes (``bench.py``: ``WORKLOADS``, ``make_clustered_codes``;
+``tools/bench_gist.py``: ``make_gist_workload``).  Vectors
 come from NumPy generators seeded as in the JAX package; codebook
 learning takes a ``torch.Generator`` where the JAX code takes a
 ``jax.random`` key, so the codebook differs between the packages while
@@ -102,3 +103,46 @@ def make_clustered_codes(n: int, M: int, K: int,
                   device=device)
     codes = pq_encode(cw, x)
     return cw, codes
+
+
+def gist_vectors(n: int, D: int = 960, n_clusters: int = 4096,
+                 sigma: float = 0.35, seed: int = 0,
+                 chunk_rows: int = 65536) -> np.ndarray:
+    """The GIST-shape benchmark's clustered vectors f32 [n, D]:
+    ``n_clusters`` centers drawn normal x4, each row a center plus
+    N(0, sigma^2) noise.  The noise is drawn ``chunk_rows`` rows at a
+    time, so no f64 [n, D] array is ever alive; consecutive draws of one
+    generator give the values of a single draw, so the result does not
+    depend on ``chunk_rows``."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, D)).astype(np.float32) * 4.0
+    assign = rng.integers(0, n_clusters, size=n)
+    x = np.empty((n, D), np.float32)
+    for r0 in range(0, n, chunk_rows):
+        r1 = min(n, r0 + chunk_rows)
+        x[r0:r1] = (centers[assign[r0:r1]]
+                    + rng.normal(size=(r1 - r0, D)).astype(np.float32)
+                    * sigma)
+    return x
+
+
+def make_gist_workload(n: int, M: int = 16, K: int = 256, Ds: int = 60,
+                       n_clusters: int = 4096, seed: int = 0, device=None,
+                       n_train: int = 20000
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The GIST1M-shaped workload from the real pipeline: clustered
+    vectors of D = M*Ds dims (``gist_vectors``) -> PQ learn on the first
+    ``n_train`` rows (40 Lloyd iterations, one restart) -> encode, both
+    on ``device`` in batches.  Returns (codewords f32 [M, K, Ds], codes
+    u8 [n, M] in database order, vectors f32 [n, D]) as NumPy arrays;
+    the caller builds the DeltaTree for the scan order."""
+    from .ops.encode import pq_encode
+    from .ops.kmeans import pq_learn
+
+    device = resolve_device(device)
+    x = gist_vectors(n, M * Ds, n_clusters, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cw = pq_learn(gen, x[:n_train], M=M, K=K, max_iters=40, n_init=1,
+                  device=device)
+    codes = pq_encode(cw, x, batch_size=65536)
+    return cw.cpu().numpy(), codes.cpu().numpy(), x

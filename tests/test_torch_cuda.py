@@ -550,3 +550,195 @@ def test_plain_scan_engines_on_card(cuda):
     assert dec.device.type == "cuda"
     dd, _ = dec.query(q, top_k=10)
     assert np.array_equal(dd, dr.cpu().numpy())
+
+
+# ---- two subspace groups, two mask planes, D > 128 -------------------------
+
+def _chain_codes(rng, n, M, K):
+    """Each row differs from the one above in one or two subspaces, so
+    stream and slot tiles compress."""
+    codes = np.empty((n, M), np.uint8)
+    codes[0] = rng.integers(0, K, size=M)
+    for i in range(1, n):
+        codes[i] = codes[i - 1]
+        for _ in range(rng.integers(1, 3)):
+            codes[i, rng.integers(0, M)] = rng.integers(0, K)
+    return codes
+
+
+#: (M, K, Ds): two groups at D=64, the GIST width D=960, one group of 8
+#: subspaces wider than 128 dims, and an odd split (two groups of 6)
+WIDE_SHAPES = [(16, 16, 4), (16, 64, 60), (8, 32, 24), (12, 32, 8)]
+
+
+def _wide_tol(precision, pre_max, cross_max):
+    return (_bf16_tol(pre_max, cross_max) if precision == "bf16"
+            else 4e-6 * (pre_max + 2 * cross_max))
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+@pytest.mark.parametrize("M,K,Ds", WIDE_SHAPES)
+@pytest.mark.parametrize("fmt", ["stream", "slots"])
+def test_wide_tile_kernels_match_plain(cuda, fmt, M, K, Ds, precision):
+    """B1 and B5 beyond one group: codes exact, int8 mins bit-equal, int16
+    and bf16 within their bounds; B rows that do not fill a query block
+    and an n_valid inside the last tile."""
+    rng = np.random.default_rng(M * 100 + Ds)
+    n, B = 2500, 70
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _chain_codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, fmt=fmt,
+                                device=cuda)
+    assert eng.row_data.shape[1] == (M + 7) // 8 + (
+        eng.tiles.S if fmt == "slots" else 0)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    key = fk._launch_name("stream_mins" if fmt == "stream" else "delta_mins",
+                          precision)
+    before = build.launch_counts()[key]
+    mins, echo = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    if fmt == "stream":
+        ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+            qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+            u=uq, mode=precision)
+    else:
+        ref_m, ref_c, pre_max, cross_max = fk.fused_delta_mins_ref(
+            qop, eng.cwbd, eng.row_data, eng.ovf, eng.n_valid, eng.tiles.S,
+            u=uq, mode=precision)
+    assert torch.equal(echo, ref_c)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+@pytest.mark.parametrize("M,K,Ds", WIDE_SHAPES)
+def test_wide_codes_kernel_matches_plain(cuda, M, K, Ds, precision):
+    rng = np.random.default_rng(M * 100 + Ds + 1)
+    n, B = 2500, 70
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    eng = pfused.FusedCodesEngine(cw, _codes(rng, n, M, K),
+                                  precision=precision, device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    key = fk._launch_name("codes_mins", precision)
+    before = build.launch_counts()[key]
+    mins, _ = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(
+        qop, eng.cwbd, eng.codes, eng.n_valid, u=uq, mode=precision)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+
+
+@pytest.mark.parametrize("M,K,Ds,tile", [(16, 16, 4, 1024),
+                                         (16, 64, 60, 8192),
+                                         (8, 32, 24, 2048)])
+def test_wide_decoded_kernel_matches_plain(cuda, M, K, Ds, tile):
+    """B4 at D=64, at the GIST width (960 padded to 1024) and at D=192
+    (padded to 256)."""
+    rng = np.random.default_rng(M * 100 + Ds + 2)
+    n, B = 2500, 70
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    eng = pfused.FusedDecodedEngine(cw, _codes(rng, n, M, K), tile=tile,
+                                    device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    before = build.launch_counts()["decoded_mins"]
+    mins, _ = eng.scan(qop, uq)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["decoded_mins"] == before + 1
+    ref_m, pre_max, cross_max = fk.fused_decoded_mins_ref(qop, eng.xt, n)
+    _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))
+
+
+@pytest.mark.parametrize("engine", ["fused", "fused_codes",
+                                    "fused_compressed", "auto"])
+def test_index_m16_top100_on_card(cuda, engine):
+    """The GIST-shaped index (M=16, Ds=60, top-100): auto resolves to the
+    compressed tier and runs; distances bit-equal to the exact scan."""
+    from deltapq_tpu_torch.index import DeltaPQIndex
+
+    rng = np.random.default_rng(16)
+    M, K, Ds, n = 16, 256, 60, 70000
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32)
+    codes = _chain_codes(rng, n, M, K)
+    idx = DeltaPQIndex(cw, codes, engine=engine, device=cuda,
+                       build_tree=False)
+    q = rng.normal(size=(40, M * Ds)).astype(np.float32)
+    d, i = idx.search(q, top_k=100)
+    if engine == "auto":
+        assert idx._engine_resolved == "fused_compressed"
+    # the engine's own table: the f32 table product rounds by batch shape
+    table = idx._fused_engine.prepare(q)[0][:len(q)]
+    dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024)
+                                                   ).to(cuda), n, 100, 1024)
+    assert np.array_equal(d, dr.cpu().numpy())
+    assert torch.equal(_own_dists(table, torch.from_numpy(codes).to(cuda),
+                                  torch.from_numpy(i).to(cuda)), dr)
+
+
+# ---- the pipelined stream kernel -----------------------------------------
+
+@pytest.mark.parametrize("precision", ["int8", "bf16"])
+@pytest.mark.parametrize("n,M,K,Ds,B", [(9000, 8, 256, 16, 200),
+                                        (3000, 4, 32, 4, 64),
+                                        (300000, 8, 64, 8, 454),
+                                        (1000, 8, 16, 4, 5)])
+def test_pipelined_stream_kernel_equals_stream_kernel(cuda, precision, n, M,
+                                                      K, Ds, B):
+    """B7 against B1 bit for bit (mins and codes) and against the plain
+    version; 300,000 rows give 293 tiles (a prime, so no run length of
+    the launch but 1 divides it; eight query blocks give runs of 2 or 3
+    tiles), with n_valid inside the last tile; 1000 rows give a single
+    tile."""
+    rng = np.random.default_rng(n + 7)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, device=cuda)
+    pipe = FusedCompressedEngine.from_tiles(cw, eng.tiles,
+                                            precision=precision, device=cuda,
+                                            pipelined=True)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    table, qop, uq, cert, b = eng.prepare(q)
+    m1, c1 = eng.scan(qop, uq)
+    key = f"stream_mins_pipelined_{precision}"
+    before = build.launch_counts()
+    m7, c7 = pipe.scan(qop, uq)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after[key] == before[key] + 1
+    assert after[fk._launch_name("stream_mins", precision)] == \
+        before[fk._launch_name("stream_mins", precision)]
+    assert torch.equal(c7, c1) and torch.equal(m7, m1)
+    ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, mode=precision, pipelined=True)
+    assert torch.equal(c7, ref_c)
+    if precision == "int8":
+        assert torch.equal(m7, ref_m)
+    else:
+        _assert_mins(m7, ref_m, _bf16_tol(pre_max, cross_max))
+    d, i = pipe.query(q, top_k=10)
+    d1, i1 = eng.query(q, top_k=10)
+    assert np.array_equal(d, d1) and np.array_equal(i, i1)
+
+
+def test_pipelined_refuses_int16_and_m16_on_card(cuda):
+    rng = np.random.default_rng(3)
+    cw = rng.normal(size=(8, 16, 4)).astype(np.float32)
+    codes = _codes(rng, 2000, 8, 16)
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine(cw, codes, precision="int16", device=cuda,
+                              pipelined=True)
+    cw16 = rng.normal(size=(16, 16, 4)).astype(np.float32)
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine(cw16, _codes(rng, 2000, 16, 16),
+                              precision="int8", device=cuda, pipelined=True)

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import deltapq_tpu_torch
-from deltapq_tpu_torch import bigscale, convert, index, synth
+from deltapq_tpu_torch import bench_gist, bigscale, convert, index, synth
 from deltapq_tpu_torch.eval import groundtruth
 from deltapq_tpu_torch.ops import adc, adc_kernels, decoded, fused, kmeans
 
@@ -28,7 +28,7 @@ ENTRY_POINTS = [
     convert.engine_state_from_numpy, convert.load_jax_engine,
     convert.load_jax_index, convert.load_jax_decoded_engine,
     convert.tile_dict_state_from_numpy,
-    synth.make_clustered_codes,
+    synth.make_clustered_codes, synth.make_gist_workload, bench_gist.main,
     adc_kernels.TileDictEngine.__init__,
     decoded.DecodedEngine.__init__, decoded.DecodedEngine.load,
     groundtruth.exact_topk,

@@ -25,7 +25,8 @@ from deltapq_tpu_torch.tree.layout import build_layout
 from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
-CONFIGS = {"m8k256": (8, 256, 4), "m4k32": (4, 32, 4)}
+CONFIGS = {"m8k256": (8, 256, 4), "m4k32": (4, 32, 4),
+           "m16k16": (16, 16, 4)}     # two groups, two mask planes
 N, B, TOPK = 6000, 128, 10
 
 
@@ -271,8 +272,8 @@ def test_engine_from_tree_and_warmup(case):
 
 def test_unported_modes_raise(case):
     """Every precision and tile format of the JAX package is ported; an
-    unknown one, a scan mode its operands do not match, and more than one
-    subspace group raise."""
+    unknown one, a scan mode its operands do not match, more than two
+    subspace groups and the pipelined kernel outside its modes raise."""
     cw, codes = case["cw"], case["codes"]
     with pytest.raises(NotImplementedError):
         FusedCompressedEngine(cw, codes, precision="fp8", device=CPU)
@@ -290,8 +291,16 @@ def test_unported_modes_raise(case):
         fk.fused_stream_mins(qop, *args, case["M"], mode="bf16")
     with pytest.raises(NotImplementedError):
         fk.fused_stream_mins(qop, *args, case["M"], mode="int4")
+    # more than two subspace groups; the pipelined kernel at int16 (the
+    # JAX package takes its serial kernel there without a word)
     with pytest.raises(NotImplementedError):
-        fk.fused_stream_mins(qop, *args, 16, mode="int16")
+        fk.fused_stream_mins(qop, *args, 17, mode="int16")
+    with pytest.raises(NotImplementedError):
+        fk.fused_stream_mins(qop, *args, case["M"], mode="int16",
+                             pipelined=True)
+    with pytest.raises(NotImplementedError):
+        FusedCompressedEngine(cw, codes, precision="int16", pipelined=True,
+                              device=CPU)
 
 
 def test_calibrate_grows_a_too_small_first_rung(case):

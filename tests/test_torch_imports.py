@@ -39,7 +39,7 @@ def test_no_jax_in_port_sources():
     "deltapq_tpu_torch.ops.topk", "deltapq_tpu_torch.ops.decoded",
     "deltapq_tpu_torch.ops.adc_kernels", "deltapq_tpu_torch.eval",
     "deltapq_tpu_torch.eval.metrics", "deltapq_tpu_torch.eval.groundtruth",
-    "deltapq_tpu_torch.bench_engines"])
+    "deltapq_tpu_torch.bench_engines", "deltapq_tpu_torch.bench_gist"])
 def test_module_alone_imports_without_jax(module):
     """Each module of the plain-scan family on its own, in a fresh
     interpreter: it is there, and brings in neither jax nor the JAX

@@ -182,22 +182,38 @@ def test_fused_search_with_deletes(built, small_dataset):
 
 def test_index_m16_compressed_raises(rng):
     """M=16: the tree builds and there is no DTC stream, as in the JAX
-    package; the compressed tier's two-group scan is not ported (ROADMAP
-    A3) and says so, and the other tiers serve the index."""
+    package; the compressed tier (two mask planes, two subspace groups)
+    serves the index as every other tier does, and nothing raises any
+    more.  ``stats()`` is the JAX index's."""
     M, K, Ds, n = 16, 16, 4, 600
     x = rng.normal(size=(n, M * Ds)).astype(np.float32)
     jidx = JIndex.build(x, x, M=M, K=K, max_iters=10)
     idx = DeltaPQIndex(jidx.codewords, jidx.codes,
                        engine="fused_compressed", device=CPU)
     assert idx.tree is not None and idx._stream is None
-    with pytest.raises(NotImplementedError, match="A3"):
-        idx.search(x[:8] + 0.01, top_k=5)
+    jc = JIndex(jidx.codewords, jidx.codes, engine="fused_compressed")
+    for top_k in (5, 100):
+        _check_search(jc, idx, x[:8] + 0.01, top_k)
+    eng = idx._fused_engine
+    assert eng.precision == "bf16" and eng.row_data.shape[1] == 2
+    assert np.array_equal(eng.tiles.row_data, jc._fused_engine.tiles.row_data)
+    assert idx.stats() == jc.stats()
+    assert "bytes_per_vec" not in idx.stats()
+    assert "delta_tile_bytes_per_vec" in idx.stats()
     jidx.engine = "xla"
-    for engine in ("pallas", "fused", "fused_dedup"):
+    for engine in ("pallas", "fused", "fused_codes", "fused_dedup"):
         idx = DeltaPQIndex(jidx.codewords, jidx.codes, engine=engine,
                            device=CPU)
         _check_search(jidx, idx, x[:8] + 0.01, 5)
-    assert "bytes_per_vec" not in idx.stats()
+    # on a card "auto" picks the compressed tier for these codes
+    assert idx._resolve_auto("cuda") == "fused_dedup"     # 600 rows
+    from deltapq_tpu_torch.ops.fused import DedupCompressedEngine as D
+    old = D.EXACT_ALL_MAX_ROWS
+    try:
+        D.EXACT_ALL_MAX_ROWS = 10
+        assert idx._resolve_auto("cuda") == "fused_compressed"
+    finally:
+        D.EXACT_ALL_MAX_ROWS = old
 
 
 def test_index_fused_dedup_engine(built, small_dataset):

@@ -22,7 +22,8 @@ from deltapq_tpu_torch.ops.adc import adc_query_topk, pad_codes
 from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
-CONFIGS = {"m8k256": (8, 256, 4), "m4k16": (4, 16, 4)}
+CONFIGS = {"m8k256": (8, 256, 4), "m4k16": (4, 16, 4),
+           "m16k16": (16, 16, 4)}     # two groups, two mask planes
 N, B, TOPK = 3000, 64, 10
 
 
@@ -91,7 +92,8 @@ def test_int8_host_operands_equal(case):
     assert np.array_equal(peng.cwbd.numpy(), np.asarray(jeng.cwbd))
     _, jq, _, ju, jeq = case["jops"]["int8"]
     qop, uq, eq = _port_ops(case, "int8")
-    assert qop.dtype == torch.int8 and qop.shape[0] == jeng.d_pad
+    G, _, Dg_pad = fk.group_geometry(M, Ds)    # d_pad for one group
+    assert qop.dtype == torch.int8 and qop.shape[0] == G * Dg_pad
     assert np.array_equal(qop.numpy(), np.asarray(jq))
     assert np.array_equal(uq.numpy(), np.asarray(ju))
     assert np.array_equal(eq.numpy(), np.asarray(jeq))

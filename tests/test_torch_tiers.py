@@ -23,7 +23,8 @@ from _torch_port import (CPU, assert_ids_carry_dists, assert_ids_up_to_ties,
                          codebook, structured_codes)
 
 CONFIGS = {"m8k256": (8, 256, 4), "m4k32": (4, 32, 4),
-           "m8k64ds16": (8, 64, 16)}
+           "m8k64ds16": (8, 64, 16),
+           "m16k16": (16, 16, 4)}     # two groups, two mask planes
 N, B, TOPK = 5000, 64, 10
 
 
