@@ -15,7 +15,9 @@ Phases, each timed:
 4. each kernel against its plain PyTorch version on the full tiles at
    B=512: the codes echo exact, the subtile mins within
    4e-6 * (max pre + 2 max|u*cross|), the rerank bit-equal on a
-   cap-rung-sized candidate set (S = 65,536); times from CUDA events;
+   cap-rung-sized candidate set (S = 65,536); times from CUDA events; B1
+   also at B=64 on the same tiles (one query block: a block's fixed work
+   is all there is to hide), its mins equal to the first 64 columns;
 5. engine: ``FusedCompressedEngine(precision="int16")``, warmup, then
    timed batches of 512 top-10 queries, each held to the plain exact
    scan ``adc_query_topk`` over the same table: distances bit-equal, ids
@@ -31,7 +33,10 @@ Phases, each timed:
    4096-row tiles), each against its plain version (bf16 scans within
    2e-5 * (max pre + 2 sqrt(max pre) max ||q||), int16 within 4e-6 *
    (max pre + 2 max|u*cross|), echoes exact, ADC top-k bit-equal) and
-   timed with CUDA events beside the plain version;
+   timed with CUDA events beside the plain version; B1's int16 mins equal
+   B3's bit for bit (B3 runs the CUDA-core tail over the same rows, so its
+   time is the earlier design's); B4 beside one ``torch.mm`` of the same
+   operands (``library_ms``: the cross product alone);
 7. index: ``DeltaPQIndex`` over phase 3's codewords and codes (no second
    learn), five timed B=512 top-10 batches each for ``auto`` (->
    ``fused_compressed`` at bf16), ``fused``, ``fused_codes`` and
@@ -42,7 +47,8 @@ Phases, each timed:
    are set to 0 before each path and read after it: each path must have
    launched its own scan kernel, and every fused tier the rerank kernel;
 8. int8 and slot-tile kernels on phase 3's codes at B=512: B1 and B3 in
-   int8 mode against their plain versions (mins bit-equal, echo exact),
+   int8 mode against their plain versions (mins bit-equal, echo exact)
+   and against each other (bit for bit),
    B5 on the slot tiles of the same DFS order at int8 (bit-equal), int16
    and bf16 (within the bounds of phases 4 and 6), its echo equal to the
    codes; each timed beside its plain version; the slot tiles' S, Cap
@@ -81,7 +87,9 @@ Phases, each timed:
    on the card and its peak device memory.
 
 13. the pipelined stream kernel B7 on phase 3's tiles at B=512, int8 and
-   bf16: mins and codes equal to B1's bit for bit and held to the plain
+   bf16: codes equal to B1's, mins equal bit for bit at int8 and within
+   the bound of phase 6 at bf16 (B7 sums on the CUDA cores, B1 on the
+   tensor cores), and held to the plain
    version (int8 bit-equal, bf16 within the bound of phase 6), timed in
    turns with B1 (B1, B7, B7, B1); then ``FusedCompressedEngine(
    pipelined=True)`` at int8 and bf16, warmup and five timed batches each,
@@ -92,7 +100,8 @@ Phases, each timed:
    N = 1,000,000, the M=16 DeltaTree, its DFS order, B/vec (DFS, lexsort,
    plain 16); B1, B3 and B5 in their three modes and B4 against their
    plain versions (codes exact, int8 bit-equal, int16 and bf16 within the
-   bounds of phases 4 and 6), timed; every one of those engines then
+   bounds of phases 4 and 6), timed, B4 beside its ``torch.mm`` yardstick;
+   every one of those engines then
    answers the benchmark's batch through ``query`` and is verified as
    ``bench_gist.verify`` does (distances allclose to ``adc_query_topk``,
    ids up to f64-audited ties, 0 real divergences), and the decoded,
@@ -123,7 +132,7 @@ import time
 import numpy as np
 import torch
 
-from deltapq_tpu_torch import bench_engines, bench_gist
+from deltapq_tpu_torch import bench_engines, bench_gist, bench_stream
 from deltapq_tpu_torch.bigscale import (BigCompressedIndex,
                                         ChunkedCompressedEngine,
                                         encode_stream)
@@ -156,6 +165,7 @@ from deltapq_tpu_torch.tree.layout import build_layout
 N = 1 << 20
 D, M, K = 128, 8, 256
 B, TOP_K = 512, 10
+B_SMALL = 64           # phase 4: one query block of B1
 N_BATCHES = 5
 S_RERANK = 65536
 TRAIN = 20000
@@ -375,6 +385,23 @@ def main() -> int:
             M, u=uq, mode="int16"), 2)
         log(f"{tag} B1 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
             f"(N={N}, B={B})")
+        # one query block a tile: a block's fixed work (codebook load,
+        # decode) is all that 64 queries leave to hide
+        q64 = qop[:, :B_SMALL].contiguous()
+        u64 = uq[..., :B_SMALL].contiguous()
+
+        def scan64():
+            return fk.fused_stream_mins(
+                q64, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
+                M, u=u64, compact=eng.compact, mode="int16")
+
+        check(torch.equal(scan64()[0], mins[:, :B_SMALL]),
+              "B1 at B=64 != the first 64 columns at B=512")
+        ms64 = cuda_ms(scan64, 20)
+        log(f"{tag} B1 at B={B_SMALL} on the same tiles {ms64:.4f} ms/call "
+            f"(x{B // B_SMALL} = {ms64 * (B // B_SMALL):.4f} against "
+            f"{ms:.4f} at B={B}); mins equal to the first {B_SMALL} columns "
+            f"at B={B}")
         kernels["stream_mins"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **scan_bound("int16", mins, B, D, engine_operands(eng, qop, uq),
@@ -567,6 +594,13 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
             tol = (bf16_tol if prec == "bf16" else int16_tol)(pre_max,
                                                               cross_max)
             err = mins_err(mins, ref_m, tol, f"B3 codes_mins {prec}")
+            if prec == "int16":
+                # the codes kernel runs the CUDA-core tail over the same
+                # rows: the integer products are exact in any order
+                check(torch.equal(eng.scan(qop, uq)[0], mins),
+                      "B1 int16 mins != B3's on the same rows")
+                log("B1 int16 (tensor cores) = B3 int16 (CUDA cores) bit "
+                    "for bit on the same rows")
             ms = cuda_ms(lambda: e.scan(qop, uq), 20)
             plain_ms = cuda_ms(lambda: fk.fused_codes_mins_ref(
                 *args, u=uq, mode=prec), 2)
@@ -590,11 +624,16 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
         ms = cuda_ms(lambda: e.scan(qop, uq), 20)
         plain_ms = cuda_ms(lambda: fk.fused_decoded_mins_ref(qop, e.xt, N),
                            2)
-        log(f"{tag} B4 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
-            f"(N={N}, B={B}, tile {DECODED_TILE})")
+        library_ms = cuda_ms(lambda: bench_stream.mm_yardstick(e.xt, qop),
+                             20)
+        log(f"{tag} B4 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, "
+            f"library {library_ms:.4f} ms/call (one torch.mm: the cross "
+            f"product alone, no norms, no minima) (N={N}, B={B}, tile "
+            f"{DECODED_TILE})")
         kernels["decoded_mins"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            **scan_bound("bf16", mins, B, D, (qop, e.xt), (mins,)))
+            **{**scan_bound("bf16", mins, B, D, (qop, e.xt), (mins,)),
+               "library_ms": library_ms})
         del e, mins, ref_m
 
         codes_p = torch.from_numpy(pad_codes(codes, ADC_TILE)).to(dev)
@@ -746,13 +785,15 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
     return launches, dup
 
 
-def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None, reps=20):
+def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None, reps=20,
+                  library=None):
     """One engine's scan kernel against its plain version on the same
     operands: echo exact, mins bit-equal (``tol`` None) or within
     ``tol(pre_max, cross_max)``; both timed with CUDA events.  ``plain``
     maps (qop, uq) to the plain version's (mins, echo, pre_max,
     cross_max).  The bound counts the kernel's own batch (``q`` padded as
-    the engine pads it).  Returns the kernel's echo."""
+    the engine pads it).  ``library`` maps (qop, uq) to one PyTorch call
+    timed as the kernel's yardstick.  Returns the kernel's echo."""
     table, qop, uq, cert, b = e.prepare(q)
     mins, echo = e.scan(qop, uq)
     ref_m, ref_c, pre_max, cross_max = plain(qop, uq)
@@ -765,12 +806,16 @@ def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None, reps=20):
         err = mins_err(mins, ref_m, tol(pre_max, cross_max), label)
     ms = cuda_ms(lambda: e.scan(qop, uq), reps)
     plain_ms = cuda_ms(lambda: plain(qop, uq), 2)
+    bnd = scan_bound(getattr(e, "precision", "bf16"), mins, qop.shape[1],
+                     e.D, engine_operands(e, qop, uq), (mins, echo))
+    lib = ""
+    if library is not None:
+        bnd["library_ms"] = cuda_ms(lambda: library(qop, uq), reps)
+        lib = (f", library {bnd['library_ms']:.4f} ms/call (one torch.mm: "
+               f"the cross product alone, no norms, no minima)")
     log(f"{tag} {label} {ms:.4f} ms/call, plain {plain_ms:.4f} "
-        f"ms/call (N={e.n_valid}, B={qop.shape[1]})")
-    kernels[key] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **scan_bound(getattr(e, "precision", "bf16"), mins, qop.shape[1],
-                     e.D, engine_operands(e, qop, uq), (mins, echo)))
+        f"ms/call{lib} (N={e.n_valid}, B={qop.shape[1]})")
+    kernels[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
     return echo
 
 
@@ -788,14 +833,19 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                           qop, e.cwbd, e.row_data, e.vals, e.meta,
                           e.n_valid, M, u=uq, mode="int8"),
                       kernels, "stream_mins_int8")
-        del e
+        e1 = e
         e = FusedCodesEngine(cw, codes, order=order, precision="int8")
         scan_vs_plain(tag, "B3 codes_mins int8", e, q,
                       lambda qop, uq: fk.fused_codes_mins_ref(
                           qop, e.cwbd, e.codes, e.n_valid, u=uq,
                           mode="int8"),
                       kernels, "codes_mins_int8")
-        del e
+        _, qop, uq, _, _ = e.prepare(q)
+        check(torch.equal(e1.scan(qop, uq)[0], e.scan(qop, uq)[0]),
+              "B1 int8 mins != B3's on the same rows")
+        log("B1 int8 (tensor cores) = B3 int8 (CUDA cores) bit for bit on "
+            "the same rows")
+        del e, e1
 
         t = time.perf_counter()
         dt = build_delta_tiles(codes[order])
@@ -936,11 +986,17 @@ def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
             table, qop, uq, cert, b = e1.prepare(q)
             m1, c1 = e1.scan(qop, uq)
             m7, c7 = e7.scan(qop, uq)
-            check(torch.equal(c7, c1) and torch.equal(m7, m1),
-                  f"B7 {prec}: mins or codes differ from B1's")
+            check(torch.equal(c7, c1), f"B7 {prec}: codes differ from B1's")
             ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
                 qop, e7.cwbd, e7.row_data, e7.vals, e7.meta, e7.n_valid, M,
                 u=uq, mode=prec, pipelined=True)
+            if tol is None:
+                # integer products: B7's CUDA-core tail and B1's tensor-core
+                # tail give the same bits
+                check(torch.equal(m7, m1), f"B7 {prec}: mins differ from B1's")
+            else:
+                mins_err(m7, m1, tol(pre_max, cross_max),
+                         f"B7 {prec} against B1 (f32 sums in two orders)")
             check(torch.equal(c7, ref_c), f"B7 {prec} echo != plain decode")
             if tol is None:
                 check(torch.equal(m7, ref_m), f"B7 {prec} mins not bit-equal")
@@ -957,7 +1013,8 @@ def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
                 qop, e7.cwbd, e7.row_data, e7.vals, e7.meta, e7.n_valid, M,
                 u=uq, mode=prec, pipelined=True), 2)
             ms = (b7a + b7b) / 2
-            log(f"{tag} B7 {prec}: mins and codes equal to B1's bit for bit, "
+            log(f"{tag} B7 {prec}: codes equal to B1's, mins "
+                f"{'equal bit for bit' if tol is None else 'within tol'}; "
                 f"{'bit-equal to' if tol is None else 'within tol of'} the "
                 f"plain version; B7 {b7a:.4f} / {b7b:.4f} ms/call against "
                 f"B1 {b1a:.4f} / {b1b:.4f} (B7 / B1 = "
@@ -1078,9 +1135,11 @@ def phase14_gist(dev, tag, kernels, launches):
             key = (kernel if kernel == "decoded_mins"
                    else fk._launch_name(kernel, prec))
             name = f"{key}@gist"
-            echo = scan_vs_plain(tag, f"GIST {label} {prec}", e, queries,
-                                 plain_of(e), kernels, name, tols[prec],
-                                 reps=5)
+            echo = scan_vs_plain(
+                tag, f"GIST {label} {prec}", e, queries, plain_of(e),
+                kernels, name, tols[prec], reps=5,
+                library=(lambda qop, uq: bench_stream.mm_yardstick(e.xt, qop))
+                if kernel == "decoded_mins" else None)
             check(np.array_equal(echo[:GIST_N].cpu().numpy(), codes_scan),
                   f"GIST {label} {prec}: echo != the codes")
             del echo

@@ -19,23 +19,38 @@
 //   output   min over each 32-row subtile -> mins[t*32 + s, b]; the
 //            decoded codes -> codes_out[t*1024 + r, m] (query block 0).
 //
-// What bounds it on an H100: the dot products.  int16: 4 int8 MACs per
-// (row, query, dim) = 2.7e11 MACs at N=1M, B=512, D=128 -- about 6.7e10
-// __dp4a; int8: a third of that (one __dp4a chain per row and query
-// against int16's three); bf16: 6.7e10 f32 fma plus two bf16 unpacks per
-// pair.  The stream itself is ~5 MB and the mins output 64 MB: memory is
-// not the bound.
+// What bounds it on an H100: the dot products, 2 N B D operations (x4 at
+// int16: four int8 digit products), 0.07-0.28 ms at N=1M, B=512, D=128 at
+// the tensor cores' rate and 20-50 times that on the CUDA cores, where
+// they ran as __dp4a and f32 fma.  Next to them stands a block's fixed
+// work: 40-80 KB of codebook and norms into shared memory and the tile's
+// decode (prefix scans and barriers).  The stream itself is ~5 MB and the
+// mins output 64 MB: memory is not the bound.
 //
 // Design: the TPU used one-hot matmuls in place of gathers (stream
 // value window, codes -> x^ decode); here each is a plain gather from
-// global or shared memory.  One block per (tile, query block): the block
-// decodes its tile into shared memory (tile_decode.cuh: 1024 x 8 code
-// bytes, or 1024 x 16 with two mask planes at M > 8) and hands it to the
-// shared tail.  At M <= 8 and D <= 128 the tail keeps the compact
-// codebook, the per-codeword norms and 64 queries in shared memory; at
-// the GIST shape (M=16, D=960) it takes the wide form described in
-// scan_tail.cuh (codebook in global memory, 32 queries staged, the row
-// walked chunk by chunk).  wgmma / tensor cores are later work.
+// global or shared memory.
+//   * Narrow shapes (M <= 8, M*Ds <= 128: the main path).  The products
+//     run on the tensor cores through the MmaTail structs of
+//     scan_tail.cuh (mma.sync m16n8k32 s8 for int8 and int16, m16n8k16
+//     bf16; the A operand gathered from the compact codebook in shared
+//     memory by the row's codes, subtile minima in registers).  The grid
+//     is persistent -- as many blocks as the card holds at once (the
+//     occupancy API says how many), block b walking tiles b, b + grid, ...
+//     -- so the codebook is loaded once a block, not once per (tile, query
+//     block), and a tile is decoded once, by the block that then meets
+//     every query block of the batch with it (the queries, 9-18 KB, are
+//     restaged from the transposed operand with 16-byte copies) and that
+//     alone echoes its codes.
+//   * Any other shape (up to M=16, D=960, the GIST shape): one block per
+//     (tile, 32-query block) with the wide CUDA-core tails of
+//     scan_tail.cuh (codebook in global memory, the row walked chunk by
+//     chunk); their gather comes from global memory and wants a design of
+//     its own.
+// The codes kernel, the slot-tile kernel and the pipelined stream kernel
+// keep the CUDA-core narrow tails (Int16Tail, Int8Tail, Bf16Tail), so the
+// codes kernel on this kernel's echo is the old design's time and, at
+// int8 and int16, its bits.
 
 #include "tile_decode.cuh"
 
@@ -94,46 +109,115 @@ int launch(const void* q, const void* cw, const void* nrm, const void* rd,
   return (int)cudaGetLastError();
 }
 
+// The narrow shapes: one block walks tiles blockIdx.x, blockIdx.x + grid,
+// ... with the codebook in shared memory for its whole life; it decodes a
+// tile once (and is the only block to echo its codes), then meets every
+// query block of the batch, restaging the queries (qt, the transposed
+// operand) each time.
+template <class Tail>
+__global__ void __launch_bounds__(THREADS, 2)
+stream_mins_mma_kernel(const void* __restrict__ qt,
+                       const void* __restrict__ cw,
+                       const void* __restrict__ nrm,
+                       const uint8_t* __restrict__ row_data,  // [nT, 1, TILE]
+                       const uint8_t* __restrict__ vals,
+                       const int* __restrict__ meta,          // [2, nT]
+                       const float* __restrict__ u,
+                       float* __restrict__ mins,              // [nT*32, B]
+                       uint8_t* __restrict__ codes_out,       // [nT*TILE, M]
+                       int B, int Dg, int nT, int n_valid, int M, int K,
+                       int Ds) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Scratch sc = scratch<MMAX>(smem + Tail::layout(M, K, Ds).total);
+  Tail::load_codebook(smem, cw, nrm, M, K, Ds);
+  for (int t = blockIdx.x; t < nT; t += gridDim.x) {
+    __syncthreads();   // the last scan has read the code tile and queries
+    stream_decode<MMAX>(row_data + (size_t)t * TILE, vals,
+                        (long long)meta[t] * 1024 + meta[nT + t], sc, M,
+                        codes_out + (size_t)t * TILE * M);
+    for (int qb0 = 0; qb0 < B; qb0 += Tail::QBLK) {
+      if (qb0) __syncthreads();   // the last scan has read the queries
+      Tail::load_queries(smem, qt, u, B, Dg, qb0, M, K, Ds);
+      __syncthreads();
+      Tail::scan(smem, sc.codes, mins, t, B, qb0, n_valid, M, K, Ds);
+    }
+  }
+}
+
+template <class Tail>
+int launch_mma(const void* qt, const void* cw, const void* nrm,
+               const void* rd, const void* vals, const void* meta,
+               const void* u, void* mins, void* codes_out, int B, int Dg,
+               int nT, int n_valid, int M, int K, int Ds, void* stream) {
+  const size_t smem = Tail::layout(M, K, Ds).total + scratch_bytes<MMAX>();
+  auto kernel = stream_mins_mma_kernel<Tail>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, occ = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+      != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &occ, kernel, THREADS, smem)) != cudaSuccess)
+    return (int)e;
+  if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int resident = sms * occ;
+  kernel<<<nT < resident ? nT : resident, THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      qt, cw, nrm, static_cast<const uint8_t*>(rd),
+      static_cast<const uint8_t*>(vals), static_cast<const int*>(meta),
+      static_cast<const float*>(u), static_cast<float*>(mins),
+      static_cast<uint8_t*>(codes_out), B, Dg, nT, n_valid, M, K, Ds);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // mode 0: int16 (Ds % 4 == 0); mode 1: bf16 (Ds % 2 == 0); mode 2: int8
 // (Ds % 4 == 0); M <= 16; Dg is the rows of one plane of q (checked by the
-// Python wrapper).  M <= 8 with M*Ds <= 128 takes the narrow tails, any
-// other shape the wide ones.  Returns cudaGetLastError() after the launch
-// (or the error of a shared-memory request the card refuses).
-extern "C" int stream_mins_launch(const void* q, const void* cw,
-                                  const void* nrm, const void* row_data,
-                                  const void* vals, const void* meta,
-                                  const void* u, void* mins, void* codes_out,
-                                  int B, int Dg, int nT, int n_valid, int M,
-                                  int K, int Ds, int mode, void* stream) {
+// Python wrapper).  M <= 8 with M*Ds <= 128 takes the tensor-core tails and
+// reads its queries from qt [B, planes*Dg], the transposed q; any other
+// shape takes the wide tails and reads q.  Returns cudaGetLastError() after
+// the launch (or the error of a shared-memory request the card refuses).
+extern "C" int stream_mins_launch(const void* q, const void* qt,
+                                  const void* cw, const void* nrm,
+                                  const void* row_data, const void* vals,
+                                  const void* meta, const void* u, void* mins,
+                                  void* codes_out, int B, int Dg, int nT,
+                                  int n_valid, int M, int K, int Ds, int mode,
+                                  void* stream) {
   if (nT == 0 || B == 0) return (int)cudaSuccess;
   if (M < 1 || M > MSW) return (int)cudaErrorInvalidValue;
   const int D = M * Ds;
 #define STREAM_LAUNCH(T)                                                   \
   return launch<T>(q, cw, nrm, row_data, vals, meta, u, mins, codes_out, B, \
                    Dg, nT, n_valid, M, K, Ds, stream)
+#define STREAM_LAUNCH_MMA(T)                                                \
+  return launch_mma<T>(qt, cw, nrm, row_data, vals, meta, u, mins,          \
+                       codes_out, B, Dg, nT, n_valid, M, K, Ds, stream)
   if (M > MMAX || D > 128) {
     if (mode == 0) STREAM_LAUNCH(Int16Wide);
     if (mode == 1) STREAM_LAUNCH(Bf16Wide);
     if (mode == 2) STREAM_LAUNCH(Int8Wide);
+  } else if (qt == nullptr) {
+    return (int)cudaErrorInvalidValue;
   } else if (mode == 0) {
-    if (D <= 16) STREAM_LAUNCH(Int16Tail<4>);
-    if (D <= 32) STREAM_LAUNCH(Int16Tail<8>);
-    if (D <= 64) STREAM_LAUNCH(Int16Tail<16>);
-    if (D <= 128) STREAM_LAUNCH(Int16Tail<32>);
+    if (D <= 32) STREAM_LAUNCH_MMA(Int16Mma<8>);
+    if (D <= 64) STREAM_LAUNCH_MMA(Int16Mma<16>);
+    if (D <= 128) STREAM_LAUNCH_MMA(Int16Mma<32>);
   } else if (mode == 1) {
-    if (D <= 8) STREAM_LAUNCH(Bf16Tail<4>);
-    if (D <= 16) STREAM_LAUNCH(Bf16Tail<8>);
-    if (D <= 32) STREAM_LAUNCH(Bf16Tail<16>);
-    if (D <= 64) STREAM_LAUNCH(Bf16Tail<32>);
-    if (D <= 128) STREAM_LAUNCH(Bf16Tail<64>);
+    if (D <= 16) STREAM_LAUNCH_MMA(Bf16Mma<8>);
+    if (D <= 32) STREAM_LAUNCH_MMA(Bf16Mma<16>);
+    if (D <= 64) STREAM_LAUNCH_MMA(Bf16Mma<32>);
+    if (D <= 128) STREAM_LAUNCH_MMA(Bf16Mma<64>);
   } else if (mode == 2) {
-    if (D <= 16) STREAM_LAUNCH(Int8Tail<4>);
-    if (D <= 32) STREAM_LAUNCH(Int8Tail<8>);
-    if (D <= 64) STREAM_LAUNCH(Int8Tail<16>);
-    if (D <= 128) STREAM_LAUNCH(Int8Tail<32>);
+    if (D <= 32) STREAM_LAUNCH_MMA(Int8Mma<8>);
+    if (D <= 64) STREAM_LAUNCH_MMA(Int8Mma<16>);
+    if (D <= 128) STREAM_LAUNCH_MMA(Int8Mma<32>);
   }
 #undef STREAM_LAUNCH
+#undef STREAM_LAUNCH_MMA
   return (int)cudaErrorInvalidValue;
 }

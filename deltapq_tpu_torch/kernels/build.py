@@ -42,9 +42,9 @@ _I = ctypes.c_int
 #: C signatures: every pointer and the stream are ``c_void_p`` (a plain
 #: int would be cut to 32 bits), every size ``c_int``.
 SIGNATURES = {
-    # q, cw, nrm, row_data, vals, meta, u, mins, codes_out,
+    # q, qt, cw, nrm, row_data, vals, meta, u, mins, codes_out,
     # B, Dg, nT, n_valid, M, K, Ds, mode, stream
-    "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, cw, nrm, row_data, vals, meta, u, mins, codes_out,
     # B, Dg, nT, n_groups, n_valid, M, K, Ds, mode, stream
@@ -57,7 +57,7 @@ SIGNATURES = {
     # B, Dg, nT, n_valid, M, K, Ds, S, Cap, mode, stream
     "delta_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, xt, mins, B, D, n_rows, n_valid, stream
+    # qt, xt, mins, B, D, n_rows, n_valid, stream
     "decoded_mins_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # tab, codes, out_d, out_i, B, M, K, n_pad, tile_n, n_valid, top_k,
     # QC, code_bytes, prec, stream

@@ -8,7 +8,9 @@ module and a launch count in ``kernels.build.LAUNCHES``:
 
 * ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
   ``_stream_mins_kernel``): decode stream tiles, the scan, 32-row
-  subtile minima and the decoded-codes echo; with ``pipelined=True`` ->
+  subtile minima and the decoded-codes echo (M <= 8 with M*Ds <= 128:
+  products on the tensor cores, queries staged from
+  ``transpose_queries(q)``); with ``pipelined=True`` ->
   ``csrc/stream_mins_pipelined.cu`` (replaces
   ``_stream_mins_pipelined_kernel``): the same function, one block
   walking a run of tiles with the next tile's decode inside the scan;
@@ -20,7 +22,7 @@ module and a launch count in ``kernels.build.LAUNCHES``:
   slots, overflow bank), then the same scan tail;
 * ``fused_decoded_mins`` -> ``csrc/decoded_mins.cu`` (replaces
   ``_decoded_mins_kernel``): bf16 x^ . q with f32 sums over resident
-  decoded rows;
+  decoded rows, on the tensor cores (``wgmma``);
 * ``rerank_table_sums`` -> ``csrc/rerank.cu`` (replaces
   ``_rerank_kernel``): exact ascending-m f32 table sums.
 
@@ -421,6 +423,21 @@ def decode_stream_tiles_torch(row_data: torch.Tensor, vals: torch.Tensor,
     return H.reshape(nt * T, M)
 
 
+def narrow_shape(M: int, Ds: int) -> bool:
+    """Whether the scan kernels take their narrow tails (one subspace
+    group whose row fits a thread's registers) for this shape."""
+    return M <= 8 and M * Ds <= 128
+
+
+def transpose_queries(q: torch.Tensor) -> torch.Tensor:
+    """The scan kernels' query operand q [planes*Dg, B] -> [B, planes*Dg]
+    contiguous: a query's values lie side by side (int16: its a-digits,
+    then its b-digits), so the stream kernel stages a block of queries
+    with whole 16-byte copies and the decoded kernel reads q [D, B] as
+    the K-major operand [B, D] of its tensor-core product."""
+    return q.t().contiguous()
+
+
 def _check_stream_args(q, cwbd, row_data, M, mode, pipelined=False
                        ) -> int:
     code = _scan_mode(q, cwbd, M, mode)
@@ -519,15 +536,20 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
 
         return _launch_scan("stream_mins_pipelined", mode, code, q, cwbd,
                             M, compact, u, nt, launch), codes
-    mins = _launch_scan(
-        "stream_mins", mode, code, q, cwbd, M, compact, u, nt,
-        lambda cw, nrm, u_, Ds, out, stream:
-        build.library().stream_mins_launch(
-            q.data_ptr(), cw, nrm, row_data.data_ptr(), vals.data_ptr(),
-            meta.data_ptr(), u_, out, codes.data_ptr(), B,
-            D2 // (2 if code == 0 else 1), nt, int(n_valid), M, K, Ds,
-            code, stream))
-    return mins, codes
+
+    def launch(cw, nrm, u_, Ds, out, stream):
+        # the narrow shapes stage their queries from the transposed
+        # operand; it lives until the launch has been enqueued, and the
+        # allocator hands its memory on only in stream order
+        qt = transpose_queries(q) if narrow_shape(M, Ds) else None
+        return build.library().stream_mins_launch(
+            q.data_ptr(), None if qt is None else qt.data_ptr(), cw, nrm,
+            row_data.data_ptr(), vals.data_ptr(), meta.data_ptr(), u_, out,
+            codes.data_ptr(), B, D2 // (2 if code == 0 else 1), nt,
+            int(n_valid), M, K, Ds, code, stream)
+
+    return _launch_scan("stream_mins", mode, code, q, cwbd, M, compact, u,
+                        nt, launch), codes
 
 
 # --------------------------------------------------------------------------
@@ -738,15 +760,19 @@ def fused_decoded_mins(q: torch.Tensor, xt: torch.Tensor, n_valid: int
                     dict(q=torch.bfloat16, xt=torch.bfloat16), q.device)
     D, B = q.shape
     n_rows = xt.shape[0] * xt.shape[1]
-    if D % 8 or D > 2048 or (D > 128 and n_rows > 65535 * TILE):
+    if D % 8 or D > 2048:
         raise NotImplementedError(
-            "the decoded kernel takes D % 8 == 0, D <= 2048, and above "
-            "D = 128 at most 65,535 x 1024 rows")
+            "the decoded kernel takes D % 8 == 0 and D <= 2048")
+    # the kernel reads both operands with a row's D values side by side
+    qt = transpose_queries(q)
+    if qt.data_ptr() % 16 or xt.data_ptr() % 16:
+        raise ValueError("the decoded kernel copies 16-byte pieces: q and "
+                         "xt must be 16-byte aligned")
     mins = torch.empty((n_rows // SUB, B), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.library().decoded_mins_launch(
-        q.data_ptr(), xt.data_ptr(), mins.data_ptr(), B, D, n_rows,
+        qt.data_ptr(), xt.data_ptr(), mins.data_ptr(), B, D, n_rows,
         int(n_valid), stream)
     build.check(err, "decoded_mins")
     build.count("decoded_mins")

@@ -694,8 +694,8 @@ def test_index_m16_top100_on_card(cuda, engine):
                                         (1000, 8, 16, 4, 5)])
 def test_pipelined_stream_kernel_equals_stream_kernel(cuda, precision, n, M,
                                                       K, Ds, B):
-    """B7 against B1 bit for bit (mins and codes) and against the plain
-    version; 300,000 rows give 293 tiles (a prime, so no run length of
+    """B7 against B1 (codes equal; mins bit for bit at int8, within the
+    bf16 bound at bf16) and against the plain version; 300,000 rows give 293 tiles (a prime, so no run length of
     the launch but 1 divides it; eight query blocks give runs of 2 or 3
     tiles), with n_valid inside the last tile; 1000 rows give a single
     tile."""
@@ -717,14 +717,16 @@ def test_pipelined_stream_kernel_equals_stream_kernel(cuda, precision, n, M,
     assert after[key] == before[key] + 1
     assert after[fk._launch_name("stream_mins", precision)] == \
         before[fk._launch_name("stream_mins", precision)]
-    assert torch.equal(c7, c1) and torch.equal(m7, m1)
+    assert torch.equal(c7, c1)
     ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
         qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
         u=uq, mode=precision, pipelined=True)
     assert torch.equal(c7, ref_c)
     if precision == "int8":
-        assert torch.equal(m7, ref_m)
+        assert torch.equal(m7, m1) and torch.equal(m7, ref_m)
     else:
+        # B7 sums on the CUDA cores, B1 on the tensor cores
+        _assert_mins(m7, m1, _bf16_tol(pre_max, cross_max))
         _assert_mins(m7, ref_m, _bf16_tol(pre_max, cross_max))
     d, i = pipe.query(q, top_k=10)
     d1, i1 = eng.query(q, top_k=10)
@@ -742,3 +744,124 @@ def test_pipelined_refuses_int16_and_m16_on_card(cuda):
     with pytest.raises(NotImplementedError):
         FusedCompressedEngine(cw16, _codes(rng, 2000, 16, 16),
                               precision="int8", device=cuda, pipelined=True)
+
+
+# ---- the tensor-core kernels: B1's narrow tails and B4 ---------------------
+
+def _cut_batch(eng, q):
+    """The engine's scan operands for exactly ``len(q)`` queries
+    (``prepare`` pads the batch to a multiple of 128)."""
+    _, qop, uq, _, b = eng.prepare(q)
+    qop = qop[:, :b].contiguous()
+    return qop, None if uq is None else uq[..., :b].contiguous()
+
+
+#: (M, K, Ds): D = 16, 32, 64 and 128
+MMA_SHAPES = [(4, 16, 4), (8, 16, 4), (4, 256, 16), (8, 256, 16)]
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 200, 513])
+@pytest.mark.parametrize("n", [2500, 3072])
+@pytest.mark.parametrize("M,K,Ds", MMA_SHAPES)
+def test_stream_mma_tails_match_plain_and_codes_kernel(cuda, M, K, Ds, n, B,
+                                                       precision):
+    """B1 on the tensor cores at ragged shapes: batches that fill no
+    query block (or one and a bit), n_valid inside a tile and on a tile
+    boundary.  Codes exact; int8 bit-equal to the plain version, int16 and
+    bf16 inside their bounds; and at int8 and int16 the mins equal, bit
+    for bit, those of the codes kernel, which runs the CUDA-core tail over
+    the same rows."""
+    rng = np.random.default_rng(M * 1000 + Ds * 10 + B + n)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    qop, uq = _cut_batch(eng, q)
+    assert qop.shape[1] == B
+    key = fk._launch_name("stream_mins", precision)
+    before = build.launch_counts()[key]
+    mins, echo = fk.fused_stream_mins(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, compact=eng.compact, mode=precision)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, mode=precision)
+    assert torch.equal(echo, ref_c)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+    m3, _ = fk.fused_codes_mins(qop, eng.cwbd, echo, eng.n_valid, u=uq,
+                                compact=eng.compact, mode=precision)
+    if precision == "bf16":
+        _assert_mins(mins, m3, _bf16_tol(pre_max, cross_max))
+    else:
+        assert torch.equal(mins, m3)
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+def test_stream_mma_tails_many_tiles(cuda, precision):
+    """More tiles than the card holds blocks at once (300 tiles of a
+    near-distinct code set, 400 queries): a block walks several tiles and
+    several query blocks."""
+    rng = np.random.default_rng(41)
+    n, M, K, Ds, B = 307000, 8, 256, 16, 400
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    qop, uq = _cut_batch(eng, q)
+    mins, echo = eng.scan(qop, uq)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    m3, _ = fk.fused_codes_mins(qop, eng.cwbd, echo, eng.n_valid, u=uq,
+                                compact=eng.compact, mode=precision)
+    if precision == "bf16":
+        _, _, pre_max, cross_max = fk.fused_stream_mins_ref(
+            qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid,
+            M, mode="bf16")
+        _assert_mins(mins, m3, _bf16_tol(pre_max, cross_max))
+    else:
+        assert torch.equal(mins, m3)
+
+
+#: (tile, tiles, n_valid, B): n_valid inside a tile and on its boundary,
+#: one 8192-row tile, 480 rows (no multiple of the kernel's 256-row block
+#: tile), batches of 1, 8, 200 and 513
+DECODED_CASES = [(1024, 3, 2500, 200), (8192, 1, 8192, 513),
+                 (96, 5, 470, 1), (1024, 2, 2048, 8)]
+
+
+@pytest.mark.parametrize("tile,nt,n_valid,B", DECODED_CASES)
+@pytest.mark.parametrize("D", [16, 64, 128, 136, 960, 1024, 2048])
+def test_decoded_mma_kernel_matches_plain(cuda, D, tile, nt, n_valid, B):
+    """B4 on the tensor cores: D below one slice, D % 16 == 8, D over many
+    slices; ragged rows, n_valid and batch."""
+    g = torch.Generator(device=cuda).manual_seed(D + tile + B)
+    xt = (torch.randn((nt, tile, D), generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    q = (torch.randn((D, B), generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    before = build.launch_counts()["decoded_mins"]
+    mins = fk.fused_decoded_mins(q, xt, n_valid)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["decoded_mins"] == before + 1
+    assert mins.shape == (nt * tile // 32, B)
+    ref_m, pre_max, cross_max = fk.fused_decoded_mins_ref(q, xt, n_valid)
+    _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))
+
+
+def test_decoded_mma_kernel_many_row_tiles(cuda):
+    """More block tiles than the card holds blocks at once, so a block
+    walks several with its copy ring running across them."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    D, B, n = 72, 300, 150000
+    xt = (torch.randn((147, 1024, D), generator=g, device=cuda)).to(
+        torch.bfloat16)
+    q = torch.randn((D, B), generator=g, device=cuda).to(torch.bfloat16)
+    mins = fk.fused_decoded_mins(q, xt, n)
+    ref_m, pre_max, cross_max = fk.fused_decoded_mins_ref(q, xt, n)
+    _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))

@@ -180,7 +180,7 @@ def test_fused_search_with_deletes(built, small_dataset):
     assert not np.isin(i0[0, :5], i[0]).any()
 
 
-def test_index_m16_compressed_raises(rng):
+def test_index_m16_compressed_matches_jax(rng):
     """M=16: the tree builds and there is no DTC stream, as in the JAX
     package; the compressed tier (two mask planes, two subspace groups)
     serves the index as every other tier does, and nothing raises any
