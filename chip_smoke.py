@@ -33,10 +33,11 @@ Phases, each timed:
    4096-row tiles), each against its plain version (bf16 scans within
    2e-5 * (max pre + 2 sqrt(max pre) max ||q||), int16 within 4e-6 *
    (max pre + 2 max|u*cross|), echoes exact, ADC top-k bit-equal) and
-   timed with CUDA events beside the plain version; B1's int16 mins equal
-   B3's bit for bit (B3 runs the CUDA-core tail over the same rows, so its
-   time is the earlier design's); B4 beside one ``torch.mm`` of the same
-   operands (``library_ms``: the cross product alone);
+   timed with CUDA events beside the plain version, the bound and B1's
+   time in the same mode on the same rows (phases 4 and 6); B1's int16
+   mins equal B3's bit for bit (both on ``mma.sync``, B3 without the
+   decode); B4 beside one ``torch.mm`` of the same operands
+   (``library_ms``: the cross product alone);
 7. index: ``DeltaPQIndex`` over phase 3's codewords and codes (no second
    learn), five timed B=512 top-10 batches each for ``auto`` (->
    ``fused_compressed`` at bf16), ``fused``, ``fused_codes`` and
@@ -51,8 +52,10 @@ Phases, each timed:
    and against each other (bit for bit),
    B5 on the slot tiles of the same DFS order at int8 (bit-equal), int16
    and bf16 (within the bounds of phases 4 and 6), its echo equal to the
-   codes; each timed beside its plain version; the slot tiles' S, Cap
-   and B/vec; then the int8 codes tier through ``FusedCodesEngine``;
+   codes, its mins equal to B1's on the same rows bit for bit at int8 and
+   int16; each timed beside its plain version, its bound and B1's time in
+   the same mode; the slot tiles' S, Cap and B/vec; then the int8 codes
+   tier through ``FusedCodesEngine``;
 9. slot-tile engine: ``FusedCompressedEngine(fmt="slots")`` at int16 and
    int8, warmup then five timed B=512 top-10 batches each, and two at
    bf16, every batch held to ``adc_query_topk``; a ``save`` ->
@@ -101,6 +104,11 @@ Phases, each timed:
    plain 16); B1, B3 and B5 in their three modes and B4 against their
    plain versions (codes exact, int8 bit-equal, int16 and bf16 within the
    bounds of phases 4 and 6), timed, B4 beside its ``torch.mm`` yardstick;
+   B3 and B5 (the gathered ``wgmma`` tail) held to B1 on the same rows
+   (its CUDA-core wide tails: the earlier design, timed in the same run)
+   bit for bit at int8 and int16; then B3 and B1 again on the
+   near-distinct code set below (lexsort order), timed, B3 against its
+   plain version and bit for bit against B1;
    every one of those engines then
    answers the benchmark's batch through ``query`` and is verified as
    ``bench_gist.verify`` does (distances allclose to ``adc_query_topk``,
@@ -532,6 +540,17 @@ def main() -> int:
     return 0
 
 
+def mins_against_b1(mins, b1, prec, what):
+    """B3's or B5's mins against B1's on the same rows: bit for bit at
+    int8 and int16 (integer products are exact in any order), else the
+    largest difference, printed."""
+    if prec != "bf16":
+        check(torch.equal(mins, b1), f"{what}: mins != B1's on the same rows")
+        return "mins = B1's bit for bit"
+    fin = torch.isfinite(b1)
+    return f"max |mins - B1's| {float((mins[fin] - b1[fin]).abs().max()):.6g}"
+
+
 def mins_err(mins, ref, tol, what):
     """Largest |kernel - plain| over the finite subtile minima; fails
     unless the +inf pattern is equal and the error within ``tol``."""
@@ -595,21 +614,21 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
                                                               cross_max)
             err = mins_err(mins, ref_m, tol, f"B3 codes_mins {prec}")
             if prec == "int16":
-                # the codes kernel runs the CUDA-core tail over the same
-                # rows: the integer products are exact in any order
+                # the integer products are exact in any order
                 check(torch.equal(eng.scan(qop, uq)[0], mins),
                       "B1 int16 mins != B3's on the same rows")
-                log("B1 int16 (tensor cores) = B3 int16 (CUDA cores) bit "
-                    "for bit on the same rows")
+                log("B1 int16 = B3 int16 bit for bit on the same rows")
             ms = cuda_ms(lambda: e.scan(qop, uq), 20)
             plain_ms = cuda_ms(lambda: fk.fused_codes_mins_ref(
                 *args, u=uq, mode=prec), 2)
-            log(f"{tag} B3 {prec} {ms:.4f} ms/call, plain {plain_ms:.4f} "
-                f"ms/call (N={N}, B={B})")
             kernels[name] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 **scan_bound(prec, mins, B, D, engine_operands(e, qop, uq),
                              (mins,)))
+            b1 = kernels[fk._launch_name("stream_mins", prec)]["ms"]
+            log(f"{tag} B3 {prec} {ms:.4f} ms/call, plain {plain_ms:.4f} "
+                f"ms/call, bound {kernels[name]['bound_ms']:.4f} ms, B1 on "
+                f"the same rows {b1:.4f} ms (N={N}, B={B})")
             del e, mins, echo, ref_m
 
         t = time.perf_counter()
@@ -793,7 +812,8 @@ def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None, reps=20,
     maps (qop, uq) to the plain version's (mins, echo, pre_max,
     cross_max).  The bound counts the kernel's own batch (``q`` padded as
     the engine pads it).  ``library`` maps (qop, uq) to one PyTorch call
-    timed as the kernel's yardstick.  Returns the kernel's echo."""
+    timed as the kernel's yardstick.  Returns the kernel's (mins,
+    echo)."""
     table, qop, uq, cert, b = e.prepare(q)
     mins, echo = e.scan(qop, uq)
     ref_m, ref_c, pre_max, cross_max = plain(qop, uq)
@@ -816,7 +836,7 @@ def scan_vs_plain(tag, label, e, q, plain, kernels, key, tol=None, reps=20,
     log(f"{tag} {label} {ms:.4f} ms/call, plain {plain_ms:.4f} "
         f"ms/call{lib} (N={e.n_valid}, B={qop.shape[1]})")
     kernels[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
-    return echo
+    return mins, echo
 
 
 def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
@@ -833,6 +853,8 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                           qop, e.cwbd, e.row_data, e.vals, e.meta,
                           e.n_valid, M, u=uq, mode="int8"),
                       kernels, "stream_mins_int8")
+        b1_mins = {"int8": e.scan(*e.prepare(q)[1:3])[0],
+                   "int16": eng.scan(*eng.prepare(q)[1:3])[0]}
         e1 = e
         e = FusedCodesEngine(cw, codes, order=order, precision="int8")
         scan_vs_plain(tag, "B3 codes_mins int8", e, q,
@@ -843,8 +865,9 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
         _, qop, uq, _, _ = e.prepare(q)
         check(torch.equal(e1.scan(qop, uq)[0], e.scan(qop, uq)[0]),
               "B1 int8 mins != B3's on the same rows")
-        log("B1 int8 (tensor cores) = B3 int8 (CUDA cores) bit for bit on "
-            "the same rows")
+        log(f"B1 int8 = B3 int8 bit for bit on the same rows; B1 "
+            f"{kernels['stream_mins_int8']['ms']:.4f} ms, B3 "
+            f"{kernels['codes_mins_int8']['ms']:.4f} ms")
         del e, e1
 
         t = time.perf_counter()
@@ -859,7 +882,7 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                                ("bf16", "delta_mins_bf16", bf16_tol)):
             e = FusedCompressedEngine.from_tiles(cw, dt, row_to_db=order,
                                                  precision=prec)
-            echo = scan_vs_plain(
+            mins, echo = scan_vs_plain(
                 tag, f"B5 delta_mins {prec}", e, q,
                 lambda qop, uq: fk.fused_delta_mins_ref(
                     qop, e.cwbd, e.row_data, e.ovf, e.n_valid, dt.S, u=uq,
@@ -867,7 +890,15 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                 kernels, key, tol)
             check(np.array_equal(echo[:N].cpu().numpy(), codes[order]),
                   f"B5 {prec} echo != the codes")
-            del e, echo
+            if prec in b1_mins:
+                check(torch.equal(mins, b1_mins[prec]),
+                      f"B5 {prec} mins != B1's on the same rows")
+            b1 = kernels[fk._launch_name("stream_mins", prec)]["ms"]
+            log(f"{tag} B5 {prec}: bound {kernels[key]['bound_ms']:.4f} ms, "
+                f"B1 on the same rows {b1:.4f} ms"
+                + ("; mins = B1's bit for bit" if prec in b1_mins else ""))
+            del e, echo, mins
+        del b1_mins
 
         # the int8 codes tier through its own entry point
         ce = FusedCodesEngine(cw, codes, precision="int8")
@@ -1130,19 +1161,29 @@ def phase14_gist(dev, tag, kernels, launches):
                  ("B4 decoded_mins", "decoded_mins",
                   lambda prec: FusedDecodedEngine(cw, codes_scan), "bf16",
                   True)]
+        b1_mins = {}      # B1's mins a mode: the CUDA-core wide tails
         for label, kernel, make, prec, timed in specs:
             e = make(prec)
             key = (kernel if kernel == "decoded_mins"
                    else fk._launch_name(kernel, prec))
             name = f"{key}@gist"
-            echo = scan_vs_plain(
+            mins, echo = scan_vs_plain(
                 tag, f"GIST {label} {prec}", e, queries, plain_of(e),
                 kernels, name, tols[prec], reps=5,
                 library=(lambda qop, uq: bench_stream.mm_yardstick(e.xt, qop))
                 if kernel == "decoded_mins" else None)
             check(np.array_equal(echo[:GIST_N].cpu().numpy(), codes_scan),
                   f"GIST {label} {prec}: echo != the codes")
-            del echo
+            if kernel == "stream_mins":
+                b1_mins[prec] = mins
+            elif kernel != "decoded_mins":
+                b1 = kernels[fk._launch_name("stream_mins", prec) + "@gist"]
+                same = mins_against_b1(mins, b1_mins[prec], prec,
+                                       f"GIST {label} {prec}")
+                log(f"{tag} GIST {label} {prec} (wgmma): bound "
+                    f"{kernels[name]['bound_ms']:.4f} ms, B1 (CUDA-core wide "
+                    f"tail) on the same rows {b1['ms']:.4f} ms; {same}")
+            del echo, mins
             # the engine's own path, as bench_gist drives it
             build.reset_launch_counts()
             res = bench_gist.verify(e, f"{label} {prec}", queries, table,
@@ -1176,7 +1217,7 @@ def phase14_gist(dev, tag, kernels, launches):
             f"{idx._engine_resolved} ({n_distinct} distinct codes): "
             f"distances match, id agreement {agree:.4f}, {flips} tie flips, "
             f"0 real divergences")
-        del idx, tab_db, dr_db, ir_db, table
+        del idx, tab_db, dr_db, ir_db, table, b1_mins
 
         # auto -> fused_compressed needs more than 65,536 distinct codes:
         # the same codebook over vectors of 125,000 clusters
@@ -1224,6 +1265,29 @@ def phase14_gist(dev, tag, kernels, launches):
             f"divergences; first-shot {e.last_exact_frac:.4f}; "
             f"stats {idx.stats()}; launches "
             f"{({k: v for k, v in counts.items() if v})}")
+        del idx
+
+        # B3's wide tail on the near-distinct codes (lexsort order), beside
+        # B1 on the same rows
+        codes2 = codes2[np.lexsort(codes2.T[::-1])]
+        st2 = build_stream_tiles(codes2)
+        for prec in ("int16", "int8", "bf16"):
+            e1 = FusedCompressedEngine.from_tiles(cw, st2, precision=prec)
+            e3 = FusedCodesEngine(cw, codes2, precision=prec)
+            _, qop, uq, _, _ = e1.prepare(q2)
+            m1 = e1.scan(qop, uq)[0]
+            ms1 = cuda_ms(lambda: e1.scan(qop, uq), 5)
+            own = {}
+            mins, _ = scan_vs_plain(
+                tag, f"GIST near-distinct B3 codes_mins {prec}", e3, q2,
+                plain_of(e3), own, "b3", tols[prec], reps=5)
+            same = mins_against_b1(mins, m1, prec,
+                                   f"GIST near-distinct B3 {prec}")
+            log(f"{tag} GIST near-distinct (N={GIST_IDX_N}) B3 {prec} "
+                f"{own['b3']['ms']:.4f} ms, bound "
+                f"{own['b3']['bound_ms']:.4f} ms, B1 (CUDA-core wide tail) "
+                f"on the same rows {ms1:.4f} ms; {same}")
+            del e1, e3, mins, m1
 
 
 def sift_chunks(n_chunks):

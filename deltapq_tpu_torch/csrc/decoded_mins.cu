@@ -95,67 +95,6 @@ __device__ __forceinline__ int piece(int sr, int c) {
   return sr * ROW_BYTES + ((c ^ (sr & 7)) << 4);
 }
 
-// Descriptor of a K-major bf16 tile at shared address saddr (1024-byte
-// aligned, plus 32 bytes per k16 step): 128-byte rows, 128-byte swizzle,
-// 1024 bytes from one group of eight rows to the next.
-__device__ __forceinline__ uint64_t tile_desc(unsigned saddr) {
-  return (uint64_t)((saddr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16)
-         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// One wgmma: D[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A and B are bf16 tiles
-// in shared memory named by descriptors (both K-major), D is f32 in the
-// registers of the warpgroup's 128 threads: register 4j + e of a thread is,
-// in the n8 block j, the c_e of mma.cuh, for rows 16 * (warp of the group)
-// + g and + 8.  scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
-      "%60,%61,%62,%63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_one() {   // all but the last
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Orders this thread's shared-memory writes (cp.async among them) before
-// later reads of the tensor cores' asynchronous proxy.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 decoded_mins_kernel(const uint16_t* __restrict__ qt,   // [B, D] bf16
                     const uint16_t* __restrict__ xt,   // [n_rows, D] bf16
@@ -235,7 +174,7 @@ decoded_mins_kernel(const uint16_t* __restrict__ qt,   // [B, D] bf16
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
    for (int ks = 0; ks < KS; ++ks) {
     mma::cp_async_wait<STAGES - 3>();
-    fence_async_proxy();
+    mma::fence_async_proxy();
     // this slice has landed; every warp has waited for the wgmma group of
     // the slice before the last, whose stage the next copy overwrites
     __syncthreads();
@@ -246,18 +185,18 @@ decoded_mins_kernel(const uint16_t* __restrict__ qt,   // [B, D] bf16
 
     // every k16 step of the slice, also past D (the zero fill adds
     // nothing): a branch around a wgmma would serialize the group
-    wgmma_fence();
+    mma::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = tile_desc(st + A_BYTES + 32 * kk);
+      const uint64_t db = mma::tile_desc(st + A_BYTES + 32 * kk);
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb)
-        wgmma_m64n128k16(
+        mma::wgmma_bf16_n128(
             acc[mb],
-            tile_desc(st + (wg * 128 + mb * 64) * ROW_BYTES + 32 * kk), db,
-            ks | kk);
+            mma::tile_desc(st + (wg * 128 + mb * 64) * ROW_BYTES + 32 * kk),
+            db, ks | kk);
     }
-    wgmma_commit();
+    mma::wgmma_commit();
 
     // pre of row tid while the tensor cores work: four fma chains, one
     // per pair of 16-byte pieces, each ascending in d (one chain of 64
@@ -285,10 +224,10 @@ decoded_mins_kernel(const uint16_t* __restrict__ qt,   // [B, D] bf16
     if (++stage == STAGES) stage = 0;
     // this slice's wgmma group stays in flight over the next slice's wait
     // and copy
-    wgmma_wait_one();
+    mma::wgmma_wait_one();
    }
     {
-      wgmma_wait_all();
+      mma::wgmma_wait_all();
       pre_s[tid] = __fadd_rn(__fadd_rn(pre[0], pre[1]),
                              __fadd_rn(pre[2], pre[3]));
       pre[0] = pre[1] = pre[2] = pre[3] = 0.0f;

@@ -1,31 +1,30 @@
-// The scan tail shared by the stream kernel (stream_mins.cu), the codes
-// kernel (codes_mins.cu) and the slot-tile kernel (delta_mins.cu): a
-// 1024-row tile of codes in shared memory -> x^ gathered from the codebook
-// -> pre - 2 cross per (row, query) -> 32-row subtile minima.
+// The scan tails shared by the stream kernel (stream_mins.cu), the codes
+// kernel (codes_mins.cu), the slot-tile kernel (delta_mins.cu) and the
+// pipelined stream kernel (stream_mins_pipelined.cu): a 1024-row tile of
+// codes in shared memory -> x^ gathered from the codebook -> pre - 2 cross
+// per (row, query) -> 32-row subtile minima.
 //
 // Replaces the tail of the TPU kernels deltapq_tpu/ops/fused_pallas.py:
 // _scan_tail (its int16, int8 and bf16 branches), which decodes codes ->
 // x^ with a one-hot matmul because the TPU has no per-lane gather.  Here
-// each lane gathers its row's codeword words from shared memory.
+// each lane gathers its row's codeword words from the codebook.
 //
 // What bounds a tail on an H100: its dot products (2 rows x queries x D
 // operations, x4 at int16).  On the CUDA cores (__dp4a, f32 fma) they cost
 // 20-50 times the tensor cores' time, and every subtile minimum costs five
-// shuffles a query.  The stream kernel's narrow shapes therefore run the
-// MmaTail structs below (mma.sync, three shuffles for two queries); the
-// CUDA-core tails stay for the codes, slot-tile and pipelined stream
-// kernels and for the wide shapes.
+// shuffles a query.  So the narrow shapes of the stream, codes and
+// slot-tile kernels run the MmaTail structs below (mma.sync, three
+// shuffles for two queries), and the wide shapes of the codes and
+// slot-tile kernels the gathered wgmma tail of wide_mma.cuh.  The
+// CUDA-core tails stay for the pipelined stream kernel (Int8Tail,
+// Bf16Tail) and for the stream kernel's wide shapes (Int16Wide, Int8Wide,
+// Bf16Wide).
 //
-// Three modes, each a struct with the same interface (load the operands;
-// scan the subtiles S_LO <= s < S_HI of a code tile, all 32 by default --
-// the pipelined stream kernel scans a tile in two halves; the bounds are
+// The CUDA-core structs share one interface (load the operands; scan the
+// subtiles S_LO <= s < S_HI of a code tile, all 32 by default -- the
+// pipelined stream kernel scans a tile in two halves; the bounds are
 // template arguments so that the subtile loop unrolls either way):
 //
-//   Int16Tail  codewords and queries as two base-128 int8 digits
-//              (A = 128a + b); aa, p2, bb are exact int32 __dp4a sums,
-//              cross = ((16384 aa + 128 p2) + bb) * u[b] in the JAX
-//              order with _rn intrinsics; pre = sum A^2 exact in int64
-//              from per-codeword norms, rounded once.
 //   Int8Tail   codewords and queries as one int8 value each (step scale);
 //              cross is one exact int32 __dp4a chain, pre the exact int32
 //              sum of per-codeword norms (both below 127^2 * 128 < 2^24,
@@ -37,16 +36,21 @@
 //              (only the order of summation differs from the matrix
 //              unit's); pre = sum over m of per-codeword f32 norms of
 //              the bf16 x^, added in ascending m.  No u factor.
+//   (int16)    codewords and queries as two base-128 int8 digits
+//              (A = 128a + b); aa, p2, bb are exact int32 sums, cross =
+//              ((16384 aa + 128 p2) + bb) * u[b] in the JAX order with _rn
+//              intrinsics; pre = sum A^2 exact in int64 from per-codeword
+//              norms, rounded once (MmaTail and Int16Wide).
 //
-// Layout of the work, narrow shapes (M <= 8 and M*Ds <= 128; Int16Tail,
-// Int8Tail, Bf16Tail): one block per (tile, 64-query block), 256 threads;
-// the compact codebook, the norms and the queries sit in shared memory;
-// each warp takes 32-row subtiles, a lane holds its row's whole x^ in
-// registers, reads each query's operand as broadcast 16-byte shared
-// loads, and the subtile min is a warp shuffle-reduce.
+// Layout of the work, narrow CUDA-core tails (M <= 8 and M*Ds <= 128;
+// Int8Tail, Bf16Tail): 256 threads; the compact codebook, the norms and
+// the queries sit in shared memory; each warp takes 32-row subtiles, a
+// lane holds its row's whole x^ in registers, reads each query's operand
+// as broadcast 16-byte shared loads, and the subtile min is a warp
+// shuffle-reduce.
 //
-// Wide shapes (M <= 16, any M*Ds whose padded query row fits shared
-// memory -- the GIST shape M=16, Ds=60, D=960; Int16Wide, Int8Wide,
+// Wide CUDA-core tails (M <= 16, any M*Ds whose padded query row fits
+// shared memory -- the GIST shape M=16, Ds=60, D=960; Int16Wide, Int8Wide,
 // Bf16Wide): the TPU kernel splits the subspaces into G = 2 groups of 8
 // because a [TILE, 4096] one-hot and a [4096, 1024] codebook do not fit
 // its VMEM; that banding is not carried over.  Here neither the codebook
@@ -135,142 +139,6 @@ __device__ __forceinline__ void bf16_subtile_mins(const unsigned (&xw)[DW],
     if (b0 + lane < nb) out[b0 + lane] = mine;
   }
 }
-
-// ---- int16 mode --------------------------------------------------------
-// DW: 32-bit words of one digit plane of a row (D <= 4*DW); WS = Ds/4.
-// Operands: q int8 [2*Dg, B] (a-planes then b-planes); cw int32
-// [2, M, K, WS] (four int8 digits a word); nrm int64 [M, K]; u f32 [B].
-template <int DW>
-struct Int16Tail {
-  static constexpr int MS = MMAX, QBLK = QB;
-  // shared memory: nrm int64 [M*K] | cw int32 [2*M*K*WS] | q | u
-  struct Layout {
-    size_t nrm, cw, q, u, total;
-  };
-  __host__ __device__ static Layout layout(int M, int K, int Ds) {
-    const int WS = Ds / 4;
-    Layout s;
-    s.nrm = 0;
-    s.cw = s.nrm + sizeof(long long) * M * K;
-    s.q = align16(s.cw + sizeof(int) * 2 * M * K * WS);
-    s.u = s.q + sizeof(int) * QB * 2 * DW;
-    s.total = align16(s.u + sizeof(float) * QB);
-    return s;
-  }
-
-  __device__ static void load(unsigned char* smem, const void* q_,
-                              const void* cw_, const void* nrm_,
-                              const float* u, int B, int Dg, int qb0, int M,
-                              int K, int Ds) {
-    const Layout L = layout(M, K, Ds);
-    const int tid = threadIdx.x;
-    const int MKW = M * K * (Ds / 4);
-    auto* cw = static_cast<const int*>(cw_);
-    auto* nrm = static_cast<const long long*>(nrm_);
-    auto* q = static_cast<const int8_t*>(q_);
-    int* cw_s = reinterpret_cast<int*>(smem + L.cw);
-    long long* nrm_s = reinterpret_cast<long long*>(smem + L.nrm);
-    int8_t* qb_s = reinterpret_cast<int8_t*>(smem + L.q);
-    float* u_s = reinterpret_cast<float*>(smem + L.u);
-    for (int i = tid; i < 2 * MKW; i += THREADS) cw_s[i] = cw[i];
-    for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
-    const int D = M * Ds;
-    const int DP = 4 * DW;                 // bytes per digit plane
-    for (int i = tid; i < QB * DP; i += THREADS) {
-      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
-      int8_t a = 0, c = 0;
-      if (d < D && qb0 + b < B) {
-        a = q[(size_t)d * B + qb0 + b];
-        c = q[(size_t)(Dg + d) * B + qb0 + b];
-      }
-      qb_s[b * 2 * DP + d] = a;
-      qb_s[b * 2 * DP + DP + d] = c;
-    }
-    for (int b = tid; b < QB; b += THREADS)
-      u_s[b] = (qb0 + b < B) ? u[qb0 + b] : 1.0f;
-  }
-
-  // codes_s [TILE, MMAX] u8; writes mins[(t*32 + s)*B + qb0 + b]
-  template <int S_LO = 0, int S_HI = TILE / SUB>
-  __device__ static void scan(const unsigned char* smem,
-                              const uint8_t* codes_s, float* mins, int t,
-                              int B, int qb0, int n_valid, int M, int K,
-                              int Ds, const void*, const void*) {
-    const Layout L = layout(M, K, Ds);
-    const int WS = Ds / 4;
-    const int MKW = M * K * WS;
-    const int* cw_s = reinterpret_cast<const int*>(smem + L.cw);
-    const long long* nrm_s = reinterpret_cast<const long long*>(smem + L.nrm);
-    const int* q_s = reinterpret_cast<const int*>(smem + L.q);
-    const float* u_s = reinterpret_cast<const float*>(smem + L.u);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int MW = M * WS;                 // words of real dims
-    const int nb = min(QB, B - qb0);
-    for (int s = S_LO + warp; s < S_HI; s += WARPS) {
-      const int r = s * SUB + lane;
-      int xa[DW], xb[DW];
-#pragma unroll
-      for (int w = 0; w < DW; ++w) {
-        if (w < MW) {
-          const int m = w / WS;
-          const int k = codes_s[r * MMAX + m];
-          const int at = (m * K + k) * WS + (w - m * WS);
-          xa[w] = cw_s[at];
-          xb[w] = cw_s[MKW + at];
-        } else {
-          xa[w] = 0;
-          xb[w] = 0;
-        }
-      }
-      long long pre_i = 0;
-      for (int m = 0; m < M; ++m) pre_i += nrm_s[m * K + codes_s[r * MMAX + m]];
-      const float pre = __ll2float_rn(pre_i);   // exact integer, rounded once
-      const bool valid = (long long)t * TILE + r < n_valid;
-      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
-
-      for (int b0 = 0; b0 < QB; b0 += 32) {
-        float mine = CUDART_INF_F;
-        for (int bi = 0; bi < 32; ++bi) {
-          const int b = b0 + bi;
-          const int4* qa4 = reinterpret_cast<const int4*>(q_s + b * 2 * DW);
-          const int4* qb4 = qa4 + DW / 4;
-          int aa = 0, p2 = 0, bb = 0;
-#pragma unroll
-          for (int w4 = 0; w4 < DW / 4; ++w4) {
-            const int4 A = qa4[w4];
-            const int4 C = qb4[w4];
-            aa = __dp4a(xa[4 * w4 + 0], A.x, aa);
-            aa = __dp4a(xa[4 * w4 + 1], A.y, aa);
-            aa = __dp4a(xa[4 * w4 + 2], A.z, aa);
-            aa = __dp4a(xa[4 * w4 + 3], A.w, aa);
-            p2 = __dp4a(xa[4 * w4 + 0], C.x, p2);
-            p2 = __dp4a(xa[4 * w4 + 1], C.y, p2);
-            p2 = __dp4a(xa[4 * w4 + 2], C.z, p2);
-            p2 = __dp4a(xa[4 * w4 + 3], C.w, p2);
-            p2 = __dp4a(xb[4 * w4 + 0], A.x, p2);
-            p2 = __dp4a(xb[4 * w4 + 1], A.y, p2);
-            p2 = __dp4a(xb[4 * w4 + 2], A.z, p2);
-            p2 = __dp4a(xb[4 * w4 + 3], A.w, p2);
-            bb = __dp4a(xb[4 * w4 + 0], C.x, bb);
-            bb = __dp4a(xb[4 * w4 + 1], C.y, bb);
-            bb = __dp4a(xb[4 * w4 + 2], C.z, bb);
-            bb = __dp4a(xb[4 * w4 + 3], C.w, bb);
-          }
-          float cross = __fadd_rn(
-              __fadd_rn(__fmul_rn(16384.0f, __int2float_rn(aa)),
-                        __fmul_rn(128.0f, __int2float_rn(p2))),
-              __int2float_rn(bb));
-          cross = __fmul_rn(cross, u_s[b]);
-          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
-                          : CUDART_INF_F;
-          d = warp_min(d);
-          if (lane == bi) mine = d;
-        }
-        if (b0 + lane < nb) out[b0 + lane] = mine;
-      }
-    }
-  }
-};
 
 // ---- int8 mode ---------------------------------------------------------
 // DW: 32-bit words of a row (D <= 4*DW); WS = Ds/4.
@@ -464,11 +332,14 @@ struct Bf16Tail {
 
 // ---- narrow tails on the tensor cores -------------------------------------
 // MmaTail<MODE, DWP>: the narrow shapes (M <= 8, M*Ds <= 128) with the
-// products on the tensor cores, as the stream kernel runs them.  MODE 0 is
+// products on the tensor cores, as the stream, codes and slot-tile
+// kernels run them (one persistent block meets every query block of the
+// batch with a tile, restaging the queries).  MODE 0 is
 // int16, 1 bf16, 2 int8 (the kernels' mode argument); DWP is the 32-bit
 // words of a row and digit plane, padded to whole k-steps of eight words
 // (int8 and int16: four digits a word, D <= 4*DWP; bf16: a pair a word,
-// D <= 2*DWP).  Operands as the tails above, but for the queries: qt is the
+// D <= 2*DWP).  Operands as Int8Tail's, Bf16Tail's and (int16)
+// Int16Wide's, but for the queries: qt is the
 // transposed operand [B, planes*Dg] (a query's D values contiguous, zero
 // past D), so that a query block is staged with plain 16-byte copies.
 //
@@ -490,9 +361,9 @@ struct Bf16Tail {
 //     n-fragment's number keeps the result, so 64 minima leave the warp as
 //     one 256-byte run.
 // The integer sums are exact in any order, so int8 and int16 give the bits
-// of Int8Tail and Int16Tail (the epilogue arithmetic is theirs, with _rn
-// intrinsics); bf16 differs from Bf16Tail by the order of the f32 sums
-// inside the tensor core.  pre is computed as above, one row a lane, and
+// of Int8Tail and of the int16 arithmetic above (the epilogue is theirs,
+// with _rn intrinsics); bf16 differs from Bf16Tail by the order of the f32
+// sums inside the tensor core.  pre is computed as above, one row a lane, and
 // handed to the rows' owners by shuffle.
 template <int MODE, int DWP>
 struct MmaTail {
@@ -728,7 +599,7 @@ template <int DWP> using Int16Mma = MmaTail<0, DWP>;
 template <int DWP> using Bf16Mma = MmaTail<1, DWP>;
 template <int DWP> using Int8Mma = MmaTail<2, DWP>;
 
-// ---- wide tails ----------------------------------------------------------
+// ---- wide tails on the CUDA cores (the stream kernel's) -------------------
 // A query plane in shared memory is [QBW][qstr] 32-bit words: subspace m
 // of query b starts at word b*qstr + m*4*WC and holds WC 16-byte chunks,
 // zero past the subspace's real bytes; qstr = M*4*WC + 4 (the four spare
@@ -869,9 +740,9 @@ struct Int8Wide {
   }
 };
 
-// int16 mode, wide.  Operands as Int16Tail's: q int8 [2*Dg, B] (all
-// a-planes, then all b-planes); cw int32 [2, M, K, Ds/4]; nrm int64
-// [M, K]; u f32.  aa, p2 and bb are summed as integers over the whole
+// int16 mode, wide.  Operands: q int8 [2*Dg, B] (all a-planes, then all
+// b-planes); cw int32 [2, M, K, Ds/4] (four int8 digits a word, the a-
+// then the b-plane); nrm int64 [M, K] (sum of A^2, exact); u f32.  aa, p2 and bb are summed as integers over the whole
 // row (|aa| <= 127^2 * M*Ds, far inside int32) and rounded once; the TPU
 // kernel rounds them once per group and adds the groups in f32.
 struct Int16Wide {

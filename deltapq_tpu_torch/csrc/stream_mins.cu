@@ -47,10 +47,12 @@
 //     scan_tail.cuh (codebook in global memory, the row walked chunk by
 //     chunk); their gather comes from global memory and wants a design of
 //     its own.
-// The codes kernel, the slot-tile kernel and the pipelined stream kernel
-// keep the CUDA-core narrow tails (Int16Tail, Int8Tail, Bf16Tail), so the
-// codes kernel on this kernel's echo is the old design's time and, at
-// int8 and int16, its bits.
+// The codes and slot-tile kernels run the same narrow tails and, at the
+// wide shapes, the gathered wgmma tail of wide_mma.cuh; the pipelined
+// stream kernel keeps the CUDA-core narrow tails (Int8Tail, Bf16Tail), and
+// this kernel's wide shapes keep the CUDA-core wide tails, so at the GIST
+// shape this kernel is the old design's time and, at int8 and int16, its
+// bits beside the codes kernel on its echo.
 
 #include "tile_decode.cuh"
 
@@ -153,19 +155,11 @@ int launch_mma(const void* qt, const void* cw, const void* nrm,
   auto kernel = stream_mins_mma_kernel<Tail>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = mma::resident_grid(kernel, THREADS, smem, nT, &grid);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, occ = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-      != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, kernel, THREADS, smem)) != cudaSuccess)
-    return (int)e;
-  if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
-  const int resident = sms * occ;
-  kernel<<<nT < resident ? nT : resident, THREADS, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       qt, cw, nrm, static_cast<const uint8_t*>(rd),
       static_cast<const uint8_t*>(vals), static_cast<const int*>(meta),
       static_cast<const float*>(u), static_cast<float*>(mins),

@@ -61,7 +61,7 @@ NOP = ("namespace {\nstatic __device__ __forceinline__ void wgmma_nop("
        "  d[0] += (float)(a ^ b) * s;\n}\n")
 #: part -> [(line of the source, its replacement)]
 PARTS = {
-    "mma": [("        wgmma_m64n128k16(\n", "        wgmma_nop(\n"),
+    "mma": [("        mma::wgmma_bf16_n128(\n", "        wgmma_nop(\n"),
             ("namespace {\n", NOP)],
     "copies": [("        mma::cp_async16(\n            st + a_dst",
                 "        if (n_valid < 0) mma::cp_async16(\n"

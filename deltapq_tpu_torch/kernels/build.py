@@ -50,12 +50,13 @@ SIGNATURES = {
     # B, Dg, nT, n_groups, n_valid, M, K, Ds, mode, stream
     "stream_mins_pipelined_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, cw, nrm, codes, u, mins, B, Dg, nT, n_valid, M, K, Ds, mode, stream
-    "codes_mins_launch": [_P, _P, _P, _P, _P, _P,
+    # qt, cw, cw_pad, nrm, codes, u, mins,
+    # B, Dg, nT, n_valid, M, K, Ds, mode, stream
+    "codes_mins_launch": [_P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, cw, nrm, row_data, ovf, u, mins, codes_out,
+    # qt, cw, cw_pad, nrm, row_data, ovf, u, mins, codes_out,
     # B, Dg, nT, n_valid, M, K, Ds, S, Cap, mode, stream
-    "delta_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+    "delta_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # qt, xt, mins, B, D, n_rows, n_valid, stream
     "decoded_mins_launch": [_P, _P, _P, _I, _I, _I, _I, _P],

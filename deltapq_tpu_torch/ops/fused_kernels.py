@@ -15,11 +15,13 @@ module and a launch count in ``kernels.build.LAUNCHES``:
   ``_stream_mins_pipelined_kernel``): the same function, one block
   walking a run of tiles with the next tile's decode inside the scan;
 * ``fused_codes_mins`` -> ``csrc/codes_mins.cu`` (replaces
-  ``_codes_mins_kernel``): the same scan tail (``csrc/scan_tail.cuh``)
-  on resident u8 codes;
+  ``_codes_mins_kernel``): the scan on resident u8 codes, on the tensor
+  cores at every shape (``scan_tail_form``: the stream kernel's narrow
+  tails, and at the wide shapes a ``wgmma`` tail whose A operand is
+  gathered from ``padded_codebook`` by the codes, ``csrc/wide_mma.cuh``);
 * ``fused_delta_mins`` -> ``csrc/delta_mins.cu`` (replaces
   ``_delta_mins_kernel``): decode v1 slot tiles (mask plane, S value
-  slots, overflow bank), then the same scan tail;
+  slots, overflow bank), then the codes kernel's tails;
 * ``fused_decoded_mins`` -> ``csrc/decoded_mins.cu`` (replaces
   ``_decoded_mins_kernel``): bf16 x^ . q with f32 sums over resident
   decoded rows, on the tensor cores (``wgmma``);
@@ -160,10 +162,13 @@ def _codebook_k(cwbd: torch.Tensor, M: int) -> int:
 
 
 def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int, mode: str
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor]]:
     """The scan kernels' codebook operands, built once per engine from
-    the block-diagonal ``cwbd``: the nonzero blocks (each codeword's own
-    Ds dims) and per-codeword norms.
+    the block-diagonal ``cwbd``: (cw, nrm, cw_pad) -- the nonzero blocks
+    (each codeword's own Ds dims), per-codeword norms, and at the wide
+    shapes (``narrow_shape`` false) ``padded_codebook(cw, M, Ds, mode)``
+    for the tensor-core wide tail (None at the narrow shapes).
 
     * int16 (``cwbd`` [G*Mg*K, 2*Dg] int8): ``cw`` [2, M, K, Ds/4]
       int32, the a- then b-digit planes, four int8 digits per word;
@@ -190,22 +195,75 @@ def compact_codebook(cwbd: torch.Tensor, M: int, Ds: int, mode: str
             raise NotImplementedError("the bf16 scan kernels need Ds even")
         x = torch.gather(bd, 2, idx).contiguous()
         xf = x.to(torch.float32)
-        return x.view(torch.int32), (xf * xf).sum(dim=2)
-    if Ds % 4:
+        cw, nrm = x.view(torch.int32), (xf * xf).sum(dim=2)
+    elif Ds % 4:
         raise NotImplementedError(f"the {mode} scan kernels need "
                                   f"Ds % 4 == 0")
-    if mode == "int8":
+    elif mode == "int8":
         x = torch.gather(bd, 2, idx).contiguous()
         xi = x.to(torch.int32)
-        return x.view(torch.int32), (xi * xi).sum(dim=2, dtype=torch.int32)
-    if mode != "int16":
+        cw = x.view(torch.int32)
+        nrm = (xi * xi).sum(dim=2, dtype=torch.int32)
+    elif mode == "int16":
+        Dg = width // 2
+        a = torch.gather(bd[:, :, :Dg], 2, idx)
+        b = torch.gather(bd[:, :, Dg:], 2, idx)
+        cw = torch.stack([a, b]).contiguous().view(torch.int32)
+        A = 128 * a.to(torch.int64) + b.to(torch.int64)
+        nrm = (A * A).sum(dim=2)
+    else:
         raise NotImplementedError(f"scan mode {mode!r} is not ported")
-    Dg = width // 2
-    a = torch.gather(bd[:, :, :Dg], 2, idx)
-    b = torch.gather(bd[:, :, Dg:], 2, idx)
-    cw = torch.stack([a, b]).contiguous().view(torch.int32)
-    A = 128 * a.to(torch.int64) + b.to(torch.int64)
-    return cw, (A * A).sum(dim=2)
+    pad = None if narrow_shape(M, Ds) else padded_codebook(cw, M, Ds, mode)
+    return cw, nrm, pad
+
+
+def wide_sub_bytes(Ds: int, mode: str) -> int:
+    """SP: the bytes of one subspace's codeword (of one digit plane at
+    int16) in the wide tensor-core tail's padded operands -- its Ds
+    values (one byte each, two at bf16) rounded up to whole 16-byte
+    pieces (GIST, Ds=60: 64 bytes at int8 and int16, 128 at bf16)."""
+    return -(-(Ds * (2 if mode == "bf16" else 1)) // 16) * 16
+
+
+def padded_codebook(cw: torch.Tensor, M: int, Ds: int, mode: str
+                    ) -> torch.Tensor:
+    """The compact codebook ``cw`` (``compact_codebook``'s int32 words)
+    -> u8 [planes, M, K, SP]: each codeword's bytes, zero-padded to
+    ``wide_sub_bytes(Ds, mode)``, so that piece c of codeword k of
+    subspace m starts on a 16-byte boundary at ((m*K + k)*SP + 16c) and
+    a row of x^ is M whole-piece copies.  int16 has two planes (a-digits,
+    then b-digits), int8 and bf16 one."""
+    planes = 2 if mode == "int16" else 1
+    sub = Ds * (2 if mode == "bf16" else 1)
+    raw = cw.contiguous().view(torch.uint8).reshape(planes, M, -1, sub)
+    out = torch.zeros(raw.shape[:3] + (wide_sub_bytes(Ds, mode),),
+                      dtype=torch.uint8, device=cw.device)
+    out[..., :sub] = raw
+    return out
+
+
+def pad_transpose_queries(q: torch.Tensor, M: int, Ds: int, mode: str
+                          ) -> torch.Tensor:
+    """The scan kernels' query operand q [planes*G*Dg, B] (grouped
+    layout) -> [B, planes*M*SPv] in q's type, the wide tensor-core
+    tail's query operand: query b's subspace m of plane p at elements
+    (p*M + m)*SPv .. + Ds, zero to SPv = SP / element size -- the
+    padding of ``padded_codebook``, so a 16-byte piece of a query row
+    meets the same piece of every x^ row."""
+    planes = 2 if mode == "int16" else 1
+    G, Mg, Dg = group_geometry(M, Ds)
+    B = q.shape[1]
+    dev = q.device
+    m = torch.arange(M, device=dev)
+    start = (m // Mg) * Dg + (m % Mg) * Ds                      # [M]
+    idx = (torch.arange(planes, device=dev)[:, None, None] * (G * Dg)
+           + start[None, :, None]
+           + torch.arange(Ds, device=dev)[None, None, :])       # [p, M, Ds]
+    x = q[idx.reshape(-1)].reshape(planes, M, Ds, B).permute(3, 0, 1, 2)
+    spv = wide_sub_bytes(Ds, mode) // q.element_size()
+    out = torch.zeros((B, planes, M, spv), dtype=q.dtype, device=dev)
+    out[..., :Ds] = x
+    return out.reshape(B, planes * M * spv)
 
 
 def pack_xhat_tiles(xhat: torch.Tensor, tile: int = TILE) -> torch.Tensor:
@@ -346,13 +404,14 @@ def _check_operands(tensors: dict, dtypes: dict, device) -> None:
                              f"{t.device}")
 
 
-def _compact_operands(q, cwbd, M, compact, u, code):
-    """Device operands of the scan-tail kernels: (cw, nrm, u, Ds), with
-    their types and shapes checked against the mode."""
+def _compact_operands(q, cwbd, M, compact, u, mode):
+    """Device operands of the scan-tail kernels: (cw, nrm, cw_pad, u,
+    Ds), with their types and shapes checked against the mode."""
+    code = MODES[mode]
     if compact is None:
         raise ValueError("the CUDA scan kernels need compact="
                          "compact_codebook(cwbd, M, Ds, mode)")
-    cw, nrm = compact
+    cw, nrm, cw_pad = compact
     B = q.shape[1]
     K = _codebook_k(cwbd, M)
     if code == MODES["bf16"]:
@@ -372,13 +431,18 @@ def _compact_operands(q, cwbd, M, compact, u, code):
                     q.device)
     G, Mg, Dg_pad = group_geometry(M, Ds)
     planes = 2 if code == MODES["int16"] else 1
+    pad_shape = (planes, M, K, wide_sub_bytes(Ds, mode))
     if (tuple(cw.shape) != want or tuple(nrm.shape) != (M, K)
             or q.shape[0] != planes * G * Dg_pad or K > 256
-            or u.numel() != B):
+            or u.numel() != B
+            or (cw_pad is None) != narrow_shape(M, Ds)
+            or (cw_pad is not None and (
+                tuple(cw_pad.shape) != pad_shape
+                or cw_pad.dtype != torch.uint8 or cw_pad.device != q.device
+                or not cw_pad.is_contiguous()))):
         raise ValueError("scan kernel operand shapes disagree with the "
                          "mode")
-    sub_bytes = Ds * (2 if code == MODES["bf16"] else 1)
-    if M * (-(-sub_bytes // 16) * 16) > WIDE_ROW_BYTES:
+    if M * pad_shape[3] > WIDE_ROW_BYTES:
         raise NotImplementedError(
             f"the scan kernels stage a query row of at most "
             f"{WIDE_ROW_BYTES} bytes a plane (M={M}, Ds={Ds})")
@@ -386,7 +450,7 @@ def _compact_operands(q, cwbd, M, compact, u, code):
         raise NotImplementedError(
             f"the int8 scan is exact in f32 only while 127^2 * M*Ds < "
             f"2^24 (M*Ds <= 1040); got M*Ds = {M * Ds}")
-    return cw, nrm, u, Ds
+    return cw, nrm, cw_pad, u, Ds
 
 
 def _launch_name(kernel: str, mode: str) -> str:
@@ -429,6 +493,40 @@ def narrow_shape(M: int, Ds: int) -> bool:
     return M <= 8 and M * Ds <= 128
 
 
+def scan_tail_form(kernel: str, M: int, Ds: int) -> str:
+    """The tail a scan kernel runs at (M, Ds), picked by shape alone:
+
+    * ``"mma"``: the narrow shapes of ``stream_mins``, ``codes_mins`` and
+      ``delta_mins`` -- ``MmaTail`` (``mma.sync``), queries from
+      ``transpose_queries(q)``;
+    * ``"wgmma"``: the wide shapes of ``codes_mins`` and ``delta_mins``
+      -- the gathered ``wgmma`` tail (``csrc/wide_mma.cuh``), queries
+      from ``pad_transpose_queries``, codebook ``padded_codebook``;
+    * ``"cuda_cores"``: the wide shapes of ``stream_mins`` and every
+      shape of ``stream_mins_pipelined`` -- the CUDA-core tails, queries
+      as ``q`` is."""
+    if kernel not in ("stream_mins", "codes_mins", "delta_mins",
+                      "stream_mins_pipelined"):
+        raise ValueError(f"no scan kernel {kernel!r}")
+    if kernel == "stream_mins_pipelined":
+        return "cuda_cores"
+    if narrow_shape(M, Ds):
+        return "mma"
+    return "cuda_cores" if kernel == "stream_mins" else "wgmma"
+
+
+def scan_queries(kernel: str, q: torch.Tensor, M: int, Ds: int, mode: str
+                 ) -> Optional[torch.Tensor]:
+    """The query operand a scan kernel's tail reads besides ``q`` (see
+    ``scan_tail_form``), or None when it reads ``q`` itself."""
+    form = scan_tail_form(kernel, M, Ds)
+    if form == "mma":
+        return transpose_queries(q)
+    if form == "wgmma":
+        return pad_transpose_queries(q, M, Ds, mode)
+    return None
+
+
 def transpose_queries(q: torch.Tensor) -> torch.Tensor:
     """The scan kernels' query operand q [planes*Dg, B] -> [B, planes*Dg]
     contiguous: a query's values lie side by side (int16: its a-digits,
@@ -469,17 +567,24 @@ def fused_stream_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
     return mins, codes.to(torch.uint8), pre_max, cross_max
 
 
-def _launch_scan(kernel, mode, code, q, cwbd, M, compact, u, nt, fn):
+def _launch_scan(kernel, mode, q, cwbd, M, compact, u, nt, fn):
     """Shared launch of a scan-tail kernel: checks the codebook operands
-    against the mode, allocates the mins [nT*32, B] f32, calls ``fn(cw,
-    nrm, u, Ds, mins, stream)`` (the C entry point with the kernel's own
-    operands bound), raises on a failed launch and counts it."""
-    cw, nrm, u, Ds = _compact_operands(q, cwbd, M, compact, u, code)
+    against the mode, allocates the mins [nT*32, B] f32, calls ``fn(qt,
+    cw, cw_pad, nrm, u, Ds, mins, stream)`` (the C entry point with the
+    kernel's own operands bound; ``qt`` is ``scan_queries``'s operand),
+    raises on a failed launch and counts it.  ``qt`` lives until the
+    launch has been enqueued, and the allocator hands its memory on only
+    in stream order."""
+    cw, nrm, cw_pad, u, Ds = _compact_operands(q, cwbd, M, compact, u,
+                                               mode)
+    qt = scan_queries(kernel, q, M, Ds, mode)
     mins = torch.empty((nt * (TILE // SUB), q.shape[1]),
                        dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(cw.data_ptr(), nrm.data_ptr(), u.data_ptr(), Ds,
-                   mins.data_ptr(), stream), kernel)
+    build.check(fn(None if qt is None else qt.data_ptr(), cw.data_ptr(),
+                   None if cw_pad is None else cw_pad.data_ptr(),
+                   nrm.data_ptr(), u.data_ptr(), Ds, mins.data_ptr(),
+                   stream), kernel)
     build.count(_launch_name(kernel, mode))
     return mins
 
@@ -488,8 +593,7 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                       row_data: torch.Tensor, vals: torch.Tensor,
                       meta: torch.Tensor, n_valid: int, M: int,
                       u: Optional[torch.Tensor] = None,
-                      compact: Optional[Tuple[torch.Tensor,
-                                              torch.Tensor]] = None,
+                      compact: Optional[tuple] = None,
                       *, mode: str, pipelined: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stream tier scan in ``mode`` ("int16", "int8" or "bf16"; the
@@ -525,7 +629,7 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                              "pieces: vals [A, 8, 128] and 16-byte aligned "
                              "row_data and vals required")
 
-        def launch(cw, nrm, u_, Ds, out, stream):
+        def launch(qt, cw, cw_pad, nrm, u_, Ds, out, stream):
             if M * Ds > 128:
                 raise NotImplementedError(
                     "the pipelined stream kernel takes M*Ds <= 128")
@@ -534,21 +638,17 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                 meta.data_ptr(), u_, out, codes.data_ptr(), B, D2, nt,
                 vals.shape[0], int(n_valid), M, K, Ds, code, stream)
 
-        return _launch_scan("stream_mins_pipelined", mode, code, q, cwbd,
+        return _launch_scan("stream_mins_pipelined", mode, q, cwbd,
                             M, compact, u, nt, launch), codes
 
-    def launch(cw, nrm, u_, Ds, out, stream):
-        # the narrow shapes stage their queries from the transposed
-        # operand; it lives until the launch has been enqueued, and the
-        # allocator hands its memory on only in stream order
-        qt = transpose_queries(q) if narrow_shape(M, Ds) else None
+    def launch(qt, cw, cw_pad, nrm, u_, Ds, out, stream):
         return build.library().stream_mins_launch(
-            q.data_ptr(), None if qt is None else qt.data_ptr(), cw, nrm,
+            q.data_ptr(), qt, cw, nrm,
             row_data.data_ptr(), vals.data_ptr(), meta.data_ptr(), u_, out,
             codes.data_ptr(), B, D2 // (2 if code == 0 else 1), nt,
             int(n_valid), M, K, Ds, code, stream)
 
-    return _launch_scan("stream_mins", mode, code, q, cwbd, M, compact, u,
+    return _launch_scan("stream_mins", mode, q, cwbd, M, compact, u,
                         nt, launch), codes
 
 
@@ -580,8 +680,7 @@ def fused_codes_mins_ref(q: torch.Tensor, cwbd: torch.Tensor,
 def fused_codes_mins(q: torch.Tensor, cwbd: torch.Tensor,
                      codes: torch.Tensor, n_valid: int,
                      u: Optional[torch.Tensor] = None,
-                     compact: Optional[Tuple[torch.Tensor,
-                                             torch.Tensor]] = None,
+                     compact: Optional[tuple] = None,
                      *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Codes tier scan: q and cwbd as in ``fused_stream_mins``; codes
     [N_pad, M] u8.  Returns (mins [N_pad/32, B] f32, codes echo): the
@@ -599,10 +698,10 @@ def fused_codes_mins(q: torch.Tensor, cwbd: torch.Tensor,
     D2, B = q.shape
     nt = n_pad // TILE
     mins = _launch_scan(
-        "codes_mins", mode, code, q, cwbd, M, compact, u, nt,
-        lambda cw, nrm, u_, Ds, out, stream:
+        "codes_mins", mode, q, cwbd, M, compact, u, nt,
+        lambda qt, cw, cw_pad, nrm, u_, Ds, out, stream:
         build.library().codes_mins_launch(
-            q.data_ptr(), cw, nrm, codes.data_ptr(), u_, out, B,
+            qt, cw, cw_pad, nrm, codes.data_ptr(), u_, out, B,
             D2 // (2 if code == 0 else 1), nt, int(n_valid), M,
             _codebook_k(cwbd, M), Ds, code, stream))
     return mins, codes
@@ -674,8 +773,7 @@ def fused_delta_mins(q: torch.Tensor, cwbd: torch.Tensor,
                      row_data: torch.Tensor, ovf: torch.Tensor,
                      n_valid: int, S: int,
                      u: Optional[torch.Tensor] = None,
-                     compact: Optional[Tuple[torch.Tensor,
-                                             torch.Tensor]] = None,
+                     compact: Optional[tuple] = None,
                      *, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slot-tile scan (``delta_tiles.py``, M <= 16): row_data [nT, P+S,
     TILE] u8 (P = ceil(M/8) mask planes + S value slots), ovf [nT, M,
@@ -695,10 +793,10 @@ def fused_delta_mins(q: torch.Tensor, cwbd: torch.Tensor,
     nt, M, Cap = ovf.shape
     codes = torch.empty((nt * TILE, M), dtype=torch.uint8, device=q.device)
     mins = _launch_scan(
-        "delta_mins", mode, code, q, cwbd, M, compact, u, nt,
-        lambda cw, nrm, u_, Ds, out, stream:
+        "delta_mins", mode, q, cwbd, M, compact, u, nt,
+        lambda qt, cw, cw_pad, nrm, u_, Ds, out, stream:
         build.library().delta_mins_launch(
-            q.data_ptr(), cw, nrm, row_data.data_ptr(), ovf.data_ptr(), u_,
+            qt, cw, cw_pad, nrm, row_data.data_ptr(), ovf.data_ptr(), u_,
             out, codes.data_ptr(), B, D2 // (2 if code == 0 else 1), nt,
             int(n_valid), M, _codebook_k(cwbd, M), Ds, S, Cap, code,
             stream))

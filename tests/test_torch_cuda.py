@@ -770,8 +770,8 @@ def test_stream_mma_tails_match_plain_and_codes_kernel(cuda, M, K, Ds, n, B,
     query block (or one and a bit), n_valid inside a tile and on a tile
     boundary.  Codes exact; int8 bit-equal to the plain version, int16 and
     bf16 inside their bounds; and at int8 and int16 the mins equal, bit
-    for bit, those of the codes kernel, which runs the CUDA-core tail over
-    the same rows."""
+    for bit, those of the codes kernel over the same rows (the same tail
+    without the decode)."""
     rng = np.random.default_rng(M * 1000 + Ds * 10 + B + n)
     cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
     codes = _codes(rng, n, M, K)
@@ -865,3 +865,105 @@ def test_decoded_mma_kernel_many_row_tiles(cuda):
     mins = fk.fused_decoded_mins(q, xt, n)
     ref_m, pre_max, cross_max = fk.fused_decoded_mins_ref(q, xt, n)
     _assert_mins(mins, ref_m, _bf16_tol(pre_max, cross_max))
+
+
+# ---- B3 and B5 on the tensor cores: MmaTail and the gathered wgmma tail ----
+
+#: every tail form of B3 and B5: the narrow shapes (mma.sync), the wide
+#: ones (wgmma) and the GIST width at K=256
+SCAN_SHAPES = MMA_SHAPES + WIDE_SHAPES + [(16, 256, 60)]
+
+
+def _scan_engine(kernel, cw, codes, precision, cuda):
+    """B1's stream engine for the codes kernel (B3 then runs on its
+    echo), the slot-tile engine for B5."""
+    return FusedCompressedEngine(
+        cw, codes, precision=precision, device=cuda,
+        fmt="stream" if kernel == "codes_mins" else "slots")
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+@pytest.mark.parametrize("B", [1, 8, 200, 513])
+@pytest.mark.parametrize("n", [2500, 3072])
+@pytest.mark.parametrize("M,K,Ds", SCAN_SHAPES)
+@pytest.mark.parametrize("kernel", ["codes_mins", "delta_mins"])
+def test_codes_and_slot_kernels_on_the_tensor_cores(cuda, kernel, M, K, Ds,
+                                                    n, B, precision):
+    """B3 and B5 in their tail forms (``scan_tail_form``) at ragged
+    shapes: batches that fill no query block (or one and a bit), n_valid
+    inside a tile and on its boundary.  Each against its plain version:
+    int8 bit-equal, int16 and bf16 inside their bounds; B5's echo equal
+    to the codes; B3 on B1's echo equal to B1 bit for bit at int8 and
+    int16 (at the wide shapes B1 runs the CUDA-core wide tails).  One
+    launch a call."""
+    rng = np.random.default_rng(M * 1000 + Ds * 10 + B + n)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _chain_codes(rng, n, M, K) if M > 8 else _codes(rng, n, M, K)
+    eng = _scan_engine(kernel, cw, codes, precision, cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    qop, uq = _cut_batch(eng, q)
+    key = fk._launch_name(kernel, precision)
+    if kernel == "codes_mins":
+        m1, echo = eng.scan(qop, uq)
+        before = build.launch_counts()[key]
+        mins, same = fk.fused_codes_mins(qop, eng.cwbd, echo, eng.n_valid,
+                                         u=uq, compact=eng.compact,
+                                         mode=precision)
+        assert same is echo
+        ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(
+            qop, eng.cwbd, echo, eng.n_valid, u=uq, mode=precision)
+    else:
+        before = build.launch_counts()[key]
+        mins, echo = fk.fused_delta_mins(
+            qop, eng.cwbd, eng.row_data, eng.ovf, eng.n_valid, eng.tiles.S,
+            u=uq, compact=eng.compact, mode=precision)
+        ref_m, ref_c, pre_max, cross_max = fk.fused_delta_mins_ref(
+            qop, eng.cwbd, eng.row_data, eng.ovf, eng.n_valid, eng.tiles.S,
+            u=uq, mode=precision)
+        assert torch.equal(echo, ref_c)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    assert mins.shape == (echo.shape[0] // 32, B)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+    if kernel == "codes_mins" and precision != "bf16":
+        assert torch.equal(mins, m1)
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+@pytest.mark.parametrize("kernel", ["codes_mins", "delta_mins"])
+def test_codes_and_slot_kernels_many_tiles_at_gist_width(cuda, kernel,
+                                                         precision):
+    """The GIST width over more work than the card holds blocks at once
+    (147 tiles, 300 queries): a block of the wide tail walks many items
+    with its copy ring running across them, and B5's blocks several
+    tiles.  B3 equals B1 bit for bit at int8 and int16."""
+    rng = np.random.default_rng(43)
+    n, M, K, Ds, B = 150000, 16, 256, 60, 300
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _chain_codes(rng, n, M, K)
+    eng = _scan_engine(kernel, cw, codes, precision, cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    qop, uq = _cut_batch(eng, q)
+    if kernel == "codes_mins":
+        m1, echo = eng.scan(qop, uq)
+        mins, _ = fk.fused_codes_mins(qop, eng.cwbd, echo, eng.n_valid,
+                                      u=uq, compact=eng.compact,
+                                      mode=precision)
+        ref_m, _, pre_max, cross_max = fk.fused_codes_mins_ref(
+            qop, eng.cwbd, echo, eng.n_valid, u=uq, mode=precision)
+        if precision != "bf16":
+            assert torch.equal(mins, m1)
+    else:
+        mins, echo = eng.scan(qop, uq)
+        ref_m, _, pre_max, cross_max = fk.fused_delta_mins_ref(
+            qop, eng.cwbd, eng.row_data, eng.ovf, eng.n_valid, eng.tiles.S,
+            u=uq, mode=precision)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))

@@ -61,6 +61,38 @@ def test_narrow_shape_rule(M, Ds, narrow):
     assert fk.narrow_shape(M, Ds) is narrow
 
 
+@pytest.mark.parametrize("kernel,M,Ds,form", [
+    ("stream_mins", 8, 16, "mma"), ("stream_mins", 16, 60, "cuda_cores"),
+    ("stream_mins", 8, 24, "cuda_cores"),
+    ("codes_mins", 4, 32, "mma"), ("codes_mins", 16, 60, "wgmma"),
+    ("codes_mins", 12, 8, "wgmma"),
+    ("delta_mins", 8, 4, "mma"), ("delta_mins", 16, 4, "wgmma"),
+    ("delta_mins", 8, 24, "wgmma"),
+    ("stream_mins_pipelined", 8, 16, "cuda_cores")])
+def test_scan_tail_form_rule(kernel, M, Ds, form):
+    """The tail each scan kernel runs, by shape alone: B1, B3 and B5 on
+    mma.sync at the narrow shapes; B3 and B5 on the gathered wgmma tail
+    at the wide ones, where B1 keeps its CUDA-core tails; B7 on the CUDA
+    cores.  The query operand follows the form."""
+    assert fk.scan_tail_form(kernel, M, Ds) == form
+    G, _, Dg = fk.group_geometry(M, Ds)
+    q = torch.arange(G * Dg * 3, dtype=torch.int32).reshape(G * Dg, 3).to(
+        torch.int8)
+    if form == "cuda_cores":
+        assert fk.scan_queries(kernel, q, M, Ds, "int8") is None
+    elif form == "mma":
+        assert torch.equal(fk.scan_queries(kernel, q, M, Ds, "int8"),
+                           fk.transpose_queries(q))
+    else:
+        qt = fk.scan_queries(kernel, q, M, Ds, "int8")
+        assert qt.shape == (3, M * fk.wide_sub_bytes(Ds, "int8"))
+
+
+def test_scan_tail_form_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError):
+        fk.scan_tail_form("decoded_mins", 8, 16)
+
+
 @pytest.mark.parametrize("B", [1, 13, 64])
 def test_decoded_wrapper_on_the_cpu_takes_any_batch(B):
     rng = np.random.default_rng(B)
@@ -96,6 +128,17 @@ def test_bench_stream_rehearses_on_the_cpu(capsys):
     assert out.count("B1 = B3 bit for bit") == 2
     assert "cpu (plain versions; no device time)" in out
     assert "nan ms" in out
+
+
+def test_bench_stream_gist_form_rehearses_on_the_cpu(capsys):
+    """The GIST form's flow with the plain versions: B1, B3 and B5 on the
+    GIST-shape codes and B1 and B3 on the near-distinct set, equal bit for
+    bit at int8 and int16 or it raises."""
+    assert bench_stream.main(["gist", "4096", "16"], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert out.count("B1 = B3 bit for bit") == 4
+    assert out.count("B1 = B5 bit for bit") == 2
+    assert "near-distinct set N=1024" in out
 
 
 @pytest.mark.parametrize("variant", sorted(
