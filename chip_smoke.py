@@ -29,8 +29,11 @@ Phases, each timed:
 6. kernels of the index tiers, on the same data at B=512: the bf16 mode
    of the stream kernel on the stream tiles, the codes kernel (bf16 and
    int16) on the scan-ordered codes, the decoded kernel on the bf16
-   decoded tiles (8192 rows a tile) and the ADC top-k kernel (top-10,
-   4096-row tiles), each against its plain version (bf16 scans within
+   decoded tiles (8192 rows a tile) and the ADC top-k kernel B6 in its
+   three modes (top-10, 4096-row tiles; the merged f32 distances
+   bit-equal to ``adc_query_topk``; each mode beside its bound and the
+   shared-memory floor of its N B M lookups), each against its plain
+   version (bf16 scans within
    2e-5 * (max pre + 2 sqrt(max pre) max ||q||), int16 within 4e-6 *
    (max pre + 2 max|u*cross|), echoes exact, ADC top-k bit-equal) and
    timed with CUDA events beside the plain version, the bound and B1's
@@ -75,7 +78,9 @@ Phases, each timed:
    CUDA events, on the engine benchmark's workload
    (``bench_engines.workload``) at N = 1,048,576, B=512, top-10: the
    distance matrix B8 (bit-equal, compared in row chunks; its library
-   yardstick ``embedding_bag``), B6 at bf16 and bf16x2, B9 at f32, bf16
+   yardstick ``embedding_bag``), B6 at f32, bf16 and bf16x2 (each
+   beside its bound and the shared-memory floor of its N B M lookups, as
+   in phase 6), B9 at f32, bf16
    and bf16x2 (tile 4096), and B10 (tile 2048) on phase 7's dup_heavy
    codes in DeltaTree-DFS order, where the dictionary fits (its width is
    printed).  Every one bit-equal to its plain version;
@@ -104,8 +109,8 @@ Phases, each timed:
    plain 16); B1, B3 and B5 in their three modes and B4 against their
    plain versions (codes exact, int8 bit-equal, int16 and bf16 within the
    bounds of phases 4 and 6), timed, B4 beside its ``torch.mm`` yardstick;
-   B3 and B5 (the gathered ``wgmma`` tail) held to B1 on the same rows
-   (its CUDA-core wide tails: the earlier design, timed in the same run)
+   B1, B3 and B5 all run the gathered ``wgmma`` tail there (B1 and B5
+   with their own decodes), and B3 and B5 are held to B1 on the same rows
    bit for bit at int8 and int16; then B3 and B1 again on the
    near-distinct code set below (lexsort order), timed, B3 against its
    plain version and bit for bit against B1;
@@ -234,6 +239,10 @@ SOURCES = {
 #: sheet): device memory bytes/s; operations/s by type
 HBM_BPS = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+#: shared memory serves 32 four-byte words a clock on each SM; the H100
+#: SXM's boost clock (data sheet)
+SMEM_WORDS_PER_CLOCK = 32
+SM_CLOCK_HZ = 1.98e9
 PACKED_TILE = 4096     # adc_topk_packed's tile
 DICT_TILE = 2048       # adc_topk_tiledict's and TileDictEngine's tile
 ENGINE_BS = (128, 512)
@@ -311,6 +320,14 @@ def lookup_bound(table, inputs, outputs, n_rows, adds_per_m=1):
     b, m, _ = table.shape
     return bound(nbytes(table, *inputs, *outputs),
                  n_rows * b * m * adds_per_m, "f32")
+
+
+def lookup_floor_ms(table, n_rows):
+    """The shared-memory floor of an ADC lookup kernel: N B M table
+    lookups at 32 words a clock on each SM, at the H100's boost clock."""
+    b, m, _ = table.shape
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    return n_rows * b * m / (SMEM_WORDS_PER_CLOCK * sms * SM_CLOCK_HZ) * 1e3
 
 
 def main() -> int:
@@ -657,25 +674,14 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
 
         codes_p = torch.from_numpy(pad_codes(codes, ADC_TILE)).to(dev)
         tab = adc_table(cw, torch.from_numpy(q).to(dev))
-        d, i = ak.adc_topk_tiles(tab, codes_p, N, TOP_K, ADC_TILE)
-        rd, ri = ak.adc_topk_tiles_ref(tab, codes_p, N, TOP_K, ADC_TILE)
-        check(torch.equal(d, rd) and torch.equal(i, ri),
-              "B6 tile top-k not bit-equal to the plain version")
         dm, _ = ak.adc_topk_pallas(tab, codes_p, N, TOP_K, ADC_TILE,
                                    "f32")
         dr, _ = adc_query_topk(tab, codes_p, N, TOP_K, ADC_TILE)
         check(torch.equal(dm, dr), "B6 merged top-k != adc_query_topk")
-        log("B6 adc_topk: tile top-k bit-equal to the plain version; "
-            "merged distances bit-equal to adc_query_topk")
-        ms = cuda_ms(lambda: ak.adc_topk_tiles(tab, codes_p, N, TOP_K,
-                                               ADC_TILE), 10)
-        plain_ms = cuda_ms(lambda: ak.adc_topk_tiles_ref(
-            tab, codes_p, N, TOP_K, ADC_TILE), 2)
-        log(f"{tag} B6 {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
-            f"(N={N}, B={B}, top-{TOP_K}, tile {ADC_TILE})")
-        kernels["adc_topk"] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            **lookup_bound(tab, (codes_p,), (d, i), codes_p.shape[0]))
+        log("B6 adc_topk: merged distances bit-equal to adc_query_topk")
+        # the index's pallas tier runs f32; the bf16 modes' entries come
+        # from phase 11
+        b6_modes(tag, "index tier codes", tab, codes_p, kernels, ("f32",))
 
 
 def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
@@ -1149,9 +1155,12 @@ def phase14_gist(dev, tag, kernels, launches):
 
         tols = {"int8": None, "int16": int16_tol, "bf16": bf16_tol}
         # (label, kernel key, engine, timed through query())
-        specs = [("B1 stream_mins", "stream_mins", stream, "int16", True),
-                 ("B1 stream_mins", "stream_mins", stream, "int8", True),
-                 ("B1 stream_mins", "stream_mins", stream, "bf16", True),
+        specs = [("B1 stream_mins (wgmma)", "stream_mins", stream, "int16",
+                  True),
+                 ("B1 stream_mins (wgmma)", "stream_mins", stream, "int8",
+                  True),
+                 ("B1 stream_mins (wgmma)", "stream_mins", stream, "bf16",
+                  True),
                  ("B3 codes_mins", "codes_mins", codes_eng, "bf16", True),
                  ("B3 codes_mins", "codes_mins", codes_eng, "int16", False),
                  ("B3 codes_mins", "codes_mins", codes_eng, "int8", False),
@@ -1161,7 +1170,7 @@ def phase14_gist(dev, tag, kernels, launches):
                  ("B4 decoded_mins", "decoded_mins",
                   lambda prec: FusedDecodedEngine(cw, codes_scan), "bf16",
                   True)]
-        b1_mins = {}      # B1's mins a mode: the CUDA-core wide tails
+        b1_mins = {}      # B1's mins a mode, on the same wgmma tail
         for label, kernel, make, prec, timed in specs:
             e = make(prec)
             key = (kernel if kernel == "decoded_mins"
@@ -1181,8 +1190,8 @@ def phase14_gist(dev, tag, kernels, launches):
                 same = mins_against_b1(mins, b1_mins[prec], prec,
                                        f"GIST {label} {prec}")
                 log(f"{tag} GIST {label} {prec} (wgmma): bound "
-                    f"{kernels[name]['bound_ms']:.4f} ms, B1 (CUDA-core wide "
-                    f"tail) on the same rows {b1['ms']:.4f} ms; {same}")
+                    f"{kernels[name]['bound_ms']:.4f} ms, B1 (wgmma, its own "
+                    f"decode) on the same rows {b1['ms']:.4f} ms; {same}")
             del echo, mins
             # the engine's own path, as bench_gist drives it
             build.reset_launch_counts()
@@ -1285,8 +1294,8 @@ def phase14_gist(dev, tag, kernels, launches):
                                    f"GIST near-distinct B3 {prec}")
             log(f"{tag} GIST near-distinct (N={GIST_IDX_N}) B3 {prec} "
                 f"{own['b3']['ms']:.4f} ms, bound "
-                f"{own['b3']['bound_ms']:.4f} ms, B1 (CUDA-core wide tail) "
-                f"on the same rows {ms1:.4f} ms; {same}")
+                f"{own['b3']['bound_ms']:.4f} ms, B1 (wgmma, its own "
+                f"decode) on the same rows {ms1:.4f} ms; {same}")
             del e1, e3, mins, m1
 
 
@@ -1421,6 +1430,33 @@ def tiles_vs_plain(tag, label, key, kernels, kernel, plain, reps, bnd):
     return out
 
 
+def b6_modes(tag, what, tab, codes_p, kernels, keep):
+    """B6 in its three modes on one table and code set: each bit-equal to
+    its plain version, timed beside it, its bound and the shared-memory
+    floor of its lookups logged; the modes in ``keep`` go into
+    ``kernels``."""
+    n_pad = codes_p.shape[0]
+    floor = lookup_floor_ms(tab, n_pad)
+    for prec in ak.PRECISIONS:
+        own = {}
+        tiles_vs_plain(
+            tag, f"B6 adc_topk {prec} on the {what} (N={N}, B={B}, "
+                 f"top-{TOP_K}, tile {ADC_TILE})",
+            ak._mode_name("adc_topk", prec), own,
+            lambda: ak.adc_topk_tiles(tab, codes_p, N, TOP_K, ADC_TILE,
+                                      prec),
+            lambda: ak.adc_topk_tiles_ref(tab, codes_p, N, TOP_K, ADC_TILE,
+                                          prec),
+            10, lambda outs: lookup_bound(tab, (codes_p,), outs, n_pad,
+                                          2 if prec == "bf16x2" else 1))
+        (key, entry), = own.items()
+        log(f"{tag} B6 {prec}: bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}), shared-memory lookup floor "
+            f"{floor:.4f} ms")
+        if prec in keep:
+            kernels[key] = entry
+
+
 def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
     """B8, the bf16 modes of B6, B9 in its three precisions and B10
     against their plain versions at N=1,048,576, B=512, top-10, timed.
@@ -1464,17 +1500,8 @@ def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
                                     plain_ms=plain_ms,
                                     **{**bnd, "library_ms": library_ms})
 
-        for prec in ("bf16", "bf16x2"):
-            tiles_vs_plain(
-                tag, f"B6 adc_topk {prec} (tile {ADC_TILE})",
-                f"adc_topk_{prec}", kernels,
-                lambda: ak.adc_topk_tiles(tab, codes_p, N, TOP_K, ADC_TILE,
-                                          prec),
-                lambda: ak.adc_topk_tiles_ref(tab, codes_p, N, TOP_K,
-                                              ADC_TILE, prec),
-                10, lambda outs: lookup_bound(
-                    tab, (codes_p,), outs, n_pad,
-                    2 if prec == "bf16x2" else 1))
+        b6_modes(tag, "engine benchmark codes", tab, codes_p, kernels,
+                 ("bf16", "bf16x2"))
         keys_f32 = None
         for prec in ("f32", "bf16", "bf16x2"):
             keys = tiles_vs_plain(

@@ -27,7 +27,7 @@ random rows.
 The ``gist`` form: the GIST-shape workload (``synth.make_gist_workload``,
 M=16, K=256, Ds=60, default N 1,000,000, B 512) in the DFS order of its
 M=16 DeltaTree (``bench_gist.tree_order``), B1, B3 and B5 as above in
-the three modes (B1 keeps the CUDA-core wide tails there), then B1 and
+the three modes (all three on the gathered ``wgmma`` tail there), then B1 and
 B3 on a near-distinct code set of N/4 rows (the same codebook over
 ``gist_vectors`` of N/8 clusters, seed 1, lexsort order).
 

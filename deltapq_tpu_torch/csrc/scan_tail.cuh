@@ -14,11 +14,9 @@
 // 20-50 times the tensor cores' time, and every subtile minimum costs five
 // shuffles a query.  So the narrow shapes of the stream, codes and
 // slot-tile kernels run the MmaTail structs below (mma.sync, three
-// shuffles for two queries), and the wide shapes of the codes and
-// slot-tile kernels the gathered wgmma tail of wide_mma.cuh.  The
-// CUDA-core tails stay for the pipelined stream kernel (Int8Tail,
-// Bf16Tail) and for the stream kernel's wide shapes (Int16Wide, Int8Wide,
-// Bf16Wide).
+// shuffles for two queries), and their wide shapes (up to M=16, D=1024)
+// the gathered wgmma tail of wide_mma.cuh.  The CUDA-core tails stay for
+// the pipelined stream kernel (Int8Tail, Bf16Tail).
 //
 // The CUDA-core structs share one interface (load the operands; scan the
 // subtiles S_LO <= s < S_HI of a code tile, all 32 by default -- the
@@ -40,7 +38,7 @@
 //              (A = 128a + b); aa, p2, bb are exact int32 sums, cross =
 //              ((16384 aa + 128 p2) + bb) * u[b] in the JAX order with _rn
 //              intrinsics; pre = sum A^2 exact in int64 from per-codeword
-//              norms, rounded once (MmaTail and Int16Wide).
+//              norms, rounded once (MmaTail and wide_mma.cuh).
 //
 // Layout of the work, narrow CUDA-core tails (M <= 8 and M*Ds <= 128;
 // Int8Tail, Bf16Tail): 256 threads; the compact codebook, the norms and
@@ -49,25 +47,10 @@
 // as broadcast 16-byte shared loads, and the subtile min is a warp
 // shuffle-reduce.
 //
-// Wide CUDA-core tails (M <= 16, any M*Ds whose padded query row fits
-// shared memory -- the GIST shape M=16, Ds=60, D=960; Int16Wide, Int8Wide,
-// Bf16Wide): the TPU kernel splits the subspaces into G = 2 groups of 8
-// because a [TILE, 4096] one-hot and a [4096, 1024] codebook do not fit
-// its VMEM; that banding is not carried over.  Here neither the codebook
-// (245,760 B at int8, 491,520 B at int16 and bf16 for M=16, K=256, Ds=60;
-// a block may have 227 KB) nor a row's x^ (480 words) fits, so
-//   * the codebook and the norms stay in global memory -- half a
-//     megabyte, resident in the 50 MB L2, and rows of one subtile mostly
-//     share their codewords in DFS order, so the gathers hit L1;
-//   * only the queries are staged: 32 a block, each subspace padded to
-//     whole 16-byte chunks (Ds=60 -> 64 B), 33 KB a digit plane, so two
-//     blocks fit an SM in every mode;
-//   * a lane walks its row chunk by chunk (m ascending, 4 words of the
-//     codeword at a time) with the partial sums of 16 queries in
-//     registers (48 int32 at int16), and gathers the row again for the
-//     next 16 queries.  The order of the sums is the narrow tails':
-//     ascending m, ascending d within m, so the bf16 chain is the same
-//     chain, and the integer modes are exact in any order.
+// The TPU kernel splits the subspaces of a wide shape into G = 2 groups
+// of 8, because a [TILE, 4096] one-hot and a [4096, 1024] codebook do not
+// fit its VMEM; no tail here carries that banding over (wide_mma.cuh sums
+// a whole row at once).
 
 #pragma once
 
@@ -86,8 +69,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int QB = 64;                   // queries per block
 constexpr int MMAX = 8;                  // code bytes per row, narrow tails
 constexpr int MSW = 16;                  // code bytes per row, wide tails
-constexpr int QBW = 32;                  // queries per block, wide tails
-constexpr int QS = 16;                   // queries per register pass (wide)
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ inline size_t align16(size_t x) {
@@ -338,10 +319,11 @@ struct Bf16Tail {
 // int16, 1 bf16, 2 int8 (the kernels' mode argument); DWP is the 32-bit
 // words of a row and digit plane, padded to whole k-steps of eight words
 // (int8 and int16: four digits a word, D <= 4*DWP; bf16: a pair a word,
-// D <= 2*DWP).  Operands as Int8Tail's, Bf16Tail's and (int16)
-// Int16Wide's, but for the queries: qt is the
-// transposed operand [B, planes*Dg] (a query's D values contiguous, zero
-// past D), so that a query block is staged with plain 16-byte copies.
+// D <= 2*DWP).  Operands as Int8Tail's and Bf16Tail's (int16: cw int32
+// [2, M, K, Ds/4], the a- then the b-digit plane, nrm int64 [M, K], the
+// exact sum of A^2), but for the queries: qt is the transposed operand
+// [B, planes*Dg] (a query's D values contiguous, zero past D), so that a
+// query block is staged with plain 16-byte copies.
 //
 // A warp owns a 32-row subtile as two m-fragments and meets the block's
 // queries eight at a time (one n-fragment): int8 and int16 run
@@ -598,365 +580,5 @@ struct MmaTail {
 template <int DWP> using Int16Mma = MmaTail<0, DWP>;
 template <int DWP> using Bf16Mma = MmaTail<1, DWP>;
 template <int DWP> using Int8Mma = MmaTail<2, DWP>;
-
-// ---- wide tails on the CUDA cores (the stream kernel's) -------------------
-// A query plane in shared memory is [QBW][qstr] 32-bit words: subspace m
-// of query b starts at word b*qstr + m*4*WC and holds WC 16-byte chunks,
-// zero past the subspace's real bytes; qstr = M*4*WC + 4 (the four spare
-// words keep 16-byte alignment and spread the queries over the banks
-// while the block fills the plane).  The q operand keeps the JAX layout:
-// group g = m / Mg of a plane starts at row g*Dgp, subspace m at
-// (m % Mg)*Ds inside it.
-struct WideGeom {
-  int WC;        // 16-byte chunks per subspace
-  int qstr;      // words per query and plane
-  int Mg, Dgp;   // subspaces per group, rows per group of the q operand
-};
-
-__host__ __device__ inline WideGeom wide_geom(int M, int sub_bytes, int Dg) {
-  WideGeom g;
-  g.WC = (sub_bytes + 15) / 16;
-  g.qstr = M * 4 * g.WC + 4;
-  const int G = (M + 7) / 8;
-  g.Mg = (M + G - 1) / G;
-  g.Dgp = Dg / G;
-  return g;
-}
-
-// One int8 plane of q [*, B] (its rows from row0 on) -> plane_s.
-__device__ inline void wide_load_plane8(int* plane_s, const int8_t* q,
-                                        int row0, const WideGeom& g, int B,
-                                        int qb0, int M, int Ds) {
-  const int W = 4 * g.WC;
-  for (int i = threadIdx.x; i < QBW * M * W; i += THREADS) {
-    const int b = i % QBW, mw = i / QBW;   // consecutive b: coalesced
-    const int m = mw / W, w = mw - m * W;
-    const int col = row0 + (m / g.Mg) * g.Dgp + (m % g.Mg) * Ds;
-    unsigned word = 0u;
-    if (qb0 + b < B) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = 4 * w + j;
-        if (d < Ds)
-          word |= (unsigned)(uint8_t)q[(size_t)(col + d) * B + qb0 + b]
-                  << (8 * j);
-      }
-    }
-    plane_s[b * g.qstr + m * W + w] = (int)word;
-  }
-}
-
-__device__ inline void wide_load_u(float* u_s, const float* u, int B,
-                                   int qb0) {
-  for (int b = threadIdx.x; b < QBW; b += THREADS)
-    u_s[b] = (qb0 + b < B) ? u[qb0 + b] : 1.0f;
-}
-
-// int8 mode, wide.  Operands as Int8Tail's: q int8 [Dg, B]; cw int32
-// [M, K, Ds/4]; nrm int32 [M, K] (both read from global memory); u f32.
-struct Int8Wide {
-  static constexpr int MS = MSW, QBLK = QBW;
-  // shared memory: q [QBW, qstr] words | u
-  struct Layout {
-    size_t q, u, total;
-  };
-  __host__ __device__ static Layout layout(int M, int, int Ds) {
-    const WideGeom g = wide_geom(M, Ds, 0);
-    Layout s;
-    s.q = 0;
-    s.u = sizeof(int) * QBW * g.qstr;
-    s.total = align16(s.u + sizeof(float) * QBW);
-    return s;
-  }
-
-  __device__ static void load(unsigned char* smem, const void* q_,
-                              const void*, const void*, const float* u,
-                              int B, int Dg, int qb0, int M, int K, int Ds) {
-    const Layout L = layout(M, K, Ds);
-    wide_load_plane8(reinterpret_cast<int*>(smem + L.q),
-                     static_cast<const int8_t*>(q_), 0,
-                     wide_geom(M, Ds, Dg), B, qb0, M, Ds);
-    wide_load_u(reinterpret_cast<float*>(smem + L.u), u, B, qb0);
-  }
-
-  // codes_s [TILE, MSW] u8; writes mins[(t*32 + s)*B + qb0 + b]
-  __device__ static void scan(const unsigned char* smem,
-                              const uint8_t* codes_s, float* mins, int t,
-                              int B, int qb0, int n_valid, int M, int K,
-                              int Ds, const void* cw_, const void* nrm_) {
-    const Layout L = layout(M, K, Ds);
-    const WideGeom g = wide_geom(M, Ds, 0);
-    const int WS = Ds / 4, W = 4 * g.WC;
-    const int* cw = static_cast<const int*>(cw_);
-    const int* nrm = static_cast<const int*>(nrm_);
-    const int* q_s = reinterpret_cast<const int*>(smem + L.q);
-    const float* u_s = reinterpret_cast<const float*>(smem + L.u);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nb = min(QBW, B - qb0);
-    for (int s = warp; s < TILE / SUB; s += WARPS) {
-      const int r = s * SUB + lane;
-      const uint8_t* crow = codes_s + r * MS;
-      int pre_i = 0;
-      for (int m = 0; m < M; ++m) pre_i += __ldg(nrm + m * K + crow[m]);
-      const float pre = __int2float_rn(pre_i);   // exact: < 2^24
-      const bool valid = (long long)t * TILE + r < n_valid;
-      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
-      for (int q0 = 0; q0 < nb; q0 += QS) {
-        int acc[QS];
-#pragma unroll
-        for (int bi = 0; bi < QS; ++bi) acc[bi] = 0;
-        for (int m = 0; m < M; ++m) {
-          const int* cwp = cw + ((size_t)m * K + crow[m]) * WS;
-          const int* qm = q_s + q0 * g.qstr + m * W;
-          for (int c = 0; c < g.WC; ++c) {
-            int x[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              x[j] = 4 * c + j < WS ? __ldg(cwp + 4 * c + j) : 0;
-#pragma unroll
-            for (int bi = 0; bi < QS; ++bi) {
-              const int4 Q = *reinterpret_cast<const int4*>(
-                  qm + bi * g.qstr + 4 * c);
-              acc[bi] = __dp4a(x[0], Q.x, acc[bi]);
-              acc[bi] = __dp4a(x[1], Q.y, acc[bi]);
-              acc[bi] = __dp4a(x[2], Q.z, acc[bi]);
-              acc[bi] = __dp4a(x[3], Q.w, acc[bi]);
-            }
-          }
-        }
-        float mine = CUDART_INF_F;
-#pragma unroll
-        for (int bi = 0; bi < QS; ++bi) {
-          const float cross =
-              __fmul_rn(__int2float_rn(acc[bi]), u_s[q0 + bi]);
-          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
-                          : CUDART_INF_F;
-          d = warp_min(d);
-          if (lane == bi) mine = d;
-        }
-        if (lane < QS && q0 + lane < nb) out[q0 + lane] = mine;
-      }
-    }
-  }
-};
-
-// int16 mode, wide.  Operands: q int8 [2*Dg, B] (all a-planes, then all
-// b-planes); cw int32 [2, M, K, Ds/4] (four int8 digits a word, the a-
-// then the b-plane); nrm int64 [M, K] (sum of A^2, exact); u f32.  aa, p2 and bb are summed as integers over the whole
-// row (|aa| <= 127^2 * M*Ds, far inside int32) and rounded once; the TPU
-// kernel rounds them once per group and adds the groups in f32.
-struct Int16Wide {
-  static constexpr int MS = MSW, QBLK = QBW;
-  // shared memory: qa [QBW, qstr] words | qb [QBW, qstr] words | u
-  struct Layout {
-    size_t qa, qb, u, total;
-  };
-  __host__ __device__ static Layout layout(int M, int, int Ds) {
-    const WideGeom g = wide_geom(M, Ds, 0);
-    Layout s;
-    s.qa = 0;
-    s.qb = sizeof(int) * QBW * g.qstr;
-    s.u = 2 * s.qb;
-    s.total = align16(s.u + sizeof(float) * QBW);
-    return s;
-  }
-
-  __device__ static void load(unsigned char* smem, const void* q_,
-                              const void*, const void*, const float* u,
-                              int B, int Dg, int qb0, int M, int K, int Ds) {
-    const Layout L = layout(M, K, Ds);
-    const WideGeom g = wide_geom(M, Ds, Dg);
-    auto* q = static_cast<const int8_t*>(q_);
-    wide_load_plane8(reinterpret_cast<int*>(smem + L.qa), q, 0, g, B, qb0,
-                     M, Ds);
-    wide_load_plane8(reinterpret_cast<int*>(smem + L.qb), q, Dg, g, B, qb0,
-                     M, Ds);
-    wide_load_u(reinterpret_cast<float*>(smem + L.u), u, B, qb0);
-  }
-
-  __device__ static void scan(const unsigned char* smem,
-                              const uint8_t* codes_s, float* mins, int t,
-                              int B, int qb0, int n_valid, int M, int K,
-                              int Ds, const void* cw_, const void* nrm_) {
-    const Layout L = layout(M, K, Ds);
-    const WideGeom g = wide_geom(M, Ds, 0);
-    const int WS = Ds / 4, W = 4 * g.WC;
-    const size_t MKW = (size_t)M * K * WS;
-    const int* cw = static_cast<const int*>(cw_);
-    const long long* nrm = static_cast<const long long*>(nrm_);
-    const int* qa_s = reinterpret_cast<const int*>(smem + L.qa);
-    const int* qb_s = reinterpret_cast<const int*>(smem + L.qb);
-    const float* u_s = reinterpret_cast<const float*>(smem + L.u);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nb = min(QBW, B - qb0);
-    for (int s = warp; s < TILE / SUB; s += WARPS) {
-      const int r = s * SUB + lane;
-      const uint8_t* crow = codes_s + r * MS;
-      long long pre_i = 0;
-      for (int m = 0; m < M; ++m) pre_i += __ldg(nrm + m * K + crow[m]);
-      const float pre = __ll2float_rn(pre_i);   // exact integer, rounded once
-      const bool valid = (long long)t * TILE + r < n_valid;
-      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
-      for (int q0 = 0; q0 < nb; q0 += QS) {
-        int aa[QS], p2[QS], bb[QS];
-#pragma unroll
-        for (int bi = 0; bi < QS; ++bi) aa[bi] = p2[bi] = bb[bi] = 0;
-        for (int m = 0; m < M; ++m) {
-          const int* cwp = cw + ((size_t)m * K + crow[m]) * WS;
-          const int off = q0 * g.qstr + m * W;
-          for (int c = 0; c < g.WC; ++c) {
-            int xa[4], xb[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const bool in = 4 * c + j < WS;
-              xa[j] = in ? __ldg(cwp + 4 * c + j) : 0;
-              xb[j] = in ? __ldg(cwp + MKW + 4 * c + j) : 0;
-            }
-#pragma unroll
-            for (int bi = 0; bi < QS; ++bi) {
-              const int at = off + bi * g.qstr + 4 * c;
-              const int4 A = *reinterpret_cast<const int4*>(qa_s + at);
-              const int4 C = *reinterpret_cast<const int4*>(qb_s + at);
-              aa[bi] = __dp4a(xa[0], A.x, aa[bi]);
-              aa[bi] = __dp4a(xa[1], A.y, aa[bi]);
-              aa[bi] = __dp4a(xa[2], A.z, aa[bi]);
-              aa[bi] = __dp4a(xa[3], A.w, aa[bi]);
-              p2[bi] = __dp4a(xa[0], C.x, p2[bi]);
-              p2[bi] = __dp4a(xa[1], C.y, p2[bi]);
-              p2[bi] = __dp4a(xa[2], C.z, p2[bi]);
-              p2[bi] = __dp4a(xa[3], C.w, p2[bi]);
-              p2[bi] = __dp4a(xb[0], A.x, p2[bi]);
-              p2[bi] = __dp4a(xb[1], A.y, p2[bi]);
-              p2[bi] = __dp4a(xb[2], A.z, p2[bi]);
-              p2[bi] = __dp4a(xb[3], A.w, p2[bi]);
-              bb[bi] = __dp4a(xb[0], C.x, bb[bi]);
-              bb[bi] = __dp4a(xb[1], C.y, bb[bi]);
-              bb[bi] = __dp4a(xb[2], C.z, bb[bi]);
-              bb[bi] = __dp4a(xb[3], C.w, bb[bi]);
-            }
-          }
-        }
-        float mine = CUDART_INF_F;
-#pragma unroll
-        for (int bi = 0; bi < QS; ++bi) {
-          float cross = __fadd_rn(
-              __fadd_rn(__fmul_rn(16384.0f, __int2float_rn(aa[bi])),
-                        __fmul_rn(128.0f, __int2float_rn(p2[bi]))),
-              __int2float_rn(bb[bi]));
-          cross = __fmul_rn(cross, u_s[q0 + bi]);
-          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
-                          : CUDART_INF_F;
-          d = warp_min(d);
-          if (lane == bi) mine = d;
-        }
-        if (lane < QS && q0 + lane < nb) out[q0 + lane] = mine;
-      }
-    }
-  }
-};
-
-// bf16 mode, wide.  Operands as Bf16Tail's: q bf16 [Dg, B]; cw [M, K,
-// Ds/2] bf16 pairs; nrm f32 [M, K].  The queries stay bf16 pairs in
-// shared memory (f32 rows of 1024 dims for 32 queries would not leave
-// room for a second block) and are widened as they are used.
-struct Bf16Wide {
-  static constexpr int MS = MSW, QBLK = QBW;
-  // shared memory: q [QBW, qstr] words (bf16 pairs)
-  struct Layout {
-    size_t q, total;
-  };
-  __host__ __device__ static Layout layout(int M, int, int Ds) {
-    const WideGeom g = wide_geom(M, 2 * Ds, 0);
-    Layout s;
-    s.q = 0;
-    s.total = align16(sizeof(unsigned) * QBW * g.qstr);
-    return s;
-  }
-
-  __device__ static void load(unsigned char* smem, const void* q_,
-                              const void*, const void*, const float*, int B,
-                              int Dg, int qb0, int M, int K, int Ds) {
-    const Layout L = layout(M, K, Ds);
-    const WideGeom g = wide_geom(M, 2 * Ds, Dg);
-    auto* q = static_cast<const uint16_t*>(q_);
-    unsigned* q_s = reinterpret_cast<unsigned*>(smem + L.q);
-    const int W = 4 * g.WC;
-    for (int i = threadIdx.x; i < QBW * M * W; i += THREADS) {
-      const int b = i % QBW, mw = i / QBW;   // consecutive b: coalesced
-      const int m = mw / W, w = mw - m * W;
-      const int col = (m / g.Mg) * g.Dgp + (m % g.Mg) * Ds + 2 * w;
-      unsigned word = 0u;
-      if (qb0 + b < B && 2 * w < Ds)
-        word = (unsigned)q[(size_t)col * B + qb0 + b]
-               | (unsigned)q[(size_t)(col + 1) * B + qb0 + b] << 16;
-      q_s[b * g.qstr + m * W + w] = word;
-    }
-  }
-
-  __device__ static void scan(const unsigned char* smem,
-                              const uint8_t* codes_s, float* mins, int t,
-                              int B, int qb0, int n_valid, int M, int K,
-                              int Ds, const void* cw_, const void* nrm_) {
-    const Layout L = layout(M, K, Ds);
-    const WideGeom g = wide_geom(M, 2 * Ds, 0);
-    const int WH = Ds / 2, W = 4 * g.WC;
-    const unsigned* cw = static_cast<const unsigned*>(cw_);
-    const float* nrm = static_cast<const float*>(nrm_);
-    const unsigned* q_s = reinterpret_cast<const unsigned*>(smem + L.q);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nb = min(QBW, B - qb0);
-    for (int s = warp; s < TILE / SUB; s += WARPS) {
-      const int r = s * SUB + lane;
-      const uint8_t* crow = codes_s + r * MS;
-      float pre = 0.0f;
-      for (int m = 0; m < M; ++m)
-        pre = __fadd_rn(pre, __ldg(nrm + m * K + crow[m]));
-      const bool valid = (long long)t * TILE + r < n_valid;
-      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
-      for (int q0 = 0; q0 < nb; q0 += QS) {
-        float acc[QS];
-#pragma unroll
-        for (int bi = 0; bi < QS; ++bi) acc[bi] = 0.0f;
-        for (int m = 0; m < M; ++m) {
-          const unsigned* cwp = cw + ((size_t)m * K + crow[m]) * WH;
-          const unsigned* qm = q_s + q0 * g.qstr + m * W;
-          for (int c = 0; c < g.WC; ++c) {
-            float x[8];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const unsigned xw = 4 * c + j < WH ? __ldg(cwp + 4 * c + j) : 0u;
-              x[2 * j] = bf16_lo(xw);
-              x[2 * j + 1] = bf16_hi(xw);
-            }
-#pragma unroll
-            for (int bi = 0; bi < QS; ++bi) {
-              const uint4 Q = *reinterpret_cast<const uint4*>(
-                  qm + bi * g.qstr + 4 * c);
-              float a = acc[bi];
-              a = fmaf(x[0], bf16_lo(Q.x), a);
-              a = fmaf(x[1], bf16_hi(Q.x), a);
-              a = fmaf(x[2], bf16_lo(Q.y), a);
-              a = fmaf(x[3], bf16_hi(Q.y), a);
-              a = fmaf(x[4], bf16_lo(Q.z), a);
-              a = fmaf(x[5], bf16_hi(Q.z), a);
-              a = fmaf(x[6], bf16_lo(Q.w), a);
-              a = fmaf(x[7], bf16_hi(Q.w), a);
-              acc[bi] = a;
-            }
-          }
-        }
-        float mine = CUDART_INF_F;
-#pragma unroll
-        for (int bi = 0; bi < QS; ++bi) {
-          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, acc[bi]))
-                          : CUDART_INF_F;
-          d = warp_min(d);
-          if (lane == bi) mine = d;
-        }
-        if (lane < QS && q0 + lane < nb) out[q0 + lane] = mine;
-      }
-    }
-  }
-};
 
 }  // namespace scan_tail

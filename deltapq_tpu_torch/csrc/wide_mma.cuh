@@ -1,13 +1,14 @@
-// The wide scan tail on the tensor cores (wgmma), shared by the codes kernel
-// (codes_mins.cu) and the slot-tile kernel (delta_mins.cu) at every shape
-// the narrow tails do not take (M <= 16, D up to 1024; the GIST shape M=16,
-// Ds=60): code rows -> x^ gathered from the codebook -> pre - 2 cross ->
-// 32-row subtile minima.
+// The wide scan tail on the tensor cores (wgmma), shared by the stream
+// kernel (stream_mins.cu), the codes kernel (codes_mins.cu) and the
+// slot-tile kernel (delta_mins.cu) at every shape the narrow tails do not
+// take (M <= 16, D up to 1024; the GIST shape M=16, Ds=60): code rows ->
+// x^ gathered from the codebook -> pre - 2 cross -> 32-row subtile minima.
 //
 // Replaces, for those shapes, the tail of the TPU kernels
-// deltapq_tpu/ops/fused_pallas.py: _codes_mins_kernel and
-// _delta_mins_kernel (_scan_tail, its int16, int8 and bf16 branches), which
-// decode codes -> x^ with a one-hot matmul in two groups of 8 subspaces.
+// deltapq_tpu/ops/fused_pallas.py: _stream_mins_kernel, _codes_mins_kernel
+// and _delta_mins_kernel (_scan_tail, its int16, int8 and bf16 branches),
+// which decode codes -> x^ with a one-hot matmul in two groups of 8
+// subspaces.
 //
 // What bounds it on an H100: the products, 2 N B D operations (x4 at
 // int16), 0.50 ms (int8), 0.99 (bf16), 1.99 (int16) at N=1M, B=512, D=960.
@@ -47,9 +48,10 @@
 //   * pre comes from the per-codeword norm tables, summed over m ascending
 //     (int64 at int16, int32 at int8, f32 __fadd_rn at bf16) by the first
 //     warpgroup while the first slice's products are in flight.  The
-//     epilogue is the CUDA-core wide tails' arithmetic with _rn intrinsics,
-//     so int8 and int16 give their bits (integer sums are exact in any
-//     order) and bf16 differs only by the order of the f32 sums.
+//     epilogue is the narrow tails' arithmetic (scan_tail.cuh) with _rn
+//     intrinsics, so int8 and int16 give the plain version's bits (integer
+//     sums are exact in any order) and bf16 differs only by the order of
+//     the f32 sums.
 //   * Subtile minima in registers: four values in the thread and three
 //     shuffles for two queries; 64 minima leave a warp as one 256-byte run.
 //   * The ring runs on across items, so an item's epilogue overlaps the

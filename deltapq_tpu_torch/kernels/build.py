@@ -42,7 +42,7 @@ _I = ctypes.c_int
 #: C signatures: every pointer and the stream are ``c_void_p`` (a plain
 #: int would be cut to 32 bits), every size ``c_int``.
 SIGNATURES = {
-    # q, qt, cw, nrm, row_data, vals, meta, u, mins, codes_out,
+    # qt, cw, cw_pad, nrm, row_data, vals, meta, u, mins, codes_out,
     # B, Dg, nT, n_valid, M, K, Ds, mode, stream
     "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -61,9 +61,9 @@ SIGNATURES = {
     # qt, xt, mins, B, D, n_rows, n_valid, stream
     "decoded_mins_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # tab, codes, out_d, out_i, B, M, K, n_pad, tile_n, n_valid, top_k,
-    # QC, code_bytes, prec, stream
+    # code_bytes, prec, stream
     "adc_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P],
+                        _I, _P],
     # tab, codes, out, B, M, K, n, rows, QC, code_bytes, stream
     "adc_dists_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # tab, codes, out, B, M, K, n_pad, tile_n, n_valid, top_k, QC,

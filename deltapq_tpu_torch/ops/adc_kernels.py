@@ -10,7 +10,8 @@ with one-hot matmuls; on the card each is a lookup in shared memory
   ``_adc_dists_kernel``): the full f32 distance matrix [B, N].
 * ``adc_topk_pallas``   -> ``csrc/adc_topk.cu`` (replaces
   ``_adc_topk_kernel``): distances per tile, the tile's ``top_k``
-  smallest per query by mask-argmin, merged across tiles here.
+  smallest per query as mask-argmin selects them (a warp's sorted
+  candidates in registers on the card), merged across tiles here.
 * ``adc_topk_packed``   -> ``csrc/adc_topk_packed.cu`` (replaces
   ``_adc_topk_packed_kernel``): the same distances, selected on an int32
   key (order-preserving distance bits, the low 12 bits the tile-local
@@ -56,6 +57,9 @@ TILEDICT_SMEM = 48 * 1024
 KERNEL_THREADS = 256
 #: rows per tile of ``adc_topk_pallas`` (the tile ``query_plain`` uses)
 TILE_N = 4096
+#: ``adc_topk_tiles`` on the card: the 4*M*K bytes of one warp's tables
+#: must fit beside a 32 KB code chunk
+TOPK_WARP_TABLES = 192 * 1024
 #: database rows a block of the distance-matrix kernel walks
 DISTS_ROWS = 8192
 _ROW_BITS = 12  # tile-local row id packed into the low mantissa bits
@@ -75,15 +79,14 @@ def _mode_name(kernel: str, precision: str) -> str:
     return kernel if precision == "f32" else f"{kernel}_{precision}"
 
 
-def _queries_per_block(M: int, K: int, tile_n: int,
-                       entry_bytes: int = 4) -> int:
+def _queries_per_block(M: int, K: int, entry_bytes: int = 4) -> int:
     """Queries whose [M*K] table rows (4- or 2-byte entries) fit the
-    budget beside ``tile_n`` f32 distances."""
-    qc = (SMEM_BUDGET - 4 * tile_n) // (entry_bytes * M * K)
+    budget."""
+    qc = SMEM_BUDGET // (entry_bytes * M * K)
     if qc < 1:
         raise NotImplementedError(
             f"adc kernels: a [{M}*{K}] table of {entry_bytes}-byte entries "
-            f"and a {tile_n}-row tile do not fit the kernel's shared memory")
+            f"does not fit the kernel's shared memory")
     return min(qc, QC_MAX)
 
 
@@ -185,7 +188,7 @@ def adc_dists_pallas(table: torch.Tensor, codes: torch.Tensor,
     tab = table.reshape(B, M * K)
     _check_cuda_operands("adc_dists", table, tab, codes)
     n = codes.shape[0]
-    qc = _queries_per_block(M, K, 0)
+    qc = _queries_per_block(M, K)
     out = torch.empty((B, n), dtype=torch.float32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = build.library().adc_dists_launch(
@@ -245,9 +248,12 @@ def adc_topk_tiles(table: torch.Tensor, codes: torch.Tensor, n_valid: int,
     if tile_n % KERNEL_THREADS:
         raise ValueError(f"adc_topk: tile_n % {KERNEL_THREADS} == 0 "
                          f"required")
+    if 4 * M * K > TOPK_WARP_TABLES:
+        raise NotImplementedError(
+            f"adc_topk: one warp's tables (4*M*K = {4 * M * K} bytes) must "
+            f"fit {TOPK_WARP_TABLES} bytes of shared memory")
     tab = _kernel_table(table, precision)
     _check_cuda_operands("adc_topk", table, tab, codes)
-    qc = _queries_per_block(M, K, tile_n, _ENTRY_BYTES[precision])
     nt = codes.shape[0] // tile_n
     out_d = torch.empty((nt, top_k, B), dtype=torch.float32,
                         device=table.device)
@@ -257,7 +263,7 @@ def adc_topk_tiles(table: torch.Tensor, codes: torch.Tensor, n_valid: int,
     err = build.library().adc_topk_launch(
         tab.data_ptr(), codes.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), B, M, K, codes.shape[0], tile_n, int(n_valid),
-        top_k, qc, codes.element_size(), prec, stream)
+        top_k, codes.element_size(), prec, stream)
     name = _mode_name("adc_topk", precision)
     build.check(err, name)
     build.count(name)
@@ -383,7 +389,7 @@ def adc_topk_packed_tiles(table: torch.Tensor, codes: torch.Tensor,
     B, M, K = table.shape
     tab = _kernel_table(table, precision)
     _check_cuda_operands("adc_topk_packed", table, tab, codes)
-    qc = _queries_per_block(M, K, 0, _ENTRY_BYTES[precision])
+    qc = _queries_per_block(M, K, _ENTRY_BYTES[precision])
     out = torch.empty((codes.shape[0] // tile_n, top_k, B),
                       dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream

@@ -8,17 +8,18 @@ module and a launch count in ``kernels.build.LAUNCHES``:
 
 * ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
   ``_stream_mins_kernel``): decode stream tiles, the scan, 32-row
-  subtile minima and the decoded-codes echo (M <= 8 with M*Ds <= 128:
-  products on the tensor cores, queries staged from
-  ``transpose_queries(q)``); with ``pipelined=True`` ->
+  subtile minima and the decoded-codes echo, on the tensor cores at
+  every shape (``scan_tail_form``: ``mma.sync`` tails with queries staged
+  from ``transpose_queries(q)`` at M <= 8 with M*Ds <= 128, the gathered
+  ``wgmma`` tail of ``csrc/wide_mma.cuh`` beyond); with ``pipelined=True`` ->
   ``csrc/stream_mins_pipelined.cu`` (replaces
   ``_stream_mins_pipelined_kernel``): the same function, one block
   walking a run of tiles with the next tile's decode inside the scan;
 * ``fused_codes_mins`` -> ``csrc/codes_mins.cu`` (replaces
   ``_codes_mins_kernel``): the scan on resident u8 codes, on the tensor
-  cores at every shape (``scan_tail_form``: the stream kernel's narrow
-  tails, and at the wide shapes a ``wgmma`` tail whose A operand is
-  gathered from ``padded_codebook`` by the codes, ``csrc/wide_mma.cuh``);
+  cores at every shape with the stream kernel's tails (at the wide
+  shapes the ``wgmma`` tail's A operand is gathered from
+  ``padded_codebook`` by the codes);
 * ``fused_delta_mins`` -> ``csrc/delta_mins.cu`` (replaces
   ``_delta_mins_kernel``): decode v1 slot tiles (mask plane, S value
   slots, overflow bank), then the codes kernel's tails;
@@ -45,7 +46,7 @@ reads int8 against bf16 from the operand types:
 (G, Mg, Dg) is ``group_geometry(M, Ds)``: one group for M <= 8, two
 groups of 8 subspaces for the GIST shape M=16.  The operands keep the JAX
 package's grouped layout; the CUDA kernels read it as it is and band the
-work their own way (``csrc/scan_tail.cuh``).  A call whose operand types
+work their own way (``csrc/scan_tail.cuh``, ``csrc/wide_mma.cuh``).  A call whose operand types
 or shapes do not match its mode raises.  The
 distance decomposition, the digit arithmetic and the exactness
 certificate are the JAX package's; see the docstrings there.
@@ -499,20 +500,18 @@ def scan_tail_form(kernel: str, M: int, Ds: int) -> str:
     * ``"mma"``: the narrow shapes of ``stream_mins``, ``codes_mins`` and
       ``delta_mins`` -- ``MmaTail`` (``mma.sync``), queries from
       ``transpose_queries(q)``;
-    * ``"wgmma"``: the wide shapes of ``codes_mins`` and ``delta_mins``
-      -- the gathered ``wgmma`` tail (``csrc/wide_mma.cuh``), queries
-      from ``pad_transpose_queries``, codebook ``padded_codebook``;
-    * ``"cuda_cores"``: the wide shapes of ``stream_mins`` and every
-      shape of ``stream_mins_pipelined`` -- the CUDA-core tails, queries
-      as ``q`` is."""
+    * ``"wgmma"``: the wide shapes of ``stream_mins``, ``codes_mins`` and
+      ``delta_mins`` -- the gathered ``wgmma`` tail
+      (``csrc/wide_mma.cuh``), queries from ``pad_transpose_queries``,
+      codebook ``padded_codebook``;
+    * ``"cuda_cores"``: every shape of ``stream_mins_pipelined`` -- the
+      CUDA-core narrow tails, queries as ``q`` is."""
     if kernel not in ("stream_mins", "codes_mins", "delta_mins",
                       "stream_mins_pipelined"):
         raise ValueError(f"no scan kernel {kernel!r}")
     if kernel == "stream_mins_pipelined":
         return "cuda_cores"
-    if narrow_shape(M, Ds):
-        return "mma"
-    return "cuda_cores" if kernel == "stream_mins" else "wgmma"
+    return "mma" if narrow_shape(M, Ds) else "wgmma"
 
 
 def scan_queries(kernel: str, q: torch.Tensor, M: int, Ds: int, mode: str
@@ -643,7 +642,7 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
 
     def launch(qt, cw, cw_pad, nrm, u_, Ds, out, stream):
         return build.library().stream_mins_launch(
-            q.data_ptr(), qt, cw, nrm,
+            qt, cw, cw_pad, nrm,
             row_data.data_ptr(), vals.data_ptr(), meta.data_ptr(), u_, out,
             codes.data_ptr(), B, D2 // (2 if code == 0 else 1), nt,
             int(n_valid), M, K, Ds, code, stream)

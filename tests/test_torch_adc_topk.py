@@ -13,7 +13,9 @@ from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import adc as padc
 from deltapq_tpu_torch.ops import adc_kernels as ak
 
-from _torch_port import CPU, assert_ids_up_to_ties, codebook, structured_codes
+from _torch_port import (ADC_TOPK_CASES, CPU, adc_topk_case,
+                         adc_topk_tiles_model, assert_ids_up_to_ties,
+                         codebook, structured_codes)
 
 
 @pytest.fixture
@@ -85,6 +87,31 @@ def test_tile_topk_semantics():
     assert build.launch_counts() == before       # CPU tensors: the plain one
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("case", [c[0] for c in ADC_TOPK_CASES])
+def test_tile_topk_plain_edge_cases(case, precision):
+    """The plain version on the cases the card's warp selection must get
+    right (tests/_torch_port.py): a tie at the top_k-th place between
+    rows 5 and 600 of a tile, a tile with no valid row, top_k beyond a
+    tile's valid rows, int32 codes -- against the NumPy model of what
+    top_k rounds of mask-argmin give."""
+    table, codes, n_valid, tile, k = adc_topk_case(case)
+    tables = [t.numpy() for t in ak._tables_f32(torch.from_numpy(table),
+                                                 precision)]
+    md, mi = adc_topk_tiles_model(table, codes, n_valid, k, tile, tables)
+    d, i = ak.adc_topk_tiles(torch.from_numpy(table),
+                             torch.from_numpy(codes), n_valid, k, tile,
+                             precision)
+    assert np.array_equal(d.numpy(), md) and np.array_equal(i.numpy(), mi)
+    if case == "ties":
+        # the nine -400 rows, then row 5 ahead of row 600 at -360
+        assert (i.numpy()[0, :, 0].tolist()
+                == [1, 70, 200, 333, 512, 700, 801, 950, 1023, 5])
+    else:
+        assert np.isinf(md[-1]).all() and (mi[-1] == 0).all()  # empty
+        assert np.isinf(md[-2, -1]).all()     # fewer valid rows than top_k
+
+
 @pytest.mark.parametrize("engine", ["xla", "pallas", "auto"])
 @pytest.mark.parametrize("M,K,Ds", [(8, 256, 4), (4, 32, 8)])
 def test_query_plain_matches_jax(engine, M, K, Ds):
@@ -115,3 +142,29 @@ def test_bad_operands_raise():
                          np.zeros((2, 8), np.float32),
                          np.zeros((10, 4), np.uint8), engine="nope",
                          device=CPU)
+
+
+def test_bench_adc_rehearses_on_the_cpu(capsys):
+    """The B6 benchmark's flow with the plain versions: every mode in both
+    row orders held to the plain version; no time printed as a device
+    time."""
+    from deltapq_tpu_torch import bench_adc
+    assert bench_adc.main(["6000", "8"], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert out.count("bit-equal to its plain version") == 6
+    assert "cpu (plain versions; no device time)" in out
+    assert "nan ms" in out
+
+
+@pytest.mark.parametrize("variant", ["whole", "group8", "group16",
+                                     "warps16", "no-select"])
+def test_adc_ablation_variants_match_the_kernel_source(variant):
+    """Each ablation of ``adc_topk.cu`` replaces a line that is in the
+    source exactly once, so no variant silently equals the whole kernel."""
+    from deltapq_tpu_torch.kernels import ablate_adc
+    src = (build.CSRC_DIR / "adc_topk.cu").read_text()
+    assert set(ablate_adc.VARIANTS) == {"whole", "group8", "group16",
+                                        "warps16", "no-select"}
+    out = ablate_adc.variant_source(src, variant)
+    assert (out == src) == (variant == "whole")
+    assert "adc_topk_launch" in out

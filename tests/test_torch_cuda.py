@@ -18,6 +18,8 @@ from deltapq_tpu_torch.ops.delta_tiles import decode_delta_tiles
 from deltapq_tpu_torch.ops.fused import FusedCompressedEngine
 from deltapq_tpu_torch.ops.stream_tiles import decode_stream_tiles
 
+from _torch_port import ADC_TOPK_CASES, adc_topk_case, adc_topk_tiles_model
+
 pytestmark = pytest.mark.cuda
 
 
@@ -894,8 +896,7 @@ def test_codes_and_slot_kernels_on_the_tensor_cores(cuda, kernel, M, K, Ds,
     inside a tile and on its boundary.  Each against its plain version:
     int8 bit-equal, int16 and bf16 inside their bounds; B5's echo equal
     to the codes; B3 on B1's echo equal to B1 bit for bit at int8 and
-    int16 (at the wide shapes B1 runs the CUDA-core wide tails).  One
-    launch a call."""
+    int16 (B1 runs the same tail form).  One launch a call."""
     rng = np.random.default_rng(M * 1000 + Ds * 10 + B + n)
     cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
     codes = _chain_codes(rng, n, M, K) if M > 8 else _codes(rng, n, M, K)
@@ -967,3 +968,123 @@ def test_codes_and_slot_kernels_many_tiles_at_gist_width(cuda, kernel,
         assert torch.equal(mins, ref_m)
     else:
         _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+
+
+# ---- B1 at the wide shapes: the gathered wgmma tail, decoding once ----------
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+@pytest.mark.parametrize("B", [1, 65, 300])
+@pytest.mark.parametrize("n", [2500, 3072])
+@pytest.mark.parametrize("M,K,Ds", WIDE_SHAPES + [(16, 256, 60)])
+def test_stream_kernel_on_the_wgmma_tail(cuda, M, K, Ds, n, B, precision):
+    """B1 at the wide shapes (``scan_tail_form`` "wgmma"): batches below,
+    at one and a bit and over several query blocks of the tail (64 at
+    int16, 256 otherwise), n_valid inside a tile and on its boundary, two
+    mask planes at M=16.  Codes exact; int8 bit-equal to the plain
+    version, int16 and bf16 inside their bounds; at int8 and int16 equal
+    bit for bit to B3 on its echo.  One launch a call."""
+    rng = np.random.default_rng(M * 1000 + Ds * 10 + B + n + 7)
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _chain_codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, device=cuda)
+    assert fk.scan_tail_form("stream_mins", M, Ds) == "wgmma"
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    qop, uq = _cut_batch(eng, q)
+    key = fk._launch_name("stream_mins", precision)
+    before = build.launch_counts()[key]
+    mins, echo = fk.fused_stream_mins(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, compact=eng.compact, mode=precision)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[key] == before + 1
+    ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, mode=precision)
+    assert torch.equal(echo, ref_c)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    assert mins.shape == (echo.shape[0] // 32, B)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+    if precision != "bf16":
+        m3, _ = fk.fused_codes_mins(qop, eng.cwbd, echo, eng.n_valid, u=uq,
+                                    compact=eng.compact, mode=precision)
+        assert torch.equal(mins, m3)
+
+
+@pytest.mark.parametrize("precision", ["int16", "int8", "bf16"])
+def test_stream_kernel_many_tiles_at_gist_width(cuda, precision):
+    """The GIST width over more tiles than the card holds blocks at once
+    (147 tiles, the last one ragged, 300 queries): a block decodes
+    several tiles, each once.  B1 against its plain version, and equal
+    bit for bit at int8 and int16 to B3 on its echo and to B5 on the slot
+    tiles of the same rows."""
+    rng = np.random.default_rng(47)
+    n, M, K, Ds, B = 150000, 16, 256, 60, 300
+    cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+    codes = _chain_codes(rng, n, M, K)
+    eng = FusedCompressedEngine(cw, codes, precision=precision, device=cuda)
+    q = rng.normal(size=(B, M * Ds)).astype(np.float32) * 3
+    qop, uq = _cut_batch(eng, q)
+    mins, echo = eng.scan(qop, uq)
+    assert np.array_equal(echo[:n].cpu().numpy(), codes)
+    ref_m, _, pre_max, cross_max = fk.fused_stream_mins_ref(
+        qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
+        u=uq, mode=precision)
+    if precision == "int8":
+        assert torch.equal(mins, ref_m)
+    else:
+        _assert_mins(mins, ref_m, _wide_tol(precision, pre_max, cross_max))
+    if precision != "bf16":
+        m3, _ = fk.fused_codes_mins(qop, eng.cwbd, echo, eng.n_valid, u=uq,
+                                    compact=eng.compact, mode=precision)
+        e5 = FusedCompressedEngine(cw, codes, precision=precision,
+                                   fmt="slots", device=cuda)
+        m5, _ = e5.scan(qop, uq)
+        assert torch.equal(mins, m3) and torch.equal(mins, m5)
+
+
+# ---- B6: the warp selection on its edge cases ---------------------------------
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("case", [c[0] for c in ADC_TOPK_CASES])
+def test_adc_topk_kernel_edge_cases(cuda, case, precision):
+    """B6 on the cases of tests/_torch_port.py (a tie at the top_k-th place
+    between rows 5 and 600 of a tile, a tile with no valid row, top_k
+    beyond a tile's valid rows, int32 codes, top_k above 32): bit-equal to
+    the plain version and to the NumPy model, one launch."""
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    table, codes, n_valid, tile, k = adc_topk_case(case)
+    tab, cod = torch.from_numpy(table).to(cuda), torch.from_numpy(codes).to(
+        cuda)
+    name = ak._mode_name("adc_topk", precision)
+    before = build.launch_counts()[name]
+    d, i = ak.adc_topk_tiles(tab, cod, n_valid, k, tile, precision)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 1
+    rd, ri = ak.adc_topk_tiles_ref(tab, cod, n_valid, k, tile, precision)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+    tables = [t.cpu().numpy() for t in ak._tables_f32(tab, precision)]
+    md, mi = adc_topk_tiles_model(table, codes, n_valid, k, tile, tables)
+    assert np.array_equal(d.cpu().numpy(), md)
+    assert np.array_equal(i.cpu().numpy(), mi)
+
+
+def test_adc_topk_kernel_many_items(cuda):
+    """More (query group, tile) items than the card holds blocks, so a
+    block walks a range of them and restages its tables where the query
+    group changes; B=300 leaves the last group short.  Every mode
+    bit-equal to the plain version."""
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    rng = np.random.default_rng(53)
+    B, M, K, n, tile, k = 300, 8, 256, 200000, 1024, 10
+    table = torch.from_numpy(rng.normal(size=(B, M, K)).astype(np.float32)
+                             ).to(cuda)
+    codes = torch.from_numpy(pad_codes(_codes(rng, n, M, K), tile)).to(cuda)
+    for precision in ("f32", "bf16", "bf16x2"):
+        d, i = ak.adc_topk_tiles(table, codes, n, k, tile, precision)
+        rd, ri = ak.adc_topk_tiles_ref(table, codes, n, k, tile, precision)
+        assert torch.equal(d, rd) and torch.equal(i, ri), precision

@@ -62,8 +62,8 @@ def test_narrow_shape_rule(M, Ds, narrow):
 
 
 @pytest.mark.parametrize("kernel,M,Ds,form", [
-    ("stream_mins", 8, 16, "mma"), ("stream_mins", 16, 60, "cuda_cores"),
-    ("stream_mins", 8, 24, "cuda_cores"),
+    ("stream_mins", 8, 16, "mma"), ("stream_mins", 16, 60, "wgmma"),
+    ("stream_mins", 8, 24, "wgmma"),
     ("codes_mins", 4, 32, "mma"), ("codes_mins", 16, 60, "wgmma"),
     ("codes_mins", 12, 8, "wgmma"),
     ("delta_mins", 8, 4, "mma"), ("delta_mins", 16, 4, "wgmma"),
@@ -71,9 +71,9 @@ def test_narrow_shape_rule(M, Ds, narrow):
     ("stream_mins_pipelined", 8, 16, "cuda_cores")])
 def test_scan_tail_form_rule(kernel, M, Ds, form):
     """The tail each scan kernel runs, by shape alone: B1, B3 and B5 on
-    mma.sync at the narrow shapes; B3 and B5 on the gathered wgmma tail
-    at the wide ones, where B1 keeps its CUDA-core tails; B7 on the CUDA
-    cores.  The query operand follows the form."""
+    mma.sync at the narrow shapes and on the gathered wgmma tail at the
+    wide ones; B7 on the CUDA cores.  The query operand follows the
+    form."""
     assert fk.scan_tail_form(kernel, M, Ds) == form
     G, _, Dg = fk.group_geometry(M, Ds)
     q = torch.arange(G * Dg * 3, dtype=torch.int32).reshape(G * Dg, 3).to(
@@ -86,6 +86,23 @@ def test_scan_tail_form_rule(kernel, M, Ds, form):
     else:
         qt = fk.scan_queries(kernel, q, M, Ds, "int8")
         assert qt.shape == (3, M * fk.wide_sub_bytes(Ds, "int8"))
+
+
+@pytest.mark.parametrize("mode", ["int16", "int8", "bf16"])
+def test_stream_kernel_reads_the_padded_queries_at_gist(mode):
+    """At the GIST shape (M=16, Ds=60) the stream kernel reads the wide
+    tail's padded query operand in every mode, as the codes and slot-tile
+    kernels do."""
+    M, Ds = 16, 60
+    G, _, Dg = fk.group_geometry(M, Ds)
+    planes = 2 if mode == "int16" else 1
+    g = torch.Generator().manual_seed(planes)
+    q = torch.randint(-127, 128, (planes * G * Dg, 5), generator=g)
+    q = q.to(torch.bfloat16 if mode == "bf16" else torch.int8)
+    qt = fk.scan_queries("stream_mins", q, M, Ds, mode)
+    assert torch.equal(qt, fk.pad_transpose_queries(q, M, Ds, mode))
+    assert qt.shape == (5, planes * M * fk.wide_sub_bytes(Ds, mode)
+                        // q.element_size())
 
 
 def test_scan_tail_form_refuses_an_unknown_kernel():

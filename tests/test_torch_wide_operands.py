@@ -151,8 +151,8 @@ def test_padded_product_equals_the_blockdiag_cross(mode, M, Ds):
 @pytest.mark.parametrize("mode", MODES)
 def test_padded_product_gives_the_plain_mins(mode, M, Ds):
     """The wide tail's arithmetic on the padded product (pre from the
-    norm tables summed over ascending m, the f32 epilogue of the
-    CUDA-core wide tails) against ``_scan_tail_ref``: int8 bit-equal,
+    norm tables summed over ascending m, the f32 epilogue of the scan
+    tails) against ``_scan_tail_ref``: int8 bit-equal,
     int16 within 4e-6 (max pre + 2 max|u*cross|) (the plain version sums
     pre in f32), bf16 within 2e-5 (max pre + 2 sqrt(max pre) max ||q||)
     (f32 sums in another order)."""
