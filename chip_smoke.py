@@ -81,7 +81,9 @@ Phases, each timed:
    yardstick ``embedding_bag``), B6 at f32, bf16 and bf16x2 (each
    beside its bound and the shared-memory floor of its N B M lookups, as
    in phase 6), B9 at f32, bf16
-   and bf16x2 (tile 4096), and B10 (tile 2048) on phase 7's dup_heavy
+   and bf16x2 (tile 4096; each beside the same floor and its time over
+   B6's in the mode: one warp kernel, two selections), and B10 (tile
+   2048) on phase 7's dup_heavy
    codes in DeltaTree-DFS order, where the dictionary fits (its width is
    printed).  Every one bit-equal to its plain version;
 12. the plain-scan engines at B=128 and B=512: the gather scan, the
@@ -95,9 +97,8 @@ Phases, each timed:
    on the card and its peak device memory.
 
 13. the pipelined stream kernel B7 on phase 3's tiles at B=512, int8 and
-   bf16: codes equal to B1's, mins equal bit for bit at int8 and within
-   the bound of phase 6 at bf16 (B7 sums on the CUDA cores, B1 on the
-   tensor cores), and held to the plain
+   bf16: codes and mins equal to B1's bit for bit in both modes (the two
+   run one ``mma.sync`` tail), and held to the plain
    version (int8 bit-equal, bf16 within the bound of phase 6), timed in
    turns with B1 (B1, B7, B7, B1); then ``FusedCompressedEngine(
    pipelined=True)`` at int8 and bf16, warmup and five timed batches each,
@@ -226,9 +227,9 @@ SOURCES = {
     "adc_dists": "deltapq_tpu_torch/csrc/adc_dists.cu",
     "adc_topk_bf16": "deltapq_tpu_torch/csrc/adc_topk.cu",
     "adc_topk_bf16x2": "deltapq_tpu_torch/csrc/adc_topk.cu",
-    "adc_topk_packed": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
-    "adc_topk_packed_bf16": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
-    "adc_topk_packed_bf16x2": "deltapq_tpu_torch/csrc/adc_topk_packed.cu",
+    "adc_topk_packed": "deltapq_tpu_torch/csrc/adc_topk.cu",
+    "adc_topk_packed_bf16": "deltapq_tpu_torch/csrc/adc_topk.cu",
+    "adc_topk_packed_bf16x2": "deltapq_tpu_torch/csrc/adc_topk.cu",
     "adc_topk_tiledict": "deltapq_tpu_torch/csrc/adc_topk_tiledict.cu",
     "stream_mins_pipelined_int8":
         "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
@@ -1024,16 +1025,11 @@ def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
             m1, c1 = e1.scan(qop, uq)
             m7, c7 = e7.scan(qop, uq)
             check(torch.equal(c7, c1), f"B7 {prec}: codes differ from B1's")
+            # one tail: the same bits in both modes
+            check(torch.equal(m7, m1), f"B7 {prec}: mins differ from B1's")
             ref_m, ref_c, pre_max, cross_max = fk.fused_stream_mins_ref(
                 qop, e7.cwbd, e7.row_data, e7.vals, e7.meta, e7.n_valid, M,
                 u=uq, mode=prec, pipelined=True)
-            if tol is None:
-                # integer products: B7's CUDA-core tail and B1's tensor-core
-                # tail give the same bits
-                check(torch.equal(m7, m1), f"B7 {prec}: mins differ from B1's")
-            else:
-                mins_err(m7, m1, tol(pre_max, cross_max),
-                         f"B7 {prec} against B1 (f32 sums in two orders)")
             check(torch.equal(c7, ref_c), f"B7 {prec} echo != plain decode")
             if tol is None:
                 check(torch.equal(m7, ref_m), f"B7 {prec} mins not bit-equal")
@@ -1050,8 +1046,7 @@ def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
                 qop, e7.cwbd, e7.row_data, e7.vals, e7.meta, e7.n_valid, M,
                 u=uq, mode=prec, pipelined=True), 2)
             ms = (b7a + b7b) / 2
-            log(f"{tag} B7 {prec}: codes equal to B1's, mins "
-                f"{'equal bit for bit' if tol is None else 'within tol'}; "
+            log(f"{tag} B7 {prec}: codes and mins equal to B1's bit for bit; "
                 f"{'bit-equal to' if tol is None else 'within tol of'} the "
                 f"plain version; B7 {b7a:.4f} / {b7b:.4f} ms/call against "
                 f"B1 {b1a:.4f} / {b1b:.4f} (B7 / B1 = "
@@ -1434,9 +1429,10 @@ def b6_modes(tag, what, tab, codes_p, kernels, keep):
     """B6 in its three modes on one table and code set: each bit-equal to
     its plain version, timed beside it, its bound and the shared-memory
     floor of its lookups logged; the modes in ``keep`` go into
-    ``kernels``."""
+    ``kernels``.  Returns B6's ms per mode."""
     n_pad = codes_p.shape[0]
     floor = lookup_floor_ms(tab, n_pad)
+    times = {}
     for prec in ak.PRECISIONS:
         own = {}
         tiles_vs_plain(
@@ -1455,6 +1451,8 @@ def b6_modes(tag, what, tab, codes_p, kernels, keep):
             f"{floor:.4f} ms")
         if prec in keep:
             kernels[key] = entry
+        times[prec] = entry["ms"]
+    return times
 
 
 def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
@@ -1500,13 +1498,15 @@ def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
                                     plain_ms=plain_ms,
                                     **{**bnd, "library_ms": library_ms})
 
-        b6_modes(tag, "engine benchmark codes", tab, codes_p, kernels,
-                 ("bf16", "bf16x2"))
+        b6_ms = b6_modes(tag, "engine benchmark codes", tab, codes_p,
+                         kernels, ("bf16", "bf16x2"))
+        floor = lookup_floor_ms(tab, n_pad)
         keys_f32 = None
         for prec in ("f32", "bf16", "bf16x2"):
+            key = ak._mode_name("adc_topk_packed", prec)
             keys = tiles_vs_plain(
                 tag, f"B9 adc_topk_packed {prec} (tile {PACKED_TILE})",
-                ak._mode_name("adc_topk_packed", prec), kernels,
+                key, kernels,
                 lambda: ak.adc_topk_packed_tiles(tab, codes_p, N, TOP_K,
                                                  PACKED_TILE, prec),
                 lambda: ak.adc_topk_packed_tiles_ref(tab, codes_p, N, TOP_K,
@@ -1514,6 +1514,11 @@ def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
                 10, lambda outs: lookup_bound(
                     tab, (codes_p,), outs, n_pad,
                     2 if prec == "bf16x2" else 1))
+            entry = kernels[key]
+            log(f"{tag} B9 {prec}: bound {entry['bound_ms']:.4f} ms "
+                f"({entry['bound_by']}), shared-memory lookup floor "
+                f"{floor:.4f} ms; B9 / B6 = {entry['ms'] / b6_ms[prec]:.4f} "
+                f"(the same lookups and selection, on packed keys)")
             if prec == "f32":
                 keys_f32 = keys
         # exact keys select the exact scan's rows up to 12 truncated bits

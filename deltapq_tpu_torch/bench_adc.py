@@ -1,4 +1,4 @@
-"""ADC lookup-kernel benchmark: B6 in its three modes beside B9 and B8.
+"""ADC lookup-kernel benchmark: B6 and B9 in their three modes, B8 and B10.
 
 Usage:  python3 -m deltapq_tpu_torch.bench_adc [N] [B]
 
@@ -11,14 +11,17 @@ it times, with CUDA events,
 
 * B6 ``adc_topk_tiles`` -- distances and the tile-local top-k,
 * B9 ``adc_topk_packed_tiles`` -- the same lookups, selected on packed
-  keys,
+  keys (its time over B6's is printed),
 
-and B8 ``adc_dists_pallas`` (the f32 lookups alone, into a [B, N]
-matrix) once an order.  B6's output is held to its plain version
-bit for bit in every mode (the plain version runs once a mode); a kernel
-that does not launch, or that differs, fails the run.  The script only
-calls entry points that every tree of the port has had since B6 was
-ported, so one card can time two versions of the kernels with it.
+and once an order B8 ``adc_dists_pallas`` (the f32 lookups alone, into a
+[B, N] matrix) and B10 ``adc_topk_tiledict_tiles`` (tile 2048, the
+tile dictionaries of those rows at most 256 wide: the workload is not
+the duplicate-heavy one B10 is made for, so this times the kernel, not
+the format).  B6's, B9's and B10's outputs are held to their plain
+versions bit for bit (the plain version runs once a mode); a kernel that
+does not launch, or that differs, fails the run.  The script only calls
+entry points that every tree of the port has had since B6 was ported, so
+one card can time two versions of the kernels with it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from .bench_engines import cuda_ms, workload
 from .ops import adc_kernels as ak
 from .ops.adc import adc_table, pad_codes
 
-TOP_K, TILE = 10, 4096
+TOP_K, TILE, DICT_TILE = 10, 4096, 2048
 
 
 def card_line(dev) -> str:
@@ -69,14 +72,36 @@ def main(argv=None, device=None) -> int:
                 raise AssertionError(f"B6 {prec} ({order}) differs from its "
                                      f"plain version")
             del d, i, rd, ri
+            keys = ak.adc_topk_packed_tiles(tab, codes, n, TOP_K, TILE, prec)
+            if not torch.equal(keys, ak.adc_topk_packed_tiles_ref(
+                    tab, codes, n, TOP_K, TILE, prec)):
+                raise AssertionError(f"B9 {prec} ({order}) differs from its "
+                                     f"plain version")
+            del keys
             b6 = timer(lambda: ak.adc_topk_tiles(tab, codes, n, TOP_K, TILE,
                                                  prec), 10)
             b9 = timer(lambda: ak.adc_topk_packed_tiles(
                 tab, codes, n, TOP_K, TILE, prec), 10)
             print(f"[{card}] {order} {prec}: B6 {b6:.4f} ms (bit-equal to "
-                  f"its plain version), B9 {b9:.4f} ms", flush=True)
+                  f"its plain version), B9 {b9:.4f} ms (so is B9; B9 / B6 = "
+                  f"{b9 / b6:.4f})", flush=True)
         b8 = timer(lambda: ak.adc_dists_pallas(tab, codes), 5)
-        print(f"[{card}] {order}: B8 {b8:.4f} ms", flush=True)
+        dicts, idx, width = ak.build_tile_dict(
+            pad_codes(rows, DICT_TILE), tile_n=DICT_TILE, max_dict=256)
+        idx, dicts = torch.from_numpy(idx).to(dev), torch.from_numpy(
+            dicts).to(dev)
+        keys = ak.adc_topk_tiledict_tiles(tab, idx, dicts, n, TOP_K,
+                                          DICT_TILE)
+        if not torch.equal(keys, ak.adc_topk_tiledict_tiles_ref(
+                tab, idx, dicts, n, TOP_K, DICT_TILE)):
+            raise AssertionError(f"B10 ({order}) differs from its plain "
+                                 f"version")
+        b10 = timer(lambda: ak.adc_topk_tiledict_tiles(
+            tab, idx, dicts, n, TOP_K, DICT_TILE), 10)
+        print(f"[{card}] {order}: B8 {b8:.4f} ms; B10 {b10:.4f} ms (tile "
+              f"{DICT_TILE}, dictionary width {width}; equal to its plain "
+              f"version bit for bit)", flush=True)
+        del idx, dicts, keys
     return 0
 
 

@@ -14,9 +14,13 @@ events,
 * B3 ``fused_codes_mins`` on B1's echoed codes -- the scan without the
   decode,
 * B5 ``fused_delta_mins`` on the slot tiles of the same rows,
+* B7 ``fused_stream_mins(pipelined=True)`` on B1's stream tiles, at int8
+  and bf16 (its modes),
 
+each timed twice, in turns (B1, the others, the others in reverse, B1),
 and holds B3's and B5's mins against B1's: bit for bit at int8 and
-int16, max |difference| printed at bf16.  At B=64 one query block is
+int16, max |difference| printed at bf16; B7's codes and mins against
+B1's bit for bit in both its modes.  At B=64 one query block is
 all a tile has, so a block's fixed work (codebook load, decode) is what
 the time shows; a one-tile engine gives the floor under it, the
 wrapper's host time and the launch.  Then B4 ``fused_decoded_mins`` on
@@ -31,10 +35,10 @@ the three modes (all three on the gathered ``wgmma`` tail there), then B1 and
 B3 on a near-distinct code set of N/4 rows (the same codebook over
 ``gist_vectors`` of N/8 clusters, seed 1, lexsort order).
 
-A kernel that does not launch, or integer mins that differ, fail the
-run.  The script runs against any tree of the port whose engines take
-these arguments, so one card can time two versions of the kernels with
-it.
+A kernel that does not launch fails the run at once; mins that differ
+where they must be equal fail it after every time has been printed.  The
+script runs against any tree of the port whose engines take these
+arguments, so one card can time two versions of the kernels with it.
 """
 
 from __future__ import annotations
@@ -79,29 +83,42 @@ def _cut_batch(e, q, b):
     return qop, None if uq is None else uq[..., :b].contiguous()
 
 
-def scan_trio(card, label, prec, e1, e3, e5, q, b, timer, reps):
-    """B1 on its stream tiles, B3 on B1's echo and (when ``e5`` is not
-    None) B5 on the slot tiles of the same rows, timed in turns; B3's and
-    B5's mins held to B1's (bit for bit at int8 and int16)."""
+def scan_trio(card, label, prec, e1, e3, e5, q, b, timer, reps, failed,
+              e7=None):
+    """B1 on its stream tiles, B3 on B1's echo, (when ``e5`` is not None)
+    B5 on the slot tiles of the same rows and (when ``e7`` is not None) B7
+    on B1's stream tiles, each timed twice in turns; B3's and B5's mins
+    held to B1's (bit for bit at int8 and int16), B7's codes and mins bit
+    for bit in every mode.  A comparison that fails is appended to
+    ``failed``."""
     qop, uq = _cut_batch(e1, q, b)
     m1, echo = e1.scan(qop, uq)
     e3.codes = echo
-    others = [("B3", e3)] + ([("B5", e5)] if e5 is not None else [])
+    others = [("B3", e3)] + ([("B5", e5)] if e5 is not None else []) \
+        + ([("B7", e7)] if e7 is not None else [])
     same = []
     for name, e in others:
-        m, _ = e.scan(qop, uq)
-        if prec == "bf16":
+        m, c = e.scan(qop, uq)
+        exact = name == "B7" or prec != "bf16"
+        if name == "B7" and not torch.equal(c, echo):
+            failed.append(f"{label} {prec} B={b}: B7's codes != B1's")
+        if exact and torch.equal(m1, m):
+            same.append(f"B1 = {name} bit for bit")
+        else:
             fin = torch.isfinite(m1)
             same.append(f"max |B1 - {name}| "
                         f"{float((m1 - m)[fin].abs().max()):.6g}")
-        elif not torch.equal(m1, m):
-            raise AssertionError(f"{label} {prec} B={b}: B1 != {name}")
-        else:
-            same.append(f"B1 = {name} bit for bit")
-    times = {"B1": timer(lambda: e1.scan(qop, uq), reps)}
-    for name, e in others:
-        times[name] = timer(lambda: e.scan(qop, uq), reps)
-    shown = ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            if exact:
+                failed.append(f"{label} {prec} B={b}: B1 != {name}")
+    times = {"B1": [], **{name: [] for name, _ in others}}
+    turns = [("B1", e1), *others, *reversed(others), ("B1", e1)]
+    for name, e in turns:
+        times[name].append(timer(lambda: e.scan(qop, uq), reps))
+    shown = ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
+                      for k, v in times.items())
+    if e7 is not None:
+        shown += (f" (B7 / B1 = "
+                  f"{sum(times['B7']) / sum(times['B1']):.4f})")
     print(f"[{card}] {label} {prec} B={b}: {shown}; {'; '.join(same)}",
           flush=True)
 
@@ -112,8 +129,9 @@ def main(argv=None, device=None) -> int:
     card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (plain versions; no device time)")
     timer = cuda_ms if dev.type == "cuda" else (lambda fn, reps: float("nan"))
+    failed = []
     if argv and argv[0] == "gist":
-        return gist(argv[1:], dev, card, timer)
+        return gist(argv[1:], dev, card, timer, failed)
     n = int(argv[0]) if argv else 1 << 20
     batches = [int(a) for a in argv[1:]] or [64, 512]
     cw, codes = make_clustered_codes(n, M, K, device=dev,
@@ -130,9 +148,13 @@ def main(argv=None, device=None) -> int:
         e3 = FusedCodesEngine(cw, codes, precision=prec, device=dev)
         e5 = FusedCompressedEngine.from_tiles(cw, dt, precision=prec,
                                               device=dev)
+        e7 = (FusedCompressedEngine.from_tiles(cw, st, precision=prec,
+                                               device=dev, pipelined=True)
+              if prec != "int16" else None)
         for b in batches:
             q = rng.normal(size=(b, D)).astype(np.float32)
-            scan_trio(card, "sift_like", prec, e1, e3, e5, q, b, timer, 20)
+            scan_trio(card, "sift_like", prec, e1, e3, e5, q, b, timer, 20,
+                      failed, e7)
         # one tile and a few queries: what is left is the launch and the
         # wrapper's host time
         e0 = FusedCompressedEngine(cw, codes[:1024], precision=prec,
@@ -141,7 +163,7 @@ def main(argv=None, device=None) -> int:
         ms0 = timer(lambda: e0.scan(qop, uq), 50)
         print(f"[{card}] {prec} B=8, one tile: B1 {ms0:.4f} ms (the launch "
               f"and the wrapper's host time)", flush=True)
-        del e0, e1, e3, e5
+        del e0, e1, e3, e5, e7
     e4 = FusedDecodedEngine(cw, codes, device=dev)
     for b in batches:
         q = rng.normal(size=(b, D)).astype(np.float32)
@@ -166,10 +188,16 @@ def main(argv=None, device=None) -> int:
         lib = timer(lambda: mm_yardstick(xt, qop), 5)
         print(f"[{card}] decoded D={GIST_D} B={b}: B4 {ms4:.4f} ms, torch.mm "
               f"(cross product alone) {lib:.4f} ms", flush=True)
+    return _verdict(failed)
+
+
+def _verdict(failed) -> int:
+    if failed:
+        raise AssertionError("; ".join(failed))
     return 0
 
 
-def gist(argv, dev, card, timer) -> int:
+def gist(argv, dev, card, timer, failed) -> int:
     """The ``gist`` form (module docstring)."""
     from . import bench_gist
     from .ops.encode import pq_encode
@@ -203,15 +231,15 @@ def gist(argv, dev, card, timer) -> int:
         e3 = FusedCodesEngine(cw, codes, precision=prec, device=dev)
         e5 = FusedCompressedEngine.from_tiles(cw, dt, precision=prec,
                                               device=dev)
-        scan_trio(card, "gist", prec, e1, e3, e5, q, b, timer, 5)
+        scan_trio(card, "gist", prec, e1, e3, e5, q, b, timer, 5, failed)
         del e1, e3, e5
         e1 = FusedCompressedEngine.from_tiles(cw, st2, precision=prec,
                                               device=dev)
         e3 = FusedCodesEngine(cw, codes2, precision=prec, device=dev)
         scan_trio(card, "gist near-distinct", prec, e1, e3, None, q, b,
-                  timer, 5)
+                  timer, 5, failed)
         del e1, e3
-    return 0
+    return _verdict(failed)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 // What the ADC lookup kernels share (adc_dists.cu, adc_topk.cu,
-// adc_topk_packed.cu, adc_topk_tiledict.cu): the table types of the three
-// precisions, staging a block's table rows in shared memory, a row's
-// ascending-m lookup sum, the order-preserving packed key and the packed
-// top-k sweeps.
+// adc_topk_tiledict.cu): the table types of the three precisions, staging a
+// block's table rows in shared memory, a row's ascending-m lookup sum, the
+// order-preserving packed key and the block-wide packed top-k sweeps (the
+// tile-dictionary kernel's selection).
 //
 // The TPU kernels (deltapq_tpu/ops/adc_pallas.py) have no per-lane gather
 // and select table values with one-hot [tile, K] x [K, B] matmuls; on the

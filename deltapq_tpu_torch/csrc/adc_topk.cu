@@ -1,9 +1,11 @@
-// ADC distances per tile + tile-local top-k, selected inside a warp.
+// ADC distances per tile + tile-local top-k, selected inside a warp: B6
+// (value, row) pairs and B9 packed int32 keys, one kernel.
 //
-// Replaces the TPU kernel deltapq_tpu/ops/adc_pallas.py:_adc_topk_kernel
-// (with _accumulate_onehot) in its three precisions, reached from
-// adc_topk_pallas.  Python wrapper, plain PyTorch version and the
-// cross-tile merge: deltapq_tpu_torch/ops/adc_kernels.py.
+// Replaces the TPU kernels deltapq_tpu/ops/adc_pallas.py:_adc_topk_kernel
+// (B6, reached from adc_topk_pallas) and _adc_topk_packed_kernel (B9,
+// reached from adc_topk_packed), with _accumulate_onehot, in their three
+// precisions.  Python wrappers, plain PyTorch versions and the cross-tile
+// merges: deltapq_tpu_torch/ops/adc_kernels.py.
 //
 // What it computes, per tile t of tile_n rows and query b:
 //   dist[r] = sum_m tab[b, m*K + codes[t*tile_n + r, m]], added in
@@ -11,19 +13,27 @@
 //             ("f32", bit-equal to the plain scan, ops/adc.py
 //             adc_query_topk), of the table rounded to bf16 ("bf16"), or of
 //             its bf16 hi and lo parts, hi then lo for each m ("bf16x2");
-//             +inf at rows >= n_valid;
-//   then what top_k rounds of mask-argmin give on the TPU: the top_k
-//   smallest (value, row) pairs -- the lower row wins a tie, as argmin --
-//   in ascending order, written to out_d/out_i[t, j, b] (tile-local row);
-//   a tile with fewer than top_k finite rows fills the rest with (+inf,
-//   row 0), as argmin over an all-inf column does.
+//   B6 (PairTopK): dist, or +inf at rows >= n_valid; then what top_k rounds
+//             of mask-argmin give on the TPU: the top_k smallest (value,
+//             row) pairs -- the lower row wins a tie, as argmin -- in
+//             ascending order, written to out_d/out_i[t, j, b] (tile-local
+//             row); a tile with fewer than top_k finite rows fills the rest
+//             with (+inf, row 0), as argmin over an all-inf column does;
+//   B9 (PackedTopK, tile_n <= 4096): the key of adc_lookup.cuh:packed_key
+//             (order-preserving distance bits, the low 12 bits the
+//             tile-local row, 0x7fffffff past n_valid); then what top_k
+//             sweeps last = min(key where key > last) from INT_MIN give:
+//             keys are unique within a tile, so the top_k smallest in
+//             ascending order, 0x7fffffff once the tile runs out, written to
+//             out[t, j, b].
 //
 // What bounds it on an H100: the operations, N*B*M f32 additions at the
 // CUDA cores' 67 TFLOP/s (0.064 ms at N=1M, B=512, M=8), and next to them
 // the same number of table lookups in shared memory, at most 32 four-byte
-// words a clock on each SM (about 0.5 ms there).  The old design ran 2*top_k
-// block barriers for every (tile, query) and reread each row's codes for
-// every query; its selection took about half of its 11.4 ms.
+// words a clock on each SM (about 0.5 ms there).  A selection in block-wide
+// rounds (the TPU kernels' mask-argmin and threshold sweeps, carried over
+// as they are) costs a block barrier a rank for every (tile, query), about
+// half of such a kernel's time on this card (PERF.md).
 //
 // Design:
 //   * A warp owns QI queries (one at f32 and bf16x2, two at bf16) and meets
@@ -34,22 +44,27 @@
 //     the code chunk, up to 24 (all 24 at M=8, K=256).  Measured on the
 //     H100 (kernels/ablate_adc.py): 8- and 16-byte groups, which serve more
 //     queries a load, leave fewer warps to hide the loads' latency and ran
-//     slower.
+//     slower.  So did, for B9, the lanes of a warp on one row and many
+//     queries (lookups without bank conflicts, a selection per lane;
+//     kernels/adc_topk_rows.cu, kernels/ablate_packed.py): no faster at f32
+//     and bf16x2, slower at bf16.  Where two bf16 tables of a warp do not
+//     fit (B9 takes 2*M*K up to 160 KB), B9 runs 2-byte groups, one query a
+//     warp.
 //   * The tile's codes are staged once a block for all its warps, word by
 //     word, transposed to [word][row] so that a warp's 32 rows read 32
 //     consecutive words; a chunk of at most 32 KB at a time.
 //   * Selection without block barriers: each warp keeps, for each of its
-//     queries, the best top_k (value, row) pairs so far in registers,
-//     sorted, element j in lane j % 32 of register j / 32 (KR = ceil(top_k
-//     / 32) registers).  Rows arrive in ascending order, so a new distance
-//     enters only if it is strictly below the current top_k-th value tau;
-//     a ballot finds the lanes that beat tau, and each of them is inserted
-//     in lane order by one shuffle-shift of the list (equal values keep
-//     the earlier, lower row first).  After the first rows tau is small and
-//     an insertion rare (about top_k * ln(tile_n / top_k) a tile).  A
-//     launch selects at most 256 ranks; a larger top_k takes further
-//     launches, each keeping only the rows that come after the last
-//     (value, row) of the launch before.
+//     queries, the best top_k keys so far in registers, sorted, element j
+//     in lane j % 32 of register j / 32 (KR = ceil(top_k / 32) registers).
+//     Rows arrive in ascending order, so a new key enters only if it is
+//     strictly below the current top_k-th key tau; a ballot finds the lanes
+//     that beat tau, and each of them is inserted in lane order by one
+//     shuffle-shift of the list (B6: equal values keep the earlier, lower
+//     row first; B9's keys are unique and need no tie rule).  After the
+//     first rows tau is small and an insertion rare (about top_k * ln(tile_n
+//     / top_k) a tile).  A launch selects at most 256 ranks; a larger top_k
+//     takes further launches (DEEP), each keeping only the rows whose key
+//     comes after the last key of the launch before.
 //   * A persistent grid (as many blocks as the card holds at once) walks
 //     the (query group, tile) items in contiguous ranges, so a block stages
 //     its tables once or twice in all.
@@ -75,81 +90,174 @@ template <int KR> struct Warps {
 };
 
 template <int BYTES> struct Vec { using type = uint2; };
+template <> struct Vec<2> { using type = uint16_t; };
 template <> struct Vec<4> { using type = unsigned; };
 template <> struct Vec<16> { using type = uint4; };
 
-// A table group: entry (m, k) of the QI queries a warp owns, side by side.
-template <int P> struct Group {
+// A table group of GB bytes: entry (m, k) of the QI queries a warp owns,
+// side by side.
+template <int P, int GB> struct Group {
   using E = typename adc::Entry<P>::type;
-  using V = typename Vec<GROUP_BYTES>::type;
-  static constexpr int QI = GROUP_BYTES / (int)sizeof(E);
+  using V = typename Vec<GB>::type;
+  static constexpr int QI = GB / (int)sizeof(E);
+  static_assert(QI >= 1, "a group holds an entry");
 };
 
 // acc[i] += the entry of query i in group g, as adc_lookup.cuh:add_entry
 // adds it.
-template <int P>
-__device__ __forceinline__ void add_group(float (&acc)[Group<P>::QI],
-                                          typename Group<P>::V g) {
-  const auto* e = reinterpret_cast<const typename Group<P>::E*>(&g);
+template <int P, int GB>
+__device__ __forceinline__ void add_group(float (&acc)[Group<P, GB>::QI],
+                                          typename Group<P, GB>::V g) {
+  const auto* e = reinterpret_cast<const typename Group<P, GB>::E*>(&g);
 #pragma unroll
-  for (int i = 0; i < Group<P>::QI; ++i)
+  for (int i = 0; i < Group<P, GB>::QI; ++i)
     acc[i] = adc::add_entry<P>(acc[i], e[i]);
 }
 
-// Insert (v, row) into a warp's sorted list (element j: lane j % 32,
-// register j / 32): every element after the place of v moves one down.
-// v is finite and row higher than every row already in the list, so v goes
-// after the elements equal to it.
-template <int KR>
-__device__ __forceinline__ void insert(float (&val)[KR], int (&rw)[KR],
-                                       float v, int row, int lane) {
-  float pv[KR];
-  int pr[KR];
-#pragma unroll
-  for (int r = 0; r < KR; ++r) {
-    pv[r] = __shfl_sync(FULL, val[r], (lane + 31) & 31);
-    pr[r] = __shfl_sync(FULL, rw[r], (lane + 31) & 31);
-  }
-#pragma unroll
-  for (int r = KR - 1; r >= 0; --r) {
-    // element 32r + lane - 1; lane 0 of register r follows lane 31 of r - 1
-    const float prev = lane ? pv[r] : (r ? pv[r > 0 ? r - 1 : 0]
-                                         : -CUDART_INF_F);
-    const int prow = lane ? pr[r] : pr[r > 0 ? r - 1 : 0];
-    if (v < prev) {
-      val[r] = prev;
-      rw[r] = prow;
-    } else if (v < val[r]) {
-      val[r] = v;
-      rw[r] = row;
-    }
-  }
-}
-
-// The value of element k of the list, in every lane.
-template <int KR>
-__device__ __forceinline__ float element(const float (&val)[KR], int k) {
-  float x = val[0];
+// The element k of a warp's list (element j: lane j % 32, register j / 32),
+// in every lane.
+template <int KR, typename T>
+__device__ __forceinline__ T element(const T (&val)[KR], int k) {
+  T x = val[0];
 #pragma unroll
   for (int r = 1; r < KR; ++r)
     if (r == k >> 5) x = val[r];
   return __shfl_sync(FULL, x, k & 31);
 }
 
-// DEEP: a later launch of a top_k above one launch's ranks, which keeps
-// only the rows after the last (value, row) of the launch before.
-template <int P, typename CodeT, int KR, bool DEEP>
-__global__ void __launch_bounds__(Warps<KR>::MAX * 32, 1)
+// The outputs of the two selections, each [nT, top_k, B].
+struct PairOut {
+  float* d;
+  int* i;
+};
+struct PackedOut {
+  int* k;
+};
+
+// B6's list: (value, row) pairs, the lower row first among equal values;
+// the unfilled tail reads (+inf, row 0).
+template <int KR_>
+struct PairTopK {
+  static constexpr int KR = KR_;
+  using Key = float;                       // what a row is selected on
+  using Out = PairOut;
+  float val[KR];
+  int rw[KR];
+  float lo_v;                              // DEEP: the last pair of the
+  int lo_r;                                // launch before
+
+  __device__ static Key none() { return CUDART_INF_F; }
+  __device__ void init() {
+#pragma unroll
+    for (int r = 0; r < KR; ++r) {
+      val[r] = CUDART_INF_F;
+      rw[r] = 0;
+    }
+    lo_v = -CUDART_INF_F;
+    lo_r = -1;
+  }
+  __device__ void restart(const Out& o, size_t at) {
+    lo_v = o.d[at];
+    lo_r = o.i[at];
+  }
+  // the key of tile-local row `row` whose sum is acc
+  template <bool DEEP>
+  __device__ Key key(float acc, int row, bool valid) const {
+    float d = valid ? acc : CUDART_INF_F;
+    if (DEEP && !(d > lo_v || (d == lo_v && row > lo_r))) d = CUDART_INF_F;
+    return d;
+  }
+  // Insert (v, row): every element after the place of v moves one down.
+  // v is finite and row higher than every row already in the list, so v
+  // goes after the elements equal to it.
+  __device__ void insert(float v, int row, int lane) {
+    float pv[KR];
+    int pr[KR];
+#pragma unroll
+    for (int r = 0; r < KR; ++r) {
+      pv[r] = __shfl_sync(FULL, val[r], (lane + 31) & 31);
+      pr[r] = __shfl_sync(FULL, rw[r], (lane + 31) & 31);
+    }
+#pragma unroll
+    for (int r = KR - 1; r >= 0; --r) {
+      // element 32r + lane - 1; lane 0 of register r follows lane 31 of r-1
+      const float prev = lane ? pv[r] : (r ? pv[r > 0 ? r - 1 : 0]
+                                           : -CUDART_INF_F);
+      const int prow = lane ? pr[r] : pr[r > 0 ? r - 1 : 0];
+      if (v < prev) {
+        val[r] = prev;
+        rw[r] = prow;
+      } else if (v < val[r]) {
+        val[r] = v;
+        rw[r] = row;
+      }
+    }
+  }
+  __device__ Key kth(int k) const { return element<KR>(val, k); }
+  __device__ void store(const Out& o, size_t at, int r) const {
+    o.d[at] = val[r];
+    o.i[at] = rw[r];
+  }
+};
+
+// B9's list: packed int32 keys, unique within a tile; the unfilled tail
+// reads 0x7fffffff.
+template <int KR_>
+struct PackedTopK {
+  static constexpr int KR = KR_;
+  using Key = int;
+  using Out = PackedOut;
+  int keys[KR];
+  int lo;                                  // DEEP: the last key before
+
+  __device__ static Key none() { return adc::KEY_BIG; }
+  __device__ void init() {
+#pragma unroll
+    for (int r = 0; r < KR; ++r) keys[r] = adc::KEY_BIG;
+    lo = INT_MIN;
+  }
+  __device__ void restart(const Out& o, size_t at) { lo = o.k[at]; }
+  template <bool DEEP>
+  __device__ Key key(float acc, int row, bool valid) const {
+    const int k = adc::packed_key(acc, row, valid);
+    return DEEP && !(k > lo) ? adc::KEY_BIG : k;
+  }
+  // Insert v below every larger key (the row is in the key).
+  __device__ void insert(int v, int, int lane) {
+    int pv[KR];
+#pragma unroll
+    for (int r = 0; r < KR; ++r)
+      pv[r] = __shfl_sync(FULL, keys[r], (lane + 31) & 31);
+#pragma unroll
+    for (int r = KR - 1; r >= 0; --r) {
+      const int prev = lane ? pv[r] : (r ? pv[r > 0 ? r - 1 : 0] : INT_MIN);
+      if (v < prev)
+        keys[r] = prev;
+      else if (v < keys[r])
+        keys[r] = v;
+    }
+  }
+  __device__ Key kth(int k) const { return element<KR>(keys, k); }
+  __device__ void store(const Out& o, size_t at, int r) const {
+    o.k[at] = keys[r];
+  }
+};
+
+// S: the selection (PairTopK or PackedTopK); DEEP: a later launch of a
+// top_k above one launch's ranks, which keeps only the rows whose key comes
+// after the last key of the launch before.
+template <int P, int GB, typename CodeT, class S, bool DEEP>
+__global__ void __launch_bounds__(Warps<S::KR>::MAX * 32, 1)
 adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
                                                     // [B, M*K] entries
                 const CodeT* __restrict__ codes,    // [N_pad, M]
-                float* __restrict__ out_d,          // [nT, top_k, B]
-                int* __restrict__ out_i,            // [nT, top_k, B]
+                typename S::Out out,                // each [nT, top_k, B]
                 int B, int M, int K, int nT, int tile_n, int n_valid,
                 int top_k, int j0, int kp, int CH, int nqg) {
   using E = typename adc::Entry<P>::type;
-  using V = typename Group<P>::V;
-  constexpr int QI = Group<P>::QI;
+  using V = typename Group<P, GB>::V;
+  using Key = typename S::Key;
+  constexpr int QI = Group<P, GB>::QI;
   constexpr int CPW = 4 / sizeof(CodeT);             // codes a word
   extern __shared__ __align__(16) unsigned char smem[];
   const int MK = M * K;
@@ -159,8 +267,8 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
   const int WR = (RB + 3) / 4;                       // words of a code row
   const int WF = M / CPW;                            // words of CPW codes
   V* tab_s = reinterpret_cast<V*>(smem);             // [W][MK] groups
-  unsigned* codes_s = reinterpret_cast<unsigned*>(smem + (size_t)W * MK *
-                                                  GROUP_BYTES);
+  unsigned* codes_s = reinterpret_cast<unsigned*>(
+      smem + (((size_t)W * MK * GB + 15) & ~size_t(15)));
   const V* tab_w = tab_s + (size_t)warp * MK;
 
   const long long n_items = (long long)nqg * nT;
@@ -182,28 +290,15 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
       staged = qg;
     }
 
-    float val[QI][KR];
-    int rw[QI][KR];
-#pragma unroll
-    for (int qi = 0; qi < QI; ++qi)
-#pragma unroll
-      for (int r = 0; r < KR; ++r) {
-        val[qi][r] = CUDART_INF_F;
-        rw[qi][r] = 0;
-      }
-    float tau[QI], lo_v[QI];
-    int lo_r[QI];
+    S sel[QI];
+    Key tau[QI];
 #pragma unroll
     for (int qi = 0; qi < QI; ++qi) {
       const int q = q0 + warp * QI + qi;
-      tau[qi] = CUDART_INF_F;
-      lo_v[qi] = -CUDART_INF_F;
-      lo_r[qi] = -1;
-      if (DEEP && q < B) {
-        const size_t o = ((size_t)t * top_k + j0 - 1) * B + q;
-        lo_v[qi] = out_d[o];
-        lo_r[qi] = out_i[o];
-      }
+      sel[qi].init();
+      tau[qi] = S::none();
+      if (DEEP && q < B)
+        sel[qi].restart(out, ((size_t)t * top_k + j0 - 1) * B + q);
     }
 
     const long long row0 = (long long)t * tile_n;
@@ -212,7 +307,7 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
       __syncthreads();   // the last chunk's codes (and the tables) are read
       const unsigned char* src = reinterpret_cast<const unsigned char*>(
           codes + (row0 + c0) * M);
-      if (RB % 4 == 0 && ((uintptr_t)src & 15) == 0) {
+      if (RB % 4 == 0 && ch * WR % 4 == 0 && ((uintptr_t)src & 15) == 0) {
         // [row][word] in global -> [word][row]: four words a 16-byte load
         const uint4* s4 = reinterpret_cast<const uint4*>(src);
         for (int i = tid; i < ch * WR / 4; i += blockDim.x) {
@@ -231,6 +326,11 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
           cb[((b >> 2) * CH + r) * 4 + (b & 3)] = src[i];
         }
       }
+      // a tile_n that is no multiple of 32 leaves a warp lanes past the
+      // chunk's last row: they read code 0 (their keys are masked)
+      const int pad = ((ch + 31) & ~31) - ch;
+      for (int i = tid; i < pad * WR; i += blockDim.x)
+        codes_s[(i / pad) * CH + ch + i % pad] = 0u;
       __syncthreads();
 
       // rows of the chunk below n_valid
@@ -252,26 +352,23 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
               e[j] = tab_w[(CPW * w + j) * K + (int)c];
             }
 #pragma unroll
-            for (int j = 0; j < CPW; ++j) add_group<P>(acc, e[j]);
+            for (int j = 0; j < CPW; ++j) add_group<P, GB>(acc, e[j]);
           }
           if (CPW == 4 && WF < WR) {               // M % 4 codes are left
             const unsigned word = codes_s[WF * CH + r];
             for (int m = 4 * WF; m < M; ++m)
-              add_group<P>(acc, tab_w[m * K + ((word >> (8 * (m & 3))) &
-                                               0xffu)]);
+              add_group<P, GB>(acc, tab_w[m * K + ((word >> (8 * (m & 3))) &
+                                                   0xffu)]);
           }
 #pragma unroll
           for (int qi = 0; qi < QI; ++qi) {
-            float d = r < nv ? acc[qi] : CUDART_INF_F;
-            if (DEEP && !(d > lo_v[qi]
-                          || (d == lo_v[qi] && c0 + r > lo_r[qi])))
-              d = CUDART_INF_F;
+            const Key d = sel[qi].template key<DEEP>(acc[qi], c0 + r, r < nv);
             unsigned hit = __ballot_sync(FULL, d < tau[qi]);
             while (hit) {
               const int src_lane = __ffs(hit) - 1;
-              insert<KR>(val[qi], rw[qi], __shfl_sync(FULL, d, src_lane),
-                         c0 + s + src_lane, lane);
-              tau[qi] = element<KR>(val[qi], kp - 1);
+              sel[qi].insert(__shfl_sync(FULL, d, src_lane),
+                             c0 + s + src_lane, lane);
+              tau[qi] = sel[qi].kth(kp - 1);
               hit &= hit - 1;
               hit &= __ballot_sync(FULL, d < tau[qi]);
             }
@@ -285,42 +382,59 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
       const int q = q0 + warp * QI + qi;
       if (q >= B) continue;
 #pragma unroll
-      for (int r = 0; r < KR; ++r) {
+      for (int r = 0; r < S::KR; ++r) {
         const int j = 32 * r + lane;
-        if (j < kp) {
-          const size_t o = ((size_t)t * top_k + j0 + j) * B + q;
-          out_d[o] = val[qi][r];
-          out_i[o] = rw[qi][r];
-        }
+        if (j < kp)
+          sel[qi].store(out, ((size_t)t * top_k + j0 + j) * B + q, r);
       }
     }
   }
 }
 
-template <int P, typename CodeT, int KR, bool DEEP>
-cudaError_t launch(const void* tab, const void* codes, float* out_d,
-                   int* out_i, int B, int M, int K, int n_pad, int tile_n,
-                   int n_valid, int top_k, int j0, int kp,
-                   cudaStream_t st) {
-  constexpr int QI = Group<P>::QI;
-  auto kernel = adc_topk_kernel<P, CodeT, KR, DEEP>;
+// Rows of a code chunk (a multiple of 32, so that a warp's last rows stay
+// inside the chunk) and the shared memory of a block of W warps.
+inline int chunk_rows(int WR, int tile_n) {
+  return std::min((tile_n + 31) / 32 * 32,
+                  std::max(32, CODE_BYTES / (4 * WR) / 32 * 32));
+}
+inline size_t block_smem(int GB, int M, int K, int W, int WR, int CH) {
+  return (((size_t)GB * M * K * W + 15) & ~size_t(15)) + (size_t)4 * WR * CH;
+}
+
+// Warps of GB-byte table groups a block can hold beside a code chunk (0:
+// not one).
+inline cudaError_t warps_that_fit(int GB, int M, int K, int code_bytes,
+                                  int tile_n, long long* fit) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
-  const int WR = (M * (int)sizeof(CodeT) + 3) / 4;
-  const int CH = std::min(tile_n,
-                          std::max(32, CODE_BYTES / (4 * WR) / 32 * 32));
-  const size_t code_smem = (size_t)4 * WR * CH;
-  const size_t per_warp = (size_t)GROUP_BYTES * M * K;
-  const long long fit = ((long long)optin - (long long)code_smem)
-                        / (long long)per_warp;
+  const int WR = (M * code_bytes + 3) / 4;
+  const size_t code_smem = block_smem(GB, M, K, 0, WR,
+                                      chunk_rows(WR, tile_n));
+  *fit = ((long long)optin - (long long)code_smem - 16)
+         / ((long long)GB * M * K);
+  return cudaSuccess;
+}
+
+template <int P, int GB, typename CodeT, class S, bool DEEP>
+cudaError_t launch(const void* tab, const void* codes, typename S::Out out,
+                   int B, int M, int K, int n_pad, int tile_n, int n_valid,
+                   int top_k, int j0, int kp, cudaStream_t st) {
+  constexpr int QI = Group<P, GB>::QI;
+  auto kernel = adc_topk_kernel<P, GB, CodeT, S, DEEP>;
+  long long fit = 0;
+  cudaError_t e = warps_that_fit(GB, M, K, (int)sizeof(CodeT), tile_n, &fit);
+  if (e != cudaSuccess) return e;
   if (fit < 1) return cudaErrorInvalidValue;
+  const int WR = (M * (int)sizeof(CodeT) + 3) / 4;
+  const int CH = chunk_rows(WR, tile_n);
   const int nqw = (B + QI - 1) / QI;                  // warps the batch fills
-  const int W = (int)std::min((long long)std::min(Warps<KR>::MAX, nqw), fit);
-  const size_t smem = per_warp * W + code_smem;
+  const int W = (int)std::min((long long)std::min(Warps<S::KR>::MAX, nqw),
+                              fit);
+  const size_t smem = block_smem(GB, M, K, W, WR, CH);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   const int nT = n_pad / tile_n;
@@ -331,20 +445,20 @@ cudaError_t launch(const void* tab, const void* codes, float* out_d,
   if (e != cudaSuccess) return e;
   kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const typename adc::Entry<P>::type*>(tab),
-      static_cast<const CodeT*>(codes), out_d, out_i, B, M, K, nT, tile_n,
-      n_valid, top_k, j0, kp, CH, nqg);
+      static_cast<const CodeT*>(codes), out, B, M, K, nT, tile_n, n_valid,
+      top_k, j0, kp, CH, nqg);
   return cudaGetLastError();
 }
 
-template <int P, typename CodeT>
-cudaError_t launch_k(const void* tab, const void* codes, float* out_d,
-                     int* out_i, int B, int M, int K, int n_pad, int tile_n,
-                     int n_valid, int top_k, cudaStream_t st) {
-  // launches of at most 256 ranks; after the first, each keeps the rows
-  // after the last (value, row) of the one before (DEEP)
+// Launches of at most 256 ranks; after the first, each keeps the rows whose
+// key comes after the last key of the one before (DEEP).
+template <int P, int GB, typename CodeT, template <int> class S>
+cudaError_t launch_k(const void* tab, const void* codes,
+                     typename S<1>::Out out, int B, int M, int K, int n_pad,
+                     int tile_n, int n_valid, int top_k, cudaStream_t st) {
 #define ADC_TOPK_LAUNCH(KR, DEEP, J0, KP)                                   \
-  launch<P, CodeT, KR, DEEP>(tab, codes, out_d, out_i, B, M, K, n_pad,      \
-                             tile_n, n_valid, top_k, J0, KP, st)
+  launch<P, GB, CodeT, S<KR>, DEEP>(tab, codes, out, B, M, K, n_pad, tile_n, \
+                                    n_valid, top_k, J0, KP, st)
   const int k0 = std::min(256, top_k);
   cudaError_t e = k0 <= 32    ? ADC_TOPK_LAUNCH(1, false, 0, k0)
                   : k0 <= 64  ? ADC_TOPK_LAUNCH(2, false, 0, k0)
@@ -356,28 +470,28 @@ cudaError_t launch_k(const void* tab, const void* codes, float* out_d,
   return e;
 }
 
-template <int P>
+template <int P, int GB, template <int> class S>
 cudaError_t launch_codes(int code_bytes, const void* tab, const void* codes,
-                         float* out_d, int* out_i, int B, int M, int K,
+                         typename S<1>::Out out, int B, int M, int K,
                          int n_pad, int tile_n, int n_valid, int top_k,
                          cudaStream_t st) {
   if (code_bytes == 1)
-    return launch_k<P, uint8_t>(tab, codes, out_d, out_i, B, M, K, n_pad,
-                                tile_n, n_valid, top_k, st);
+    return launch_k<P, GB, uint8_t, S>(tab, codes, out, B, M, K, n_pad,
+                                       tile_n, n_valid, top_k, st);
   if (code_bytes == 4)
-    return launch_k<P, int32_t>(tab, codes, out_d, out_i, B, M, K, n_pad,
-                                tile_n, n_valid, top_k, st);
+    return launch_k<P, GB, int32_t, S>(tab, codes, out, B, M, K, n_pad,
+                                       tile_n, n_valid, top_k, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// prec 0 (tab f32 [B, M*K]), 1 (bf16 [B, M*K]) or 2 (bf16 [B, M*K, 2]: hi,
-// lo); code_bytes 1 (u8 codes) or 4 (int32 codes, K > 256); tile_n a
-// multiple of 32 dividing n_pad; one warp's tables, 4*M*K
-// bytes, must fit the block's shared memory beside a code chunk (checked
-// by the Python wrapper).  Returns cudaGetLastError() after the launch (or
-// the error of a request the card refuses).
+// B6.  prec 0 (tab f32 [B, M*K]), 1 (bf16 [B, M*K]) or 2 (bf16 [B, M*K,
+// 2]: hi, lo); code_bytes 1 (u8 codes) or 4 (int32 codes, K > 256); tile_n
+// a multiple of 32 dividing n_pad; one warp's tables, 4*M*K bytes, must fit
+// the block's shared memory beside a code chunk (checked by the Python
+// wrapper).  Returns cudaGetLastError() after the launch (or the error of a
+// request the card refuses).
 extern "C" int adc_topk_launch(const void* tab, const void* codes,
                                void* out_d, void* out_i, int B, int M, int K,
                                int n_pad, int tile_n, int n_valid, int top_k,
@@ -385,21 +499,50 @@ extern "C" int adc_topk_launch(const void* tab, const void* codes,
   if (n_pad == 0 || B == 0 || top_k == 0) return (int)cudaSuccess;
   if (tile_n % 32 || n_pad % tile_n) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  auto* dp = static_cast<float*>(out_d);
-  auto* ip = static_cast<int*>(out_i);
+  const PairOut out{static_cast<float*>(out_d), static_cast<int*>(out_i)};
+#define B6_LAUNCH(P)                                                        \
+  (int)launch_codes<P, GROUP_BYTES, PairTopK>(code_bytes, tab, codes, out,  \
+                                              B, M, K, n_pad, tile_n,       \
+                                              n_valid, top_k, st)
   switch (prec) {
-    case adc::F32:
-      return (int)launch_codes<adc::F32>(code_bytes, tab, codes, dp, ip, B,
-                                         M, K, n_pad, tile_n, n_valid, top_k,
-                                         st);
-    case adc::BF16:
-      return (int)launch_codes<adc::BF16>(code_bytes, tab, codes, dp, ip, B,
-                                          M, K, n_pad, tile_n, n_valid,
-                                          top_k, st);
-    case adc::BF16X2:
-      return (int)launch_codes<adc::BF16X2>(code_bytes, tab, codes, dp, ip,
-                                            B, M, K, n_pad, tile_n, n_valid,
-                                            top_k, st);
+    case adc::F32: return B6_LAUNCH(adc::F32);
+    case adc::BF16: return B6_LAUNCH(adc::BF16);
+    case adc::BF16X2: return B6_LAUNCH(adc::BF16X2);
   }
+#undef B6_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// B9.  tab, codes and prec as adc_topk_launch; tile_n <= 4096 dividing
+// n_pad (any tile_n: the chunks round up to whole warps of rows); one
+// warp's tables must fit beside a code chunk: 4*M*K bytes, or at bf16
+// 2*M*K (a warp then owns one query).  Returns cudaGetLastError() after the
+// launch (or the error of a request the card refuses).
+extern "C" int adc_topk_packed_launch(const void* tab, const void* codes,
+                                      void* out, int B, int M, int K,
+                                      int n_pad, int tile_n, int n_valid,
+                                      int top_k, int code_bytes, int prec,
+                                      void* stream) {
+  if (n_pad == 0 || B == 0 || top_k == 0) return (int)cudaSuccess;
+  if (tile_n > adc::MAX_TILE || n_pad % tile_n)
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const PackedOut o{static_cast<int*>(out)};
+#define B9_LAUNCH(P, GB)                                                    \
+  (int)launch_codes<P, GB, PackedTopK>(code_bytes, tab, codes, o, B, M, K,  \
+                                       n_pad, tile_n, n_valid, top_k, st)
+  switch (prec) {
+    case adc::F32: return B9_LAUNCH(adc::F32, GROUP_BYTES);
+    case adc::BF16: {
+      long long fit = 0;
+      cudaError_t e = warps_that_fit(GROUP_BYTES, M, K, code_bytes, tile_n,
+                                     &fit);
+      if (e != cudaSuccess) return (int)e;
+      return fit >= 1 ? B9_LAUNCH(adc::BF16, GROUP_BYTES)
+                      : B9_LAUNCH(adc::BF16, 2);
+    }
+    case adc::BF16X2: return B9_LAUNCH(adc::BF16X2, GROUP_BYTES);
+  }
+#undef B9_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

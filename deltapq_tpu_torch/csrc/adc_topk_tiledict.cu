@@ -13,7 +13,7 @@
 //   stage B  dist[r] = sum_m t_m[idx[t*tile_n + r, m]], ascending m from
 //            0.0f with __fadd_rn: the same f32 values in the same order as
 //            the plain kernel reads through the codes, so the keys equal
-//            adc_topk_packed.cu's "f32" keys on the same rows;
+//            packed kernel's "f32" keys (adc_topk.cu) on the same rows;
 //   then the packed key and the top_k sweeps of adc_lookup.cuh.
 //
 // What bounds it on an H100: N*B*M shared-memory lookups, as the packed
@@ -24,8 +24,8 @@
 //
 // Design: a block gathers the compact tables of its QC queries from the
 // f32 table in device memory (4 MB at B=512: it stays in the L2 cache),
-// once per (tile, query block); the scan then is adc_topk_packed.cu's with
-// K = D and the u8 indexes in place of the codes.
+// once per (tile, query block); the scan then is adc_lookup.cuh's
+// packed_tile_topk with K = D and the u8 indexes in place of the codes.
 
 #include "adc_lookup.cuh"
 

@@ -1,8 +1,8 @@
-// The scan tails shared by the stream kernel (stream_mins.cu), the codes
-// kernel (codes_mins.cu), the slot-tile kernel (delta_mins.cu) and the
-// pipelined stream kernel (stream_mins_pipelined.cu): a 1024-row tile of
-// codes in shared memory -> x^ gathered from the codebook -> pre - 2 cross
-// per (row, query) -> 32-row subtile minima.
+// The scan tails shared by the stream kernels (stream_mins.cu,
+// stream_mins_pipelined.cu), the codes kernel (codes_mins.cu) and the
+// slot-tile kernel (delta_mins.cu): a 1024-row tile of codes in shared
+// memory -> x^ gathered from the codebook -> pre - 2 cross per (row, query)
+// -> 32-row subtile minima.
 //
 // Replaces the tail of the TPU kernels deltapq_tpu/ops/fused_pallas.py:
 // _scan_tail (its int16, int8 and bf16 branches), which decodes codes ->
@@ -10,42 +10,28 @@
 // each lane gathers its row's codeword words from the codebook.
 //
 // What bounds a tail on an H100: its dot products (2 rows x queries x D
-// operations, x4 at int16).  On the CUDA cores (__dp4a, f32 fma) they cost
-// 20-50 times the tensor cores' time, and every subtile minimum costs five
-// shuffles a query.  So the narrow shapes of the stream, codes and
-// slot-tile kernels run the MmaTail structs below (mma.sync, three
-// shuffles for two queries), and their wide shapes (up to M=16, D=1024)
-// the gathered wgmma tail of wide_mma.cuh.  The CUDA-core tails stay for
-// the pipelined stream kernel (Int8Tail, Bf16Tail).
+// operations, x4 at int16), at the tensor cores' rate.  So the narrow
+// shapes (M <= 8, M*Ds <= 128) of all four kernels run the MmaTail structs
+// below (mma.sync), and the wide shapes (up to M=16, D=1024) of the stream,
+// codes and slot-tile kernels the gathered wgmma tail of wide_mma.cuh.
+// The arithmetic of the three modes:
 //
-// The CUDA-core structs share one interface (load the operands; scan the
-// subtiles S_LO <= s < S_HI of a code tile, all 32 by default -- the
-// pipelined stream kernel scans a tile in two halves; the bounds are
-// template arguments so that the subtile loop unrolls either way):
-//
-//   Int8Tail   codewords and queries as one int8 value each (step scale);
-//              cross is one exact int32 __dp4a chain, pre the exact int32
-//              sum of per-codeword norms (both below 127^2 * 128 < 2^24,
-//              so exact in f32); then cross * u[b] and pre - 2 cross
-//              round once each, in the JAX order, with _rn intrinsics
-//              (no fma contraction): bit-equal to the plain version.
-//   Bf16Tail   x^ and q are bf16 values; each product of two bf16 values
-//              is exact in f32, so cross = sum x^ q is an f32 fma chain
-//              (only the order of summation differs from the matrix
-//              unit's); pre = sum over m of per-codeword f32 norms of
+//   int8       codewords and queries as one int8 value each (step scale);
+//              cross is an exact int32 sum, pre the exact int32 sum of
+//              per-codeword norms (both below 127^2 * 128 < 2^24, so exact
+//              in f32); then cross * u[b] and pre - 2 cross round once
+//              each, in the JAX order, with _rn intrinsics (no fma
+//              contraction): bit-equal to the plain version.
+//   bf16       x^ and q are bf16 values; each product of two bf16 values
+//              is exact in f32, and cross = sum x^ q is summed in f32
+//              inside the tensor core (in an order the plain version does
+//              not share); pre = sum over m of per-codeword f32 norms of
 //              the bf16 x^, added in ascending m.  No u factor.
-//   (int16)    codewords and queries as two base-128 int8 digits
+//   int16      codewords and queries as two base-128 int8 digits
 //              (A = 128a + b); aa, p2, bb are exact int32 sums, cross =
 //              ((16384 aa + 128 p2) + bb) * u[b] in the JAX order with _rn
 //              intrinsics; pre = sum A^2 exact in int64 from per-codeword
 //              norms, rounded once (MmaTail and wide_mma.cuh).
-//
-// Layout of the work, narrow CUDA-core tails (M <= 8 and M*Ds <= 128;
-// Int8Tail, Bf16Tail): 256 threads; the compact codebook, the norms and
-// the queries sit in shared memory; each warp takes 32-row subtiles, a
-// lane holds its row's whole x^ in registers, reads each query's operand
-// as broadcast 16-byte shared loads, and the subtile min is a warp
-// shuffle-reduce.
 //
 // The TPU kernel splits the subspaces of a wide shape into G = 2 groups
 // of 8, because a [TILE, 4096] one-hot and a [4096, 1024] codebook do not
@@ -66,7 +52,6 @@ constexpr int TILE = 1024;
 constexpr int SUB = 32;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int QB = 64;                   // queries per block
 constexpr int MMAX = 8;                  // code bytes per row, narrow tails
 constexpr int MSW = 16;                  // code bytes per row, wide tails
 constexpr unsigned FULL = 0xffffffffu;
@@ -75,255 +60,21 @@ __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
 
-// bf16 pair in one 32-bit word (element 2i low, 2i+1 high) -> f32, exact
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-__device__ __forceinline__ float warp_min(float d) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) d = fminf(d, __shfl_xor_sync(FULL, d, o));
-  return d;
-}
-
-// The 32 rows of a warp (lane = row; x^ as bf16 pairs in xw, D <= 2*DW)
-// against QB queries held as f32 rows of 2*DW in q_s: writes the subtile
-// minimum of pre - 2 cross for query b to out[b], b < nb.  Used by the
-// bf16 tail.
-template <int DW>
-__device__ __forceinline__ void bf16_subtile_mins(const unsigned (&xw)[DW],
-                                                  float pre, bool valid,
-                                                  const float* q_s,
-                                                  float* out, int nb,
-                                                  int lane) {
-  for (int b0 = 0; b0 < QB; b0 += 32) {
-    float mine = CUDART_INF_F;
-    for (int bi = 0; bi < 32; ++bi) {
-      const float4* q4 = reinterpret_cast<const float4*>(
-          q_s + (b0 + bi) * 2 * DW);
-      float acc = 0.0f;
-#pragma unroll
-      for (int w = 0; w < DW / 2; ++w) {
-        const float4 Q = q4[w];
-        acc = fmaf(bf16_lo(xw[2 * w]), Q.x, acc);
-        acc = fmaf(bf16_hi(xw[2 * w]), Q.y, acc);
-        acc = fmaf(bf16_lo(xw[2 * w + 1]), Q.z, acc);
-        acc = fmaf(bf16_hi(xw[2 * w + 1]), Q.w, acc);
-      }
-      float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, acc)) : CUDART_INF_F;
-      d = warp_min(d);
-      if (lane == bi) mine = d;
-    }
-    if (b0 + lane < nb) out[b0 + lane] = mine;
-  }
-}
-
-// ---- int8 mode ---------------------------------------------------------
-// DW: 32-bit words of a row (D <= 4*DW); WS = Ds/4.
-// Operands: q int8 [Dg, B]; cw int32 [M, K, WS] (four int8 values a
-// word); nrm int32 [M, K] (per-codeword sum of squares, exact); u f32 [B].
-template <int DW>
-struct Int8Tail {
-  static constexpr int MS = MMAX, QBLK = QB;
-  // shared memory: nrm int32 [M*K] | cw int32 [M*K*WS] | q | u
-  struct Layout {
-    size_t nrm, cw, q, u, total;
-  };
-  __host__ __device__ static Layout layout(int M, int K, int Ds) {
-    Layout s;
-    s.nrm = 0;
-    s.cw = s.nrm + sizeof(int) * M * K;
-    s.q = align16(s.cw + sizeof(int) * M * K * (Ds / 4));
-    s.u = s.q + sizeof(int) * QB * DW;
-    s.total = align16(s.u + sizeof(float) * QB);
-    return s;
-  }
-
-  __device__ static void load(unsigned char* smem, const void* q_,
-                              const void* cw_, const void* nrm_,
-                              const float* u, int B, int, int qb0, int M,
-                              int K, int Ds) {
-    const Layout L = layout(M, K, Ds);
-    const int tid = threadIdx.x;
-    const int MKW = M * K * (Ds / 4);
-    auto* cw = static_cast<const int*>(cw_);
-    auto* nrm = static_cast<const int*>(nrm_);
-    auto* q = static_cast<const int8_t*>(q_);
-    int* cw_s = reinterpret_cast<int*>(smem + L.cw);
-    int* nrm_s = reinterpret_cast<int*>(smem + L.nrm);
-    int8_t* qb_s = reinterpret_cast<int8_t*>(smem + L.q);
-    float* u_s = reinterpret_cast<float*>(smem + L.u);
-    for (int i = tid; i < MKW; i += THREADS) cw_s[i] = cw[i];
-    for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
-    const int D = M * Ds;
-    const int DP = 4 * DW;                 // bytes of one query row
-    for (int i = tid; i < QB * DP; i += THREADS) {
-      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
-      qb_s[b * DP + d] =
-          (d < D && qb0 + b < B) ? q[(size_t)d * B + qb0 + b] : int8_t(0);
-    }
-    for (int b = tid; b < QB; b += THREADS)
-      u_s[b] = (qb0 + b < B) ? u[qb0 + b] : 1.0f;
-  }
-
-  // codes_s [TILE, MMAX] u8; writes mins[(t*32 + s)*B + qb0 + b]
-  template <int S_LO = 0, int S_HI = TILE / SUB>
-  __device__ static void scan(const unsigned char* smem,
-                              const uint8_t* codes_s, float* mins, int t,
-                              int B, int qb0, int n_valid, int M, int K,
-                              int Ds, const void*, const void*) {
-    const Layout L = layout(M, K, Ds);
-    const int WS = Ds / 4;
-    const int* cw_s = reinterpret_cast<const int*>(smem + L.cw);
-    const int* nrm_s = reinterpret_cast<const int*>(smem + L.nrm);
-    const int* q_s = reinterpret_cast<const int*>(smem + L.q);
-    const float* u_s = reinterpret_cast<const float*>(smem + L.u);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int MW = M * WS;                 // words of real dims
-    const int nb = min(QB, B - qb0);
-    for (int s = S_LO + warp; s < S_HI; s += WARPS) {
-      const int r = s * SUB + lane;
-      int xw[DW];
-#pragma unroll
-      for (int w = 0; w < DW; ++w) {
-        if (w < MW) {
-          const int m = w / WS;
-          const int k = codes_s[r * MMAX + m];
-          xw[w] = cw_s[(m * K + k) * WS + (w - m * WS)];
-        } else {
-          xw[w] = 0;
-        }
-      }
-      int pre_i = 0;
-      for (int m = 0; m < M; ++m) pre_i += nrm_s[m * K + codes_s[r * MMAX + m]];
-      const float pre = __int2float_rn(pre_i);   // exact: < 2^24
-      const bool valid = (long long)t * TILE + r < n_valid;
-      float* out = mins + ((size_t)t * (TILE / SUB) + s) * B + qb0;
-
-      for (int b0 = 0; b0 < QB; b0 += 32) {
-        float mine = CUDART_INF_F;
-        for (int bi = 0; bi < 32; ++bi) {
-          const int b = b0 + bi;
-          const int4* q4 = reinterpret_cast<const int4*>(q_s + b * DW);
-          int acc = 0;
-#pragma unroll
-          for (int w4 = 0; w4 < DW / 4; ++w4) {
-            const int4 Q = q4[w4];
-            acc = __dp4a(xw[4 * w4 + 0], Q.x, acc);
-            acc = __dp4a(xw[4 * w4 + 1], Q.y, acc);
-            acc = __dp4a(xw[4 * w4 + 2], Q.z, acc);
-            acc = __dp4a(xw[4 * w4 + 3], Q.w, acc);
-          }
-          const float cross = __fmul_rn(__int2float_rn(acc), u_s[b]);
-          float d = valid ? __fsub_rn(pre, __fmul_rn(2.0f, cross))
-                          : CUDART_INF_F;
-          d = warp_min(d);
-          if (lane == bi) mine = d;
-        }
-        if (b0 + lane < nb) out[b0 + lane] = mine;
-      }
-    }
-  }
-};
-
-// ---- bf16 mode ---------------------------------------------------------
-// DW: 32-bit words (bf16 pairs) of a row (D <= 2*DW); WH = Ds/2.
-// Operands: q bf16 [Dg, B]; cw [M, K, WH] bf16 pairs; nrm f32 [M, K]
-// (per-codeword sum of x^2 of the bf16 values).
-template <int DW>
-struct Bf16Tail {
-  static constexpr int MS = MMAX, QBLK = QB;
-  // shared memory: nrm f32 [M*K] | cw [M*K*WH] words | q f32 [QB, 2*DW]
-  struct Layout {
-    size_t nrm, cw, q, total;
-  };
-  __host__ __device__ static Layout layout(int M, int K, int Ds) {
-    Layout s;
-    s.nrm = 0;
-    s.cw = s.nrm + sizeof(float) * M * K;
-    s.q = align16(s.cw + sizeof(unsigned) * M * K * (Ds / 2));
-    s.total = align16(s.q + sizeof(float) * QB * 2 * DW);
-    return s;
-  }
-
-  __device__ static void load(unsigned char* smem, const void* q_,
-                              const void* cw_, const void* nrm_,
-                              const float*, int B, int, int qb0, int M,
-                              int K, int Ds) {
-    const Layout L = layout(M, K, Ds);
-    const int tid = threadIdx.x;
-    const int MKW = M * K * (Ds / 2);
-    auto* cw = static_cast<const unsigned*>(cw_);
-    auto* nrm = static_cast<const float*>(nrm_);
-    auto* q = static_cast<const uint16_t*>(q_);
-    unsigned* cw_s = reinterpret_cast<unsigned*>(smem + L.cw);
-    float* nrm_s = reinterpret_cast<float*>(smem + L.nrm);
-    float* q_s = reinterpret_cast<float*>(smem + L.q);
-    for (int i = tid; i < MKW; i += THREADS) cw_s[i] = cw[i];
-    for (int i = tid; i < M * K; i += THREADS) nrm_s[i] = nrm[i];
-    const int D = M * Ds;
-    for (int i = tid; i < QB * 2 * DW; i += THREADS) {
-      const int b = i % QB, d = i / QB;    // consecutive b: coalesced
-      float v = 0.0f;
-      if (d < D && qb0 + b < B)
-        v = __uint_as_float((unsigned)q[(size_t)d * B + qb0 + b] << 16);
-      q_s[b * 2 * DW + d] = v;
-    }
-  }
-
-  template <int S_LO = 0, int S_HI = TILE / SUB>
-  __device__ static void scan(const unsigned char* smem,
-                              const uint8_t* codes_s, float* mins, int t,
-                              int B, int qb0, int n_valid, int M, int K,
-                              int Ds, const void*, const void*) {
-    const Layout L = layout(M, K, Ds);
-    const int WH = Ds / 2;
-    const unsigned* cw_s = reinterpret_cast<const unsigned*>(smem + L.cw);
-    const float* nrm_s = reinterpret_cast<const float*>(smem + L.nrm);
-    const float* q_s = reinterpret_cast<const float*>(smem + L.q);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int MW = M * WH;
-    const int nb = min(QB, B - qb0);
-    for (int s = S_LO + warp; s < S_HI; s += WARPS) {
-      const int r = s * SUB + lane;
-      unsigned xw[DW];
-#pragma unroll
-      for (int w = 0; w < DW; ++w) {
-        if (w < MW) {
-          const int m = w / WH;
-          const int k = codes_s[r * MMAX + m];
-          xw[w] = cw_s[(m * K + k) * WH + (w - m * WH)];
-        } else {
-          xw[w] = 0u;
-        }
-      }
-      float pre = 0.0f;
-      for (int m = 0; m < M; ++m)
-        pre = __fadd_rn(pre, nrm_s[m * K + codes_s[r * MMAX + m]]);
-      const bool valid = (long long)t * TILE + r < n_valid;
-      bf16_subtile_mins<DW>(
-          xw, pre, valid, q_s,
-          mins + ((size_t)t * (TILE / SUB) + s) * B + qb0, nb, lane);
-    }
-  }
-};
-
 // ---- narrow tails on the tensor cores -------------------------------------
 // MmaTail<MODE, DWP>: the narrow shapes (M <= 8, M*Ds <= 128) with the
-// products on the tensor cores, as the stream, codes and slot-tile
-// kernels run them (one persistent block meets every query block of the
-// batch with a tile, restaging the queries).  MODE 0 is
+// products on the tensor cores, as the four narrow kernels run them (one
+// persistent block meets every query block of the batch with a tile,
+// restaging the queries).  MODE 0 is
 // int16, 1 bf16, 2 int8 (the kernels' mode argument); DWP is the 32-bit
 // words of a row and digit plane, padded to whole k-steps of eight words
 // (int8 and int16: four digits a word, D <= 4*DWP; bf16: a pair a word,
-// D <= 2*DWP).  Operands as Int8Tail's and Bf16Tail's (int16: cw int32
+// D <= 2*DWP).  Operands: int8 cw int32 [M, K, Ds/4] (four values a
+// word), nrm int32 [M, K] (per-codeword sum of squares, exact), u f32 [B];
+// bf16 cw [M, K, Ds/2] bf16 pairs, nrm f32 [M, K]; int16 cw int32
 // [2, M, K, Ds/4], the a- then the b-digit plane, nrm int64 [M, K], the
-// exact sum of A^2), but for the queries: qt is the transposed operand
-// [B, planes*Dg] (a query's D values contiguous, zero past D), so that a
-// query block is staged with plain 16-byte copies.
+// exact sum of A^2; qt is the transposed query operand [B, planes*Dg] (a
+// query's D values contiguous, zero past D), so that a query block is
+// staged with plain 16-byte copies.
 //
 // A warp owns a 32-row subtile as two m-fragments and meets the block's
 // queries eight at a time (one n-fragment): int8 and int16 run
@@ -343,9 +94,8 @@ struct Bf16Tail {
 //     n-fragment's number keeps the result, so 64 minima leave the warp as
 //     one 256-byte run.
 // The integer sums are exact in any order, so int8 and int16 give the bits
-// of Int8Tail and of the int16 arithmetic above (the epilogue is theirs,
-// with _rn intrinsics); bf16 differs from Bf16Tail by the order of the f32
-// sums inside the tensor core.  pre is computed as above, one row a lane, and
+// of the arithmetic above (its epilogue, with _rn intrinsics); bf16 sums
+// in an order of the tensor core's own, the same in all four kernels.  pre is computed as above, one row a lane, and
 // handed to the rows' owners by shuffle.
 template <int MODE, int DWP>
 struct MmaTail {

@@ -46,10 +46,9 @@
 //     shared memory, placed after the tail's 4-stage ring -- the slot-tile
 //     kernel's layout (delta_mins.cu), with the stream decode in place of
 //     the slot decode.
-// The codes and slot-tile kernels run the same two tails, so at int8 and
-// int16 the three kernels give the same bits on the same rows; the
-// pipelined stream kernel keeps the CUDA-core narrow tails (Int8Tail,
-// Bf16Tail).
+// The codes and slot-tile kernels run the same two tails, and the
+// pipelined stream kernel the narrow one, so the kernels give the same
+// bits on the same rows (at bf16 too, where one tail form runs).
 
 #include "tile_decode.cuh"
 #include "wide_mma.cuh"

@@ -15,49 +15,29 @@
 // garbage first block pad the two ends.  None of that plumbing is carried
 // over.
 //
-// What bounds it on an H100: the dot products of the scan tail, as in
-// stream_mins.cu.  Beside them stream_mins.cu pays, for every tile, a
-// fresh load of the compact codebook, the norms and the queries into
-// shared memory (up to 80 KB a block) and the latency of the tile's mask
-// and value reads before any product can start.
+// What bounds it on an H100: the dot products of the scan tail, 2 N B D
+// operations at the tensor cores' rate, as in stream_mins.cu; beside them a
+// tile's decode (prefix scans and barriers) and the latency of its mask
+// and value reads.
 //
-// Design: a loop inside the block takes the place of the sequential grid.
-// One block walks a run of consecutive tiles for its 64 queries:
-//   * the codebook, norms and queries are loaded into shared memory once
-//     for the whole run;
-//   * two code tiles live in shared memory.  While the warps scan tile i
-//     out of buffer i % 2, the mask plane and the value window of tile
-//     i+1 (the whole 1024-value groups its stream segment touches, known
-//     from meta of tiles i+1 and i+2) are in flight: cp.async into a
-//     staging buffer, committed as soon as the previous decode has read
-//     the buffer and waited just before the next decode;
-//   * the decode of tile i+1 (tile_decode.cuh, reading the staged bytes)
-//     fills buffer (i+1) % 2 in the middle of the scan of tile i: every
-//     warp scans some of its four subtiles, takes part in the decode,
-//     starts the copy of tile i+2, and scans the rest.  All eight
-//     warps decode, rather than a producer warp group beside consumer
-//     warps: the decode is a few block-wide prefix scans over 1024 rows
-//     -- short, latency-bound and full of barriers -- and a dedicated
-//     group would idle through the scan, which is where the time goes.
-//     Placed mid-scan, a warp that waits at one of the decode's barriers
-//     leaves the SM's schedulers to the warps (of this block and of its
-//     neighbour on the SM) that are still in their dot products, and the
-//     copy has had part of a scan to land.  That is why there are two
-//     code tiles: tile i is still being read while tile i+1 is written.
-// The run length is ceil(nT / runs).  runs is WAVES = 4 times the blocks
-// the card holds at once for one query block (SM count x the occupancy the
-// kernel reaches, divided by the query blocks and rounded down, so that a
-// wave never spills a few blocks into a wave of its own): four short
-// waves measured 2-4% faster than one long one, whose blocks run in lock
-// step.  Tiles past nT are skipped, not padded.  Per row the arithmetic is
-// stream_mins.cu's (the same tails of scan_tail.cuh), so mins and codes
-// equal its bit for bit.
-//
-// What it costs: the second code tile and the staging buffer (19 KB) take
-// a resident block away -- at D = 128 bf16 one block an SM against
-// stream_mins.cu's two, int8 two against three -- and the tails are
-// chains of dependent fma / __dp4a that need those warps to hide their
-// latency.  On this card that outweighs the saved loads (PERF.md).
+// Design: stream_mins.cu's narrow kernel -- MmaTail (mma.sync) of
+// scan_tail.cuh, a persistent grid (as many blocks as the card holds at
+// once), the compact codebook and norms loaded once a block, each tile
+// decoded once by the one block that echoes its codes and then meets every
+// query block of the batch with it, the queries restaged from the
+// transposed operand for each -- with what is this kernel's own on top: a
+// block walks a contiguous run of tiles, so that it knows tile t+1 while
+// it works on tile t, and the mask plane and value window of tile t+1 (the
+// whole 1024-value groups its stream segment touches, known from meta of
+// tiles t+1 and t+2) travel by cp.async into a staging buffer while tile t
+// is scanned.  The decode then reads shared memory only.  It runs after
+// the last query block of a tile, with one code tile in shared memory:
+// the staging buffer (11 KB) leaves two blocks an SM at D = 128 (bf16 about
+// 109 KB a block), and the other block's scan hides a decode.  A second
+// code tile that lets the decode run in the middle of the scan costs a
+// resident block at bf16 and measured slower, at int8 too
+// (kernels/ablate_pipelined.py, PERF.md).  Per row the arithmetic is
+// stream_mins.cu's, so mins and codes equal its bit for bit.
 
 #include <cuda_pipeline.h>
 
@@ -72,8 +52,6 @@ using namespace tile_decode;
 // up to 1016 values into a group and holds at most 8 * 1024 values.
 constexpr int STAGE_GROUPS = 10;
 constexpr int STAGE_BYTES = TILE + STAGE_GROUPS * 1024;   // mask | window
-constexpr int WAVES = 4;                 // waves of blocks over the card
-constexpr int SPLIT = TILE / SUB / 2;    // subtiles scanned before a decode
 
 // First group and group count of tile t's value window.
 __device__ __forceinline__ void window_of(const int* meta, int nT, int t,
@@ -103,91 +81,66 @@ __device__ __forceinline__ void prefetch_tile(uint8_t* stage,
   __pipeline_commit();
 }
 
+// Block b walks tiles [b * run, min(nT, (b + 1) * run)).
 template <class Tail>
 __global__ void __launch_bounds__(THREADS, 2)
 stream_mins_pipelined_kernel(
-    const void* __restrict__ q, const void* __restrict__ cw,
+    const void* __restrict__ qt, const void* __restrict__ cw,
     const void* __restrict__ nrm,
     const uint8_t* __restrict__ row_data,  // [nT, 1, TILE]
     const uint8_t* __restrict__ vals,      // [n_groups, 8, 128]
     const int* __restrict__ meta,          // [2, nT]
-    const float* __restrict__ u,           // [B] or null
+    const float* __restrict__ u,           // [B]
     float* __restrict__ mins,              // [nT*32, B]
     uint8_t* __restrict__ codes_out,       // [nT*TILE, M]
     int B, int Dg, int nT, int n_groups, int run, int n_valid, int M, int K,
     int Ds) {
-  constexpr int MS = Tail::MS;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* p = smem + Tail::layout(M, K, Ds).total;
-  const Scratch sc = scratch<MS>(p);       // buffer 0 + the scan scratch
-  p += align16(scratch_bytes<MS>());
-  uint8_t* buf1 = p;                       // buffer 1
-  uint8_t* stage = p + TILE * MS;
-  const int qb0 = blockIdx.y * Tail::QBLK;
+  const Scratch sc = scratch<MMAX>(p);
+  uint8_t* stage = p + align16(scratch_bytes<MMAX>());
   const int t0 = blockIdx.x * run;
   const int t1 = min(nT, t0 + run);
-  if (t0 >= t1) return;
-  uint8_t* out0 = blockIdx.y == 0 ? codes_out : nullptr;
 
   prefetch_tile(stage, row_data, vals, meta, nT, t0, n_groups);
-  Tail::load(smem, q, cw, nrm, u, B, Dg, qb0, M, K, Ds);
-
-  // Tile t's window starts at group meta[t], so its first value sits
-  // meta[nT + t] bytes into the staged window.
-  auto decode = [&](int t, uint8_t* buf) {
-    Scratch d = sc;
-    d.codes = buf;
+  Tail::load_codebook(smem, cw, nrm, M, K, Ds);
+  for (int t = t0; t < t1; ++t) {
     __pipeline_wait_prior(0);
-    __syncthreads();                       // the staged bytes are visible
-    stream_decode<MS>(stage, stage + TILE, (long long)meta[nT + t], d, M,
-                      out0 ? out0 + (size_t)t * TILE * M : nullptr);
+    __syncthreads();   // tile t is staged; the last scan has read the codes
+    // tile t's window starts at group meta[t], so its first value sits
+    // meta[nT + t] bytes into the staged window
+    stream_decode<MMAX>(stage, stage + TILE, (long long)meta[nT + t], sc, M,
+                        codes_out + (size_t)t * TILE * M);
     // the decode ended with a barrier: the staging buffer is free again
     if (t + 1 < t1)
       prefetch_tile(stage, row_data, vals, meta, nT, t + 1, n_groups);
-  };
-
-  decode(t0, sc.codes);
-  for (int t = t0; t < t1; ++t) {
-    uint8_t* cur = (t - t0) & 1 ? buf1 : sc.codes;
-    uint8_t* nxt = (t - t0) & 1 ? sc.codes : buf1;
-    Tail::template scan<0, SPLIT>(smem, cur, mins, t, B, qb0, n_valid, M, K,
-                                  Ds, cw, nrm);
-    if (t + 1 < t1) decode(t + 1, nxt);
-    Tail::template scan<SPLIT, TILE / SUB>(smem, cur, mins, t, B, qb0,
-                                           n_valid, M, K, Ds, cw, nrm);
+    for (int qb0 = 0; qb0 < B; qb0 += Tail::QBLK) {
+      if (qb0) __syncthreads();   // the last scan has read the queries
+      Tail::load_queries(smem, qt, u, B, Dg, qb0, M, K, Ds);
+      __syncthreads();
+      Tail::scan(smem, sc.codes, mins, t, B, qb0, n_valid, M, K, Ds);
+    }
   }
 }
 
 template <class Tail>
-int launch(const void* q, const void* cw, const void* nrm, const void* rd,
+int launch(const void* qt, const void* cw, const void* nrm, const void* rd,
            const void* vals, const void* meta, const void* u, void* mins,
            void* codes_out, int B, int Dg, int nT, int n_groups, int n_valid,
            int M, int K, int Ds, void* stream) {
-  constexpr int MS = Tail::MS;
   const size_t smem = Tail::layout(M, K, Ds).total
-                      + align16(scratch_bytes<MS>()) + TILE * MS
-                      + STAGE_BYTES;
+                      + align16(scratch_bytes<MMAX>()) + STAGE_BYTES;
   auto kernel = stream_mins_pipelined_kernel<Tail>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = mma::resident_grid(kernel, THREADS, smem, nT, &grid);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, occ = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-      != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, kernel, THREADS, smem)) != cudaSuccess)
-    return (int)e;
-  if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
-  // runs per query block: WAVES waves of resident blocks over the card
-  const int nqb = (B + Tail::QBLK - 1) / Tail::QBLK;
-  int runs = WAVES * (sms * occ / nqb);
-  runs = runs < 1 ? 1 : (runs > nT ? nT : runs);
-  const int run = (nT + runs - 1) / runs;
-  dim3 grid((nT + run - 1) / run, nqb);
+  const int run = (nT + grid - 1) / grid;   // tiles a block walks
+  grid = (nT + run - 1) / run;               // every block has a tile
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, cw, nrm, static_cast<const uint8_t*>(rd),
+      qt, cw, nrm, static_cast<const uint8_t*>(rd),
       static_cast<const uint8_t*>(vals), static_cast<const int*>(meta),
       static_cast<const float*>(u), static_cast<float*>(mins),
       static_cast<uint8_t*>(codes_out), B, Dg, nT, n_groups, run, n_valid,
@@ -198,31 +151,33 @@ int launch(const void* q, const void* cw, const void* nrm, const void* rd,
 }  // namespace
 
 // mode 1: bf16 (Ds % 2 == 0); mode 2: int8 (Ds % 4 == 0); M <= 8 and
-// M*Ds <= 128; n_groups = vals.shape[0]; row_data and vals 16-byte aligned
-// (checked by the Python wrapper).  Returns cudaGetLastError() after the
-// launch.
+// M*Ds <= 128 (STAGE_GROUPS holds the window of a tile only there); qt
+// [B, Dg] the transposed queries and cw, nrm the compact codebook, as
+// stream_mins_launch reads them at the narrow shapes; n_groups =
+// vals.shape[0]; row_data and vals 16-byte aligned (checked by the Python
+// wrapper).  Returns cudaGetLastError() after the launch (or the error of
+// a request the card refuses).
 extern "C" int stream_mins_pipelined_launch(
-    const void* q, const void* cw, const void* nrm, const void* row_data,
+    const void* qt, const void* cw, const void* nrm, const void* row_data,
     const void* vals, const void* meta, const void* u, void* mins,
     void* codes_out, int B, int Dg, int nT, int n_groups, int n_valid, int M,
     int K, int Ds, int mode, void* stream) {
   if (nT == 0 || B == 0) return (int)cudaSuccess;
   const int D = M * Ds;
-  if (M < 1 || M > MMAX || D > 128) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > MMAX || D > 128 || qt == nullptr)
+    return (int)cudaErrorInvalidValue;
 #define PIPE_LAUNCH(T)                                                      \
-  return launch<T>(q, cw, nrm, row_data, vals, meta, u, mins, codes_out, B,  \
+  return launch<T>(qt, cw, nrm, row_data, vals, meta, u, mins, codes_out, B, \
                    Dg, nT, n_groups, n_valid, M, K, Ds, stream)
   if (mode == 1) {
-    if (D <= 8) PIPE_LAUNCH(Bf16Tail<4>);
-    if (D <= 16) PIPE_LAUNCH(Bf16Tail<8>);
-    if (D <= 32) PIPE_LAUNCH(Bf16Tail<16>);
-    if (D <= 64) PIPE_LAUNCH(Bf16Tail<32>);
-    if (D <= 128) PIPE_LAUNCH(Bf16Tail<64>);
+    if (D <= 16) PIPE_LAUNCH(Bf16Mma<8>);
+    if (D <= 32) PIPE_LAUNCH(Bf16Mma<16>);
+    if (D <= 64) PIPE_LAUNCH(Bf16Mma<32>);
+    if (D <= 128) PIPE_LAUNCH(Bf16Mma<64>);
   } else if (mode == 2) {
-    if (D <= 16) PIPE_LAUNCH(Int8Tail<4>);
-    if (D <= 32) PIPE_LAUNCH(Int8Tail<8>);
-    if (D <= 64) PIPE_LAUNCH(Int8Tail<16>);
-    if (D <= 128) PIPE_LAUNCH(Int8Tail<32>);
+    if (D <= 32) PIPE_LAUNCH(Int8Mma<8>);
+    if (D <= 64) PIPE_LAUNCH(Int8Mma<16>);
+    if (D <= 128) PIPE_LAUNCH(Int8Mma<32>);
   }
 #undef PIPE_LAUNCH
   return (int)cudaErrorInvalidValue;

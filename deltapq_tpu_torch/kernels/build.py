@@ -46,7 +46,7 @@ SIGNATURES = {
     # B, Dg, nT, n_valid, M, K, Ds, mode, stream
     "stream_mins_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, cw, nrm, row_data, vals, meta, u, mins, codes_out,
+    # qt, cw, nrm, row_data, vals, meta, u, mins, codes_out,
     # B, Dg, nT, n_groups, n_valid, M, K, Ds, mode, stream
     "stream_mins_pipelined_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -66,10 +66,10 @@ SIGNATURES = {
                         _I, _P],
     # tab, codes, out, B, M, K, n, rows, QC, code_bytes, stream
     "adc_dists_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # tab, codes, out, B, M, K, n_pad, tile_n, n_valid, top_k, QC,
+    # tab, codes, out, B, M, K, n_pad, tile_n, n_valid, top_k,
     # code_bytes, prec, stream
     "adc_topk_packed_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P],
+                               _I, _P],
     # tab, idx, dict, out, B, M, K, D, n_pad, tile_n, n_valid, top_k, QC,
     # stream
     "adc_topk_tiledict_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -12,11 +12,12 @@ with one-hot matmuls; on the card each is a lookup in shared memory
   ``_adc_topk_kernel``): distances per tile, the tile's ``top_k``
   smallest per query as mask-argmin selects them (a warp's sorted
   candidates in registers on the card), merged across tiles here.
-* ``adc_topk_packed``   -> ``csrc/adc_topk_packed.cu`` (replaces
+* ``adc_topk_packed``   -> ``csrc/adc_topk.cu`` too (replaces
   ``_adc_topk_packed_kernel``): the same distances, selected on an int32
   key (order-preserving distance bits, the low 12 bits the tile-local
-  row) by ``top_k`` threshold-min sweeps; exact f32 distances are
-  recomputed for the winners.
+  row) as ``top_k`` threshold-min sweeps select it (on the card B6's
+  warp selection, on the keys); exact f32 distances are recomputed for
+  the winners.
 * ``adc_topk_tiledict`` -> ``csrc/adc_topk_tiledict.cu`` (replaces
   ``_adc_topk_tiledict_kernel``): per tile the table is compacted through
   the tile's dictionary of distinct centroid ids and narrow per-row
@@ -377,9 +378,10 @@ def adc_topk_packed_tiles(table: torch.Tensor, codes: torch.Tensor,
                           n_valid: int, top_k: int, tile_n: int,
                           precision: str = "bf16x2") -> torch.Tensor:
     """Tile-local packed top-k keys [nT, top_k, B] i32: operands as
-    ``adc_topk_tiles``, tile_n <= 4096.  On CUDA tensors this launches
-    ``csrc/adc_topk_packed.cu``; on CPU tensors it runs the plain
-    version."""
+    ``adc_topk_tiles``, tile_n <= 4096, one query's table of at most
+    ``SMEM_BUDGET`` bytes at ``precision``.  On CUDA tensors this launches
+    ``csrc/adc_topk.cu`` (``adc_topk_packed_launch``); on CPU tensors it
+    runs the plain version."""
     prec = _check_precision(precision)
     _check_scan_operands("adc_topk_packed", table, codes, tile_n,
                          1 << _ROW_BITS)
@@ -387,15 +389,16 @@ def adc_topk_packed_tiles(table: torch.Tensor, codes: torch.Tensor,
         return adc_topk_packed_tiles_ref(table, codes, n_valid, top_k,
                                          tile_n, precision)
     B, M, K = table.shape
+    # the shapes the kernel takes: a query's table within the budget
+    _queries_per_block(M, K, _ENTRY_BYTES[precision])
     tab = _kernel_table(table, precision)
     _check_cuda_operands("adc_topk_packed", table, tab, codes)
-    qc = _queries_per_block(M, K, _ENTRY_BYTES[precision])
     out = torch.empty((codes.shape[0] // tile_n, top_k, B),
                       dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = build.library().adc_topk_packed_launch(
         tab.data_ptr(), codes.data_ptr(), out.data_ptr(), B, M, K,
-        codes.shape[0], tile_n, int(n_valid), top_k, qc,
+        codes.shape[0], tile_n, int(n_valid), top_k,
         codes.element_size(), prec, stream)
     name = _mode_name("adc_topk_packed", precision)
     build.check(err, name)

@@ -13,8 +13,9 @@ module and a launch count in ``kernels.build.LAUNCHES``:
   from ``transpose_queries(q)`` at M <= 8 with M*Ds <= 128, the gathered
   ``wgmma`` tail of ``csrc/wide_mma.cuh`` beyond); with ``pipelined=True`` ->
   ``csrc/stream_mins_pipelined.cu`` (replaces
-  ``_stream_mins_pipelined_kernel``): the same function, one block
-  walking a run of tiles with the next tile's decode inside the scan;
+  ``_stream_mins_pipelined_kernel``): the same function on the same
+  ``mma.sync`` tail, a block walking a run of tiles with the next tile's
+  mask plane and value window copied in while it scans;
 * ``fused_codes_mins`` -> ``csrc/codes_mins.cu`` (replaces
   ``_codes_mins_kernel``): the scan on resident u8 codes, on the tensor
   cores at every shape with the stream kernel's tails (at the wide
@@ -497,33 +498,33 @@ def narrow_shape(M: int, Ds: int) -> bool:
 def scan_tail_form(kernel: str, M: int, Ds: int) -> str:
     """The tail a scan kernel runs at (M, Ds), picked by shape alone:
 
-    * ``"mma"``: the narrow shapes of ``stream_mins``, ``codes_mins`` and
-      ``delta_mins`` -- ``MmaTail`` (``mma.sync``), queries from
-      ``transpose_queries(q)``;
+    * ``"mma"``: the narrow shapes of every scan kernel -- ``MmaTail``
+      (``mma.sync``), queries from ``transpose_queries(q)``;
     * ``"wgmma"``: the wide shapes of ``stream_mins``, ``codes_mins`` and
       ``delta_mins`` -- the gathered ``wgmma`` tail
       (``csrc/wide_mma.cuh``), queries from ``pad_transpose_queries``,
-      codebook ``padded_codebook``;
-    * ``"cuda_cores"``: every shape of ``stream_mins_pipelined`` -- the
-      CUDA-core narrow tails, queries as ``q`` is."""
+      codebook ``padded_codebook``.
+
+    ``stream_mins_pipelined`` has the narrow form alone and raises
+    ``NotImplementedError`` at a wide shape."""
     if kernel not in ("stream_mins", "codes_mins", "delta_mins",
                       "stream_mins_pipelined"):
         raise ValueError(f"no scan kernel {kernel!r}")
+    if narrow_shape(M, Ds):
+        return "mma"
     if kernel == "stream_mins_pipelined":
-        return "cuda_cores"
-    return "mma" if narrow_shape(M, Ds) else "wgmma"
+        raise NotImplementedError(
+            "the pipelined stream kernel takes M <= 8 and M*Ds <= 128")
+    return "wgmma"
 
 
 def scan_queries(kernel: str, q: torch.Tensor, M: int, Ds: int, mode: str
-                 ) -> Optional[torch.Tensor]:
-    """The query operand a scan kernel's tail reads besides ``q`` (see
-    ``scan_tail_form``), or None when it reads ``q`` itself."""
-    form = scan_tail_form(kernel, M, Ds)
-    if form == "mma":
+                 ) -> torch.Tensor:
+    """The query operand a scan kernel's tail reads (see
+    ``scan_tail_form``)."""
+    if scan_tail_form(kernel, M, Ds) == "mma":
         return transpose_queries(q)
-    if form == "wgmma":
-        return pad_transpose_queries(q, M, Ds, mode)
-    return None
+    return pad_transpose_queries(q, M, Ds, mode)
 
 
 def transpose_queries(q: torch.Tensor) -> torch.Tensor:
@@ -580,7 +581,7 @@ def _launch_scan(kernel, mode, q, cwbd, M, compact, u, nt, fn):
     mins = torch.empty((nt * (TILE // SUB), q.shape[1]),
                        dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(None if qt is None else qt.data_ptr(), cw.data_ptr(),
+    build.check(fn(qt.data_ptr(), cw.data_ptr(),
                    None if cw_pad is None else cw_pad.data_ptr(),
                    nrm.data_ptr(), u.data_ptr(), Ds, mins.data_ptr(),
                    stream), kernel)
@@ -629,11 +630,8 @@ def fused_stream_mins(q: torch.Tensor, cwbd: torch.Tensor,
                              "row_data and vals required")
 
         def launch(qt, cw, cw_pad, nrm, u_, Ds, out, stream):
-            if M * Ds > 128:
-                raise NotImplementedError(
-                    "the pipelined stream kernel takes M*Ds <= 128")
             return build.library().stream_mins_pipelined_launch(
-                q.data_ptr(), cw, nrm, row_data.data_ptr(), vals.data_ptr(),
+                qt, cw, nrm, row_data.data_ptr(), vals.data_ptr(),
                 meta.data_ptr(), u_, out, codes.data_ptr(), B, D2, nt,
                 vals.shape[0], int(n_valid), M, K, Ds, code, stream)
 

@@ -140,7 +140,9 @@ PACKED_CASES = [
     (16, 8, 256, 3000, 512, 10, True, True),  # duplicate rows
     (8, 8, 512, 1500, 256, 10, False, True),  # K > 256: int32 codes
     (4, 4, 16, 100, 64, 40, False, False),    # top_k beyond a tile's rows
-    (3, 8, 64, 4096, 4096, 7, True, False)]   # the widest tile
+    (3, 8, 64, 4096, 4096, 7, True, False),   # the widest tile
+    (4, 4, 16, 600, 512, 300, False, False)]  # top_k above one launch's 256
+                                              # ranks on the card
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])

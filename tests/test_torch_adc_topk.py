@@ -145,13 +145,15 @@ def test_bad_operands_raise():
 
 
 def test_bench_adc_rehearses_on_the_cpu(capsys):
-    """The B6 benchmark's flow with the plain versions: every mode in both
-    row orders held to the plain version; no time printed as a device
-    time."""
+    """The ADC benchmark's flow with the plain versions: B6 and B9 in every
+    mode and B10 in both row orders held to their plain versions; no time
+    printed as a device time."""
     from deltapq_tpu_torch import bench_adc
     assert bench_adc.main(["6000", "8"], device="cpu") == 0
     out = capsys.readouterr().out
     assert out.count("bit-equal to its plain version") == 6
+    assert out.count("so is B9; B9 / B6 = nan") == 6
+    assert out.count("B10 nan ms") == 2
     assert "cpu (plain versions; no device time)" in out
     assert "nan ms" in out
 

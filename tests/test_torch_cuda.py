@@ -466,9 +466,17 @@ def test_adc_dists_kernel_bit_equal(cuda, B, M, K, n, tile):
     assert torch.equal(d, ak.adc_dists_ref(table, codes))
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
-@pytest.mark.parametrize("B,M,K,n,tile,k", ADC_SHAPES + [
-    (9, 8, 64, 5000, 192, 12)])         # a tile that is no multiple of 256
+PACKED_SHAPES = ADC_SHAPES + [
+    (9, 8, 64, 5000, 192, 12),          # a tile that is no multiple of 32
+    (24, 4, 64, 5000, 1024, 300),       # top_k above one launch's 256 ranks
+    (51, 8, 64, 10000, 2048, 10)]       # B no multiple of a block's queries
+
+
+@pytest.mark.parametrize("precision,B,M,K,n,tile,k", [
+    (p, *shape) for shape in PACKED_SHAPES
+    for p in ("f32", "bf16", "bf16x2")] + [
+    ("bf16", 20, 8, 8192, 3000, 1024, 10)])  # M*K above 49,152: one query
+                                              # a warp, 2-byte table groups
 def test_adc_topk_packed_kernel_bit_equal(cuda, precision, B, M, K, n, tile,
                                           k):
     from deltapq_tpu_torch.ops import adc_kernels as ak
@@ -696,11 +704,11 @@ def test_index_m16_top100_on_card(cuda, engine):
                                         (1000, 8, 16, 4, 5)])
 def test_pipelined_stream_kernel_equals_stream_kernel(cuda, precision, n, M,
                                                       K, Ds, B):
-    """B7 against B1 (codes equal; mins bit for bit at int8, within the
-    bf16 bound at bf16) and against the plain version; 300,000 rows give 293 tiles (a prime, so no run length of
-    the launch but 1 divides it; eight query blocks give runs of 2 or 3
-    tiles), with n_valid inside the last tile; 1000 rows give a single
-    tile."""
+    """B7 against B1 (codes equal; mins bit for bit in both modes: the
+    two run one tail) and against the plain version (bit-equal at int8,
+    within the bf16 bound at bf16); 300,000 rows give 293 tiles (a prime,
+    so the blocks' runs of tiles cannot all be equal), with n_valid inside
+    the last tile; 1000 rows give a single tile."""
     rng = np.random.default_rng(n + 7)
     cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
     codes = _codes(rng, n, M, K)
@@ -724,11 +732,10 @@ def test_pipelined_stream_kernel_equals_stream_kernel(cuda, precision, n, M,
         qop, eng.cwbd, eng.row_data, eng.vals, eng.meta, eng.n_valid, M,
         u=uq, mode=precision, pipelined=True)
     assert torch.equal(c7, ref_c)
+    assert torch.equal(m7, m1)
     if precision == "int8":
-        assert torch.equal(m7, m1) and torch.equal(m7, ref_m)
+        assert torch.equal(m7, ref_m)
     else:
-        # B7 sums on the CUDA cores, B1 on the tensor cores
-        _assert_mins(m7, m1, _bf16_tol(pre_max, cross_max))
         _assert_mins(m7, ref_m, _bf16_tol(pre_max, cross_max))
     d, i = pipe.query(q, top_k=10)
     d1, i1 = eng.query(q, top_k=10)

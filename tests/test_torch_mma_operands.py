@@ -68,19 +68,17 @@ def test_narrow_shape_rule(M, Ds, narrow):
     ("codes_mins", 12, 8, "wgmma"),
     ("delta_mins", 8, 4, "mma"), ("delta_mins", 16, 4, "wgmma"),
     ("delta_mins", 8, 24, "wgmma"),
-    ("stream_mins_pipelined", 8, 16, "cuda_cores")])
+    ("stream_mins_pipelined", 8, 16, "mma")])
 def test_scan_tail_form_rule(kernel, M, Ds, form):
     """The tail each scan kernel runs, by shape alone: B1, B3 and B5 on
     mma.sync at the narrow shapes and on the gathered wgmma tail at the
-    wide ones; B7 on the CUDA cores.  The query operand follows the
+    wide ones; B7 on mma.sync too.  The query operand follows the
     form."""
     assert fk.scan_tail_form(kernel, M, Ds) == form
     G, _, Dg = fk.group_geometry(M, Ds)
     q = torch.arange(G * Dg * 3, dtype=torch.int32).reshape(G * Dg, 3).to(
         torch.int8)
-    if form == "cuda_cores":
-        assert fk.scan_queries(kernel, q, M, Ds, "int8") is None
-    elif form == "mma":
+    if form == "mma":
         assert torch.equal(fk.scan_queries(kernel, q, M, Ds, "int8"),
                            fk.transpose_queries(q))
     else:
@@ -138,11 +136,12 @@ def test_mm_yardstick_is_the_cross_product():
 
 def test_bench_stream_rehearses_on_the_cpu(capsys):
     """The benchmark's whole flow with the plain versions: B1 equals B3
-    bit for bit at int8 and int16 or it raises; no time is printed as a
-    device time."""
+    bit for bit at int8 and int16 and B7 at int8 and bf16, or it raises;
+    no time is printed as a device time."""
     assert bench_stream.main(["2048", "16"], device="cpu") == 0
     out = capsys.readouterr().out
     assert out.count("B1 = B3 bit for bit") == 2
+    assert out.count("B1 = B7 bit for bit") == 2
     assert "cpu (plain versions; no device time)" in out
     assert "nan ms" in out
 
@@ -170,3 +169,17 @@ def test_ablation_variants_still_match_the_kernel_source(variant):
     out = ablate_decoded.variant_source(src, parts)
     assert (out == src) == (not parts)
     assert "decoded_mins_launch" in out
+
+
+@pytest.mark.parametrize("variant", ["whole", "two-tiles"])
+def test_pipelined_variants_match_the_kernel_source(variant):
+    """Each variant of ``kernels/ablate_pipelined.py`` replaces text that is
+    in ``stream_mins_pipelined.cu`` exactly once, so the two designs it
+    times are never the same kernel."""
+    from deltapq_tpu_torch.kernels import ablate_pipelined, build
+    src = (build.CSRC_DIR / "stream_mins_pipelined.cu").read_text()
+    assert set(ablate_pipelined.VARIANTS) == {"whole", "two-tiles"}
+    out = ablate_pipelined.variant_source(src, variant)
+    assert (out == src) == (variant == "whole")
+    assert "stream_mins_pipelined_launch" in out
+    assert ("TILE * MMAX + STAGE_BYTES" in out) == (variant == "two-tiles")
