@@ -83,9 +83,11 @@ Phases, each timed:
    in phase 6), B9 at f32, bf16
    and bf16x2 (tile 4096; each beside the same floor and its time over
    B6's in the mode: one warp kernel, two selections), and B10 (tile
-   2048) on phase 7's dup_heavy
+   2048; B9's warp kernel over compact tables) on phase 7's dup_heavy
    codes in DeltaTree-DFS order, where the dictionary fits (its width is
-   printed).  Every one bit-equal to its plain version;
+   printed), its keys equal to B9's f32 keys on the same rows and B9
+   f32's time there printed beside B10's.  Every one bit-equal to its
+   plain version;
 12. the plain-scan engines at B=128 and B=512: the gather scan, the
    distance matrix with ``smallest_k``, argmin at f32 / bf16 / bf16x2,
    packed at f32 / bf16 / bf16x2 and the decoded engine at bf16x2 with
@@ -230,7 +232,7 @@ SOURCES = {
     "adc_topk_packed": "deltapq_tpu_torch/csrc/adc_topk.cu",
     "adc_topk_packed_bf16": "deltapq_tpu_torch/csrc/adc_topk.cu",
     "adc_topk_packed_bf16x2": "deltapq_tpu_torch/csrc/adc_topk.cu",
-    "adc_topk_tiledict": "deltapq_tpu_torch/csrc/adc_topk_tiledict.cu",
+    "adc_topk_tiledict": "deltapq_tpu_torch/csrc/adc_topk.cu",
     "stream_mins_pipelined_int8":
         "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
     "stream_mins_pipelined_bf16":
@@ -1556,7 +1558,15 @@ def phase11_adc_family_kernels(dev, tag, rng, kernels, dup):
         check(torch.equal(keys, ak.adc_topk_packed_tiles(
             tab, eng.codes_reordered, N, TOP_K, DICT_TILE, "f32")),
             "B10 keys != B9 f32 keys on the same rows")
-        log("B10 keys equal B9's f32 keys on the same rows")
+        b9_ms = cuda_ms(lambda: ak.adc_topk_packed_tiles(
+            tab, eng.codes_reordered, N, TOP_K, DICT_TILE, "f32"), 10)
+        entry = kernels["adc_topk_tiledict"]
+        log(f"{tag} B10 keys equal B9's f32 keys on the same rows; B10 "
+            f"{entry['ms']:.4f} ms, B9 f32 on the codes of the same rows "
+            f"{b9_ms:.4f} ms (B10 / B9 = {entry['ms'] / b9_ms:.4f}); bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+            f"shared-memory lookup floor "
+            f"{lookup_floor_ms(tab, n_rows):.4f} ms")
     return eng
 
 

@@ -19,9 +19,18 @@ tile dictionaries of those rows at most 256 wide: the workload is not
 the duplicate-heavy one B10 is made for, so this times the kernel, not
 the format).  B6's, B9's and B10's outputs are held to their plain
 versions bit for bit (the plain version runs once a mode); a kernel that
-does not launch, or that differs, fails the run.  The script only calls
-entry points that every tree of the port has had since B6 was ported, so
-one card can time two versions of the kernels with it.
+does not launch, or that differs, fails the run.
+
+Last, B10 where its format is meant to pay: the dup_heavy codes
+(``bench.py``'s recipe, ``synth.make_clustered_codes`` with
+``WORKLOADS["dup_heavy"]``, PQ learned on the first 20,000 rows), sorted
+(``np.lexsort``: no tree build), whose 2048-row tiles have narrow
+dictionaries (the width is printed); B9 f32 on the codes of the same rows
+is timed beside it, and the two give the same keys bit for bit.
+
+The script only calls entry points that every tree of the port has had
+since B6 was ported, so one card can time two versions of the kernels
+with it.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from . import resolve_device
 from .bench_engines import cuda_ms, workload
 from .ops import adc_kernels as ak
 from .ops.adc import adc_table, pad_codes
+from .synth import WORKLOADS, make_clustered_codes
 
 TOP_K, TILE, DICT_TILE = 10, 4096, 2048
 
@@ -102,7 +112,40 @@ def main(argv=None, device=None) -> int:
               f"{DICT_TILE}, dictionary width {width}; equal to its plain "
               f"version bit for bit)", flush=True)
         del idx, dicts, keys
+    cw_d, codes_d = make_clustered_codes(n, 8, 256, seed=0, device=dev,
+                                         **WORKLOADS["dup_heavy"])
+    tab, idx, dicts, width, codes = tiledict_operands(cw_d, codes_d, q, dev)
+    keys = ak.adc_topk_tiledict_tiles(tab, idx, dicts, n, TOP_K, DICT_TILE)
+    if not (torch.equal(keys, ak.adc_topk_tiledict_tiles_ref(
+            tab, idx, dicts, n, TOP_K, DICT_TILE))
+            and torch.equal(keys, ak.adc_topk_packed_tiles(
+                tab, codes, n, TOP_K, DICT_TILE, "f32"))):
+        raise AssertionError("B10 on the dup_heavy rows differs from its "
+                             "plain version or from B9's f32 keys")
+    b10 = timer(lambda: ak.adc_topk_tiledict_tiles(
+        tab, idx, dicts, n, TOP_K, DICT_TILE), 10)
+    b9 = timer(lambda: ak.adc_topk_packed_tiles(tab, codes, n, TOP_K,
+                                                DICT_TILE, "f32"), 10)
+    print(f"[{card}] dup_heavy lexsort: B10 {b10:.4f} ms (tile {DICT_TILE}, "
+          f"dictionary width {width}), B9 f32 {b9:.4f} ms on the codes of "
+          f"the same rows (B10 / B9 = {b10 / b9:.4f}); the same keys bit for "
+          f"bit, equal to B10's plain version", flush=True)
     return 0
+
+
+def tiledict_operands(cw, codes, q, dev):
+    """B10's operands over ``codes`` [n, M] in lexsort order, in 2048-row
+    tiles: (table, idx, dicts, dictionary width, the sorted codes padded),
+    the table of queries ``q`` on ``dev``."""
+    codes = np.asarray(codes.cpu() if isinstance(codes, torch.Tensor)
+                       else codes)
+    rows = pad_codes(codes[np.lexsort(codes.T[::-1])], DICT_TILE)
+    dicts, idx, width = ak.build_tile_dict(rows, tile_n=DICT_TILE,
+                                           max_dict=256)
+    tab = adc_table(torch.as_tensor(cw).to(dev), torch.from_numpy(q).to(dev))
+    return (tab, torch.from_numpy(idx).to(dev),
+            torch.from_numpy(dicts).to(dev), width,
+            torch.from_numpy(rows).to(dev))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 // ADC distances per tile + tile-local top-k, selected inside a warp: B6
-// (value, row) pairs and B9 packed int32 keys, one kernel.
+// (value, row) pairs, B9 packed int32 keys and B10 packed keys over
+// tile-dictionary tables, one kernel.
 //
 // Replaces the TPU kernels deltapq_tpu/ops/adc_pallas.py:_adc_topk_kernel
-// (B6, reached from adc_topk_pallas) and _adc_topk_packed_kernel (B9,
-// reached from adc_topk_packed), with _accumulate_onehot, in their three
-// precisions.  Python wrappers, plain PyTorch versions and the cross-tile
-// merges: deltapq_tpu_torch/ops/adc_kernels.py.
+// (B6, reached from adc_topk_pallas), _adc_topk_packed_kernel (B9, reached
+// from adc_topk_packed), with _accumulate_onehot, in their three
+// precisions, and _adc_topk_tiledict_kernel (B10, reached from
+// adc_topk_tiledict and TileDictEngine).  Python wrappers, plain PyTorch
+// versions, the host-side dictionary build and the cross-tile merges:
+// deltapq_tpu_torch/ops/adc_kernels.py.
 //
 // What it computes, per tile t of tile_n rows and query b:
 //   dist[r] = sum_m tab[b, m*K + codes[t*tile_n + r, m]], added in
@@ -25,7 +28,13 @@
 //             sweeps last = min(key where key > last) from INT_MIN give:
 //             keys are unique within a tile, so the top_k smallest in
 //             ascending order, 0x7fffffff once the tile runs out, written to
-//             out[t, j, b].
+//             out[t, j, b];
+//   B10 (f32, u8 indexes, tile_n <= 4096): B9's keys over the table
+//             compacted through tile t's dictionary, t_m[d] = tab[b, m*K +
+//             dict[t, m, d]] (the TPU kernel's [D, K] one-hot matmul), and
+//             dist[r] = sum_m t_m[idx[t*tile_n + r, m]]: the same f32 values
+//             in the same order as B9 reads through the codes, so the keys
+//             equal B9's f32 keys on the same rows.
 //
 // What bounds it on an H100: the operations, N*B*M f32 additions at the
 // CUDA cores' 67 TFLOP/s (0.064 ms at N=1M, B=512, M=8), and next to them
@@ -68,6 +77,21 @@
 //   * A persistent grid (as many blocks as the card holds at once) walks
 //     the (query group, tile) items in contiguous ranges, so a block stages
 //     its tables once or twice in all.
+//   * B10 (DictTables) differs in where a warp's tables come from: each
+//     (query group, tile) item gathers them from the f32 table in device
+//     memory (4 MB at B=512, resident in the L2 cache) through the tile's
+//     dictionary, D entries a subspace in place of K, a thread a column
+//     with its loads for the group's queries in flight together.  Items
+//     run tile-major, so a block walks the query groups of one tile in
+//     turn and keeps the tile's indexes (one chunk: 2048 rows x 8 bytes)
+//     while it restages only the compact tables.  The compact tables are
+//     K/D times smaller, so wider groups fit: B10 takes the widest of 16,
+//     8 and 4 bytes with which a block still holds as many warps as at 4
+//     (16 at D <= 64 and M=8: four queries a warp, one load and one code
+//     extraction for four lookups).  Measured on the H100
+//     (kernels/ablate_tiledict.py): at D = 64 16-byte groups take 1.52 ms
+//     where 4-byte ones, free of bank conflicts but one lookup a load,
+//     take 2.46; at D = 256 4-byte groups are the fastest.
 
 #include <math_constants.h>
 
@@ -243,17 +267,41 @@ struct PackedTopK {
   }
 };
 
+// Where a warp's tables come from.  B6, B9: a query's [M*K] table row,
+// staged once a query group; items query-major.
+struct FullTables {
+  static constexpr bool PER_TILE = false;   // tables depend on the tile
+  static constexpr bool TILE_MAJOR = false;
+  int row;                                  // entries of a query's row: M*K
+  __device__ int col(int, int mk, int) const { return mk; }
+};
+
+// B10: the table compacted through tile t's dictionary (K = D entries a
+// subspace), gathered for every (query group, tile) item; items
+// tile-major.
+struct DictTables {
+  static constexpr bool PER_TILE = true;
+  static constexpr bool TILE_MAJOR = true;
+  int row;                                  // entries of a query's row: M*Kf
+  const int* dict;                          // [nT, M, D] centroid ids
+  int Kf, D;                                // centroids, dictionary width
+  // column of compact entry md = m*D + d of tile t in a query's row
+  __device__ int col(int t, int md, int MD) const {
+    return md / D * Kf + __ldg(dict + (size_t)t * MD + md);
+  }
+};
+
 // S: the selection (PairTopK or PackedTopK); DEEP: a later launch of a
 // top_k above one launch's ranks, which keeps only the rows whose key comes
-// after the last key of the launch before.
-template <int P, int GB, typename CodeT, class S, bool DEEP>
+// after the last key of the launch before; Src: FullTables or DictTables.
+template <int P, int GB, typename CodeT, class S, bool DEEP, class Src>
 __global__ void __launch_bounds__(Warps<S::KR>::MAX * 32, 1)
 adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
-                                                    // [B, M*K] entries
+                                                    // [B, src.row] entries
                 const CodeT* __restrict__ codes,    // [N_pad, M]
                 typename S::Out out,                // each [nT, top_k, B]
-                int B, int M, int K, int nT, int tile_n, int n_valid,
-                int top_k, int j0, int kp, int CH, int nqg) {
+                Src src, int B, int M, int K, int nT, int tile_n,
+                int n_valid, int top_k, int j0, int kp, int CH, int nqg) {
   using E = typename adc::Entry<P>::type;
   using V = typename Group<P, GB>::V;
   using Key = typename S::Key;
@@ -274,20 +322,36 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
   const long long n_items = (long long)nqg * nT;
   const long long it0 = n_items * blockIdx.x / gridDim.x;
   const long long it1 = n_items * (blockIdx.x + 1) / gridDim.x;
-  int staged = -1;
+  int tab_q = -1, tab_t = -1;   // the item whose tables are staged
+  int chunk_t = -1;             // the tile whose codes fill the chunk whole
   for (long long item = it0; item < it1; ++item) {
-    const int qg = (int)(item / nT), t = (int)(item - (long long)qg * nT);
+    int qg, t;
+    if (Src::TILE_MAJOR) {
+      t = (int)(item / nqg);
+      qg = (int)(item - (long long)t * nqg);
+    } else {
+      qg = (int)(item / nT);
+      t = (int)(item - (long long)qg * nT);
+    }
     const int q0 = qg * QC;
-    if (qg != staged) {
-      __syncthreads();   // every warp is done with the last group's tables
+    if (qg != tab_q || (Src::PER_TILE && t != tab_t)) {
+      __syncthreads();   // every warp is done with the last item's tables
+      // a thread a column: consecutive threads read consecutive columns
+      // of a query's row, and each thread's loads of its column for the
+      // QC queries are independent (in flight together)
       E* te = reinterpret_cast<E*>(tab_s);
-      for (int i = tid; i < QC * MK; i += blockDim.x) {
-        const int ql = i / MK, mk = i - ql * MK;
-        const int w = ql / QI, qi = ql - w * QI;
-        te[((size_t)w * MK + mk) * QI + qi] =
-            q0 + ql < B ? tab[(size_t)(q0 + ql) * MK + mk] : E(0);
+      const int nq = min(QC, B - q0);
+      for (int mk = tid; mk < MK; mk += blockDim.x) {
+        const E* col = tab + (size_t)q0 * src.row + src.col(t, mk, MK);
+#pragma unroll 8
+        for (int ql = 0; ql < QC; ++ql) {
+          const int w = ql / QI, qi = ql - w * QI;
+          te[((size_t)w * MK + mk) * QI + qi] =
+              ql < nq ? col[(size_t)ql * src.row] : E(0);
+        }
       }
-      staged = qg;
+      tab_q = qg;
+      tab_t = t;
     }
 
     S sel[QI];
@@ -305,32 +369,35 @@ adc_topk_kernel(const typename adc::Entry<P>::type* __restrict__ tab,
     for (int c0 = 0; c0 < tile_n && row0 + c0 < n_valid; c0 += CH) {
       const int ch = min(CH, tile_n - c0);
       __syncthreads();   // the last chunk's codes (and the tables) are read
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(
-          codes + (row0 + c0) * M);
-      if (RB % 4 == 0 && ch * WR % 4 == 0 && ((uintptr_t)src & 15) == 0) {
-        // [row][word] in global -> [word][row]: four words a 16-byte load
-        const uint4* s4 = reinterpret_cast<const uint4*>(src);
-        for (int i = tid; i < ch * WR / 4; i += blockDim.x) {
-          const uint4 x = s4[i];
-          const unsigned wd[4] = {x.x, x.y, x.z, x.w};
+      if (ch < tile_n || t != chunk_t) {   // else the chunk holds tile t
+        const unsigned char* cs = reinterpret_cast<const unsigned char*>(
+            codes + (row0 + c0) * M);
+        if (RB % 4 == 0 && ch * WR % 4 == 0 && ((uintptr_t)cs & 15) == 0) {
+          // [row][word] in global -> [word][row]: four words a 16-byte load
+          const uint4* s4 = reinterpret_cast<const uint4*>(cs);
+          for (int i = tid; i < ch * WR / 4; i += blockDim.x) {
+            const uint4 x = s4[i];
+            const unsigned wd[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int idx = 4 * i + j, r = idx / WR;
-            codes_s[(idx - r * WR) * CH + r] = wd[j];
+            for (int j = 0; j < 4; ++j) {
+              const int idx = 4 * i + j, r = idx / WR;
+              codes_s[(idx - r * WR) * CH + r] = wd[j];
+            }
+          }
+        } else {
+          unsigned char* cb = reinterpret_cast<unsigned char*>(codes_s);
+          for (int i = tid; i < ch * RB; i += blockDim.x) {
+            const int r = i / RB, b = i - r * RB;
+            cb[((b >> 2) * CH + r) * 4 + (b & 3)] = cs[i];
           }
         }
-      } else {
-        unsigned char* cb = reinterpret_cast<unsigned char*>(codes_s);
-        for (int i = tid; i < ch * RB; i += blockDim.x) {
-          const int r = i / RB, b = i - r * RB;
-          cb[((b >> 2) * CH + r) * 4 + (b & 3)] = src[i];
-        }
+        // a tile_n that is no multiple of 32 leaves a warp lanes past the
+        // chunk's last row: they read code 0 (their keys are masked)
+        const int pad = ((ch + 31) & ~31) - ch;
+        for (int i = tid; i < pad * WR; i += blockDim.x)
+          codes_s[(i / pad) * CH + ch + i % pad] = 0u;
+        chunk_t = ch == tile_n ? t : -1;
       }
-      // a tile_n that is no multiple of 32 leaves a warp lanes past the
-      // chunk's last row: they read code 0 (their keys are masked)
-      const int pad = ((ch + 31) & ~31) - ch;
-      for (int i = tid; i < pad * WR; i += blockDim.x)
-        codes_s[(i / pad) * CH + ch + i % pad] = 0u;
       __syncthreads();
 
       // rows of the chunk below n_valid
@@ -419,12 +486,12 @@ inline cudaError_t warps_that_fit(int GB, int M, int K, int code_bytes,
   return cudaSuccess;
 }
 
-template <int P, int GB, typename CodeT, class S, bool DEEP>
+template <int P, int GB, typename CodeT, class S, bool DEEP, class Src>
 cudaError_t launch(const void* tab, const void* codes, typename S::Out out,
-                   int B, int M, int K, int n_pad, int tile_n, int n_valid,
-                   int top_k, int j0, int kp, cudaStream_t st) {
+                   Src src, int B, int M, int K, int n_pad, int tile_n,
+                   int n_valid, int top_k, int j0, int kp, cudaStream_t st) {
   constexpr int QI = Group<P, GB>::QI;
-  auto kernel = adc_topk_kernel<P, GB, CodeT, S, DEEP>;
+  auto kernel = adc_topk_kernel<P, GB, CodeT, S, DEEP, Src>;
   long long fit = 0;
   cudaError_t e = warps_that_fit(GB, M, K, (int)sizeof(CodeT), tile_n, &fit);
   if (e != cudaSuccess) return e;
@@ -432,33 +499,35 @@ cudaError_t launch(const void* tab, const void* codes, typename S::Out out,
   const int WR = (M * (int)sizeof(CodeT) + 3) / 4;
   const int CH = chunk_rows(WR, tile_n);
   const int nqw = (B + QI - 1) / QI;                  // warps the batch fills
-  const int W = (int)std::min((long long)std::min(Warps<S::KR>::MAX, nqw),
-                              fit);
+  int W = (int)std::min((long long)std::min(Warps<S::KR>::MAX, nqw), fit);
+  const int nqg = (nqw + W - 1) / W;
+  W = (nqw + nqg - 1) / nqg;          // the same groups, as even as they go
   const size_t smem = block_smem(GB, M, K, W, WR, CH);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   const int nT = n_pad / tile_n;
-  const int nqg = (B + W * QI - 1) / (W * QI);
   int grid = 0;
   if (e == cudaSuccess)
     e = mma::resident_grid(kernel, 32 * W, smem, (long long)nqg * nT, &grid);
   if (e != cudaSuccess) return e;
   kernel<<<grid, 32 * W, smem, st>>>(
       static_cast<const typename adc::Entry<P>::type*>(tab),
-      static_cast<const CodeT*>(codes), out, B, M, K, nT, tile_n, n_valid,
-      top_k, j0, kp, CH, nqg);
+      static_cast<const CodeT*>(codes), out, src, B, M, K, nT, tile_n,
+      n_valid, top_k, j0, kp, CH, nqg);
   return cudaGetLastError();
 }
 
 // Launches of at most 256 ranks; after the first, each keeps the rows whose
-// key comes after the last key of the one before (DEEP).
-template <int P, int GB, typename CodeT, template <int> class S>
+// key comes after the last key of the one before (DEEP).  K: the entries of
+// a subspace in a warp's tables.
+template <int P, int GB, typename CodeT, template <int> class S, class Src>
 cudaError_t launch_k(const void* tab, const void* codes,
-                     typename S<1>::Out out, int B, int M, int K, int n_pad,
-                     int tile_n, int n_valid, int top_k, cudaStream_t st) {
+                     typename S<1>::Out out, Src src, int B, int M, int K,
+                     int n_pad, int tile_n, int n_valid, int top_k,
+                     cudaStream_t st) {
 #define ADC_TOPK_LAUNCH(KR, DEEP, J0, KP)                                   \
-  launch<P, GB, CodeT, S<KR>, DEEP>(tab, codes, out, B, M, K, n_pad, tile_n, \
-                                    n_valid, top_k, J0, KP, st)
+  launch<P, GB, CodeT, S<KR>, DEEP>(tab, codes, out, src, B, M, K, n_pad,   \
+                                    tile_n, n_valid, top_k, J0, KP, st)
   const int k0 = std::min(256, top_k);
   cudaError_t e = k0 <= 32    ? ADC_TOPK_LAUNCH(1, false, 0, k0)
                   : k0 <= 64  ? ADC_TOPK_LAUNCH(2, false, 0, k0)
@@ -475,11 +544,12 @@ cudaError_t launch_codes(int code_bytes, const void* tab, const void* codes,
                          typename S<1>::Out out, int B, int M, int K,
                          int n_pad, int tile_n, int n_valid, int top_k,
                          cudaStream_t st) {
+  const FullTables src{M * K};
   if (code_bytes == 1)
-    return launch_k<P, GB, uint8_t, S>(tab, codes, out, B, M, K, n_pad,
+    return launch_k<P, GB, uint8_t, S>(tab, codes, out, src, B, M, K, n_pad,
                                        tile_n, n_valid, top_k, st);
   if (code_bytes == 4)
-    return launch_k<P, GB, int32_t, S>(tab, codes, out, B, M, K, n_pad,
+    return launch_k<P, GB, int32_t, S>(tab, codes, out, src, B, M, K, n_pad,
                                        tile_n, n_valid, top_k, st);
   return cudaErrorInvalidValue;
 }
@@ -545,4 +615,36 @@ extern "C" int adc_topk_packed_launch(const void* tab, const void* codes,
   }
 #undef B9_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// B10.  tab f32 [B, M*K]; idx u8 [n_pad, M] positions in the tile's
+// dictionary; dict i32 [n_pad / tile_n, M, D] centroid ids, D <= 256;
+// tile_n <= 4096 dividing n_pad; one warp's compact tables, 4*M*D bytes,
+// must fit beside a code chunk.  The table groups are the widest (16, 8
+// or 4 bytes: four, two or one query a warp) with which a block still
+// holds as many warps as at 4 bytes.  Returns cudaGetLastError() after
+// the launch (or the error of a request the card refuses).
+extern "C" int adc_topk_tiledict_launch(const void* tab, const void* idx,
+                                        const void* dict, void* out, int B,
+                                        int M, int K, int D, int n_pad,
+                                        int tile_n, int n_valid, int top_k,
+                                        void* stream) {
+  if (n_pad == 0 || B == 0 || top_k == 0) return (int)cudaSuccess;
+  if (tile_n > adc::MAX_TILE || n_pad % tile_n || D > 256)
+    return (int)cudaErrorInvalidValue;
+  long long f4 = 0, f8 = 0, f16 = 0;
+  cudaError_t e = warps_that_fit(4, M, D, 1, tile_n, &f4);
+  if (e == cudaSuccess) e = warps_that_fit(8, M, D, 1, tile_n, &f8);
+  if (e == cudaSuccess) e = warps_that_fit(16, M, D, 1, tile_n, &f16);
+  if (e != cudaSuccess) return (int)e;
+  const long long want = std::min<long long>(Warps<1>::MAX, f4);
+  const int gb = f16 >= want ? 16 : f8 >= want ? 8 : 4;
+  const DictTables src{M * K, static_cast<const int*>(dict), K, D};
+  const PackedOut o{static_cast<int*>(out)};
+  auto st = static_cast<cudaStream_t>(stream);
+#define B10_LAUNCH(GB)                                                      \
+  (int)launch_k<adc::F32, GB, uint8_t, PackedTopK>(                         \
+      tab, idx, o, src, B, M, D, n_pad, tile_n, n_valid, top_k, st)
+  return gb == 16 ? B10_LAUNCH(16) : gb == 8 ? B10_LAUNCH(8) : B10_LAUNCH(4);
+#undef B10_LAUNCH
 }

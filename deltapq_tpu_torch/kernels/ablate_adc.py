@@ -19,13 +19,12 @@ the engine benchmark's workload (``bench_engines.workload``, default N
 
 ``whole``, the two layouts and ``warps16`` compute the same function and
 must equal the package's kernel bit for bit.  A replaced line that is no
-longer in the source stops the run, so the script cannot silently ablate
-nothing.
+longer in the source stops the run (``build.build_variants``), so the
+script cannot silently ablate nothing.
 """
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 
@@ -48,40 +47,6 @@ VARIANTS = {
 }
 
 
-def variant_source(src: str, name: str) -> str:
-    """``adc_topk.cu`` as variant ``name`` builds it."""
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"ablation {name!r}: the source no longer "
-                               f"has {old!r} once")
-        src = src.replace(old, new)
-    return src
-
-
-def _build_variants():
-    out = build.BUILD_DIR / "ablate_adc"
-    src = (build.CSRC_DIR / "adc_topk.cu").read_text()
-    nvcc = build.nvcc_path()
-    cmds = []
-    for name in VARIANTS:
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "adc_topk.cu").write_text(variant_source(src, name))
-        cmds.append([nvcc, *build.NVCC_FLAGS[:-2], "-shared",
-                     f"-I{build.CSRC_DIR}", "-o", str(d / "lib.so"),
-                     str(d / "adc_topk.cu")])
-    for cmd, rc, log in build._run_all(cmds):
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
-    libs = {}
-    for name in VARIANTS:
-        lib = ctypes.CDLL(str(out / name / "lib.so"))
-        lib.adc_topk_launch.argtypes = build.SIGNATURES["adc_topk_launch"]
-        lib.adc_topk_launch.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def main(argv=None) -> int:
     from ..bench_engines import cuda_ms, workload
     from ..ops import adc_kernels as ak
@@ -91,7 +56,7 @@ def main(argv=None) -> int:
     n = int(argv[0]) if argv else 1 << 20
     b = int(argv[1]) if len(argv) > 1 else 512
     top_k, tile = 10, ak.TILE_N
-    libs = _build_variants()
+    libs = build.build_variants("ablate_adc", "adc_topk.cu", VARIANTS)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -64,16 +64,16 @@ SIGNATURES = {
     # code_bytes, prec, stream
     "adc_topk_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P],
-    # tab, codes, out, B, M, K, n, rows, QC, code_bytes, stream
-    "adc_dists_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tab, codes, out, B, M, K, n, code_bytes, stream
+    "adc_dists_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # tab, codes, out, B, M, K, n_pad, tile_n, n_valid, top_k,
     # code_bytes, prec, stream
     "adc_topk_packed_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P],
-    # tab, idx, dict, out, B, M, K, D, n_pad, tile_n, n_valid, top_k, QC,
+    # tab, idx, dict, out, B, M, K, D, n_pad, tile_n, n_valid, top_k,
     # stream
     "adc_topk_tiledict_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _P],
+                                 _I, _I, _P],
     # tab, cand, out, B, M, K, S, code_bytes, stream
     "rerank_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -179,6 +179,48 @@ def library() -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def variant_source(text: str, edits, name: str) -> str:
+    """An ablation variant's source: ``text`` with the variant's
+    replacements [(old, new), ...] made.  Each ``old`` must occur once, or
+    this raises: an ablation cannot silently take out nothing."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name!r}: the source no longer has "
+                               f"{old!r} once")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(tag: str, source: str, variants: dict) -> dict:
+    """Ablation builds: ``csrc/<source>`` once a variant (``variant_source``
+    of its replacements), one concurrent ``nvcc`` each into
+    ``_build/<tag>/<variant>``.  Returns {variant: its library}, C entry
+    points bound as ``library`` binds them."""
+    out = BUILD_DIR / tag
+    text = (CSRC_DIR / source).read_text()
+    nvcc = nvcc_path()
+    cmds = []
+    for name, edits in variants.items():
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / source).write_text(variant_source(text, edits, name))
+        cmds.append([nvcc, *NVCC_FLAGS[:-2], "-shared", f"-I{CSRC_DIR}",
+                     "-o", str(d / "lib.so"), str(d / source)])
+    for cmd, rc, log in _run_all(cmds):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+    libs = {}
+    for name in variants:
+        lib = ctypes.CDLL(str(out / name / "lib.so"))
+        for fn_name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, fn_name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
 
 
 def check(err: int, what: str) -> None:

@@ -4,7 +4,7 @@ CUDA.
 Counterpart of ``deltapq_tpu/ops/adc_pallas.py`` (its name differs: the
 kernels are CUDA C++, not Pallas).  The TPU kernels select table values
 with one-hot matmuls; on the card each is a lookup in shared memory
-(``csrc/adc_lookup.cuh`` holds what the four share):
+(``csrc/adc_lookup.cuh`` holds what they share):
 
 * ``adc_dists_pallas``  -> ``csrc/adc_dists.cu`` (replaces
   ``_adc_dists_kernel``): the full f32 distance matrix [B, N].
@@ -18,11 +18,12 @@ with one-hot matmuls; on the card each is a lookup in shared memory
   row) as ``top_k`` threshold-min sweeps select it (on the card B6's
   warp selection, on the keys); exact f32 distances are recomputed for
   the winners.
-* ``adc_topk_tiledict`` -> ``csrc/adc_topk_tiledict.cu`` (replaces
+* ``adc_topk_tiledict`` -> ``csrc/adc_topk.cu`` too (replaces
   ``_adc_topk_tiledict_kernel``): per tile the table is compacted through
   the tile's dictionary of distinct centroid ids and narrow per-row
-  indexes are scanned, then the packed selection.  ``build_tile_dict``
-  builds the dictionaries on the host; ``TileDictEngine`` is the engine.
+  indexes are scanned, then the packed selection (on the card B9's warp
+  kernel over the compact tables).  ``build_tile_dict`` builds the
+  dictionaries on the host; ``TileDictEngine`` is the engine.
 
 ``precision`` of the top-k functions, as ``_accumulate_onehot`` adds the
 values: ``"f32"`` (exact tables), ``"bf16"`` (the table rounded to bf16)
@@ -48,21 +49,16 @@ import torch
 from .. import resolve_device
 from ..kernels import build
 
-#: shared memory a kernel's block may take for its table rows (the card
-#: allows 227 KB); the queries per block follow from it
+#: the distance-matrix and packed kernels: one query's table must fit
+#: this much shared memory (the card allows 227 KB a block)
 SMEM_BUDGET = 160 * 1024
-QC_MAX = 16
-#: the tile-dictionary kernel's compact tables are K/D times smaller: it
-#: takes a budget that lets several blocks share an SM
-TILEDICT_SMEM = 48 * 1024
 KERNEL_THREADS = 256
 #: rows per tile of ``adc_topk_pallas`` (the tile ``query_plain`` uses)
 TILE_N = 4096
-#: ``adc_topk_tiles`` on the card: the 4*M*K bytes of one warp's tables
-#: must fit beside a 32 KB code chunk
+#: ``adc_topk_tiles`` and ``adc_topk_tiledict_tiles`` on the card: the
+#: 4*M*K (4*M*D) bytes of one warp's tables must fit beside a 32 KB code
+#: chunk
 TOPK_WARP_TABLES = 192 * 1024
-#: database rows a block of the distance-matrix kernel walks
-DISTS_ROWS = 8192
 _ROW_BITS = 12  # tile-local row id packed into the low mantissa bits
 _KEY_BIG = 0x7FFFFFFF
 PRECISIONS = ("f32", "bf16", "bf16x2")
@@ -80,15 +76,14 @@ def _mode_name(kernel: str, precision: str) -> str:
     return kernel if precision == "f32" else f"{kernel}_{precision}"
 
 
-def _queries_per_block(M: int, K: int, entry_bytes: int = 4) -> int:
-    """Queries whose [M*K] table rows (4- or 2-byte entries) fit the
-    budget."""
-    qc = SMEM_BUDGET // (entry_bytes * M * K)
-    if qc < 1:
+def _check_tables_fit(what: str, n_bytes: int, limit: int) -> None:
+    """The shapes a lookup kernel takes on the card: the tables it keeps
+    in shared memory (one query's, or one warp's), ``n_bytes``, must fit
+    ``limit`` bytes; else NotImplementedError."""
+    if n_bytes > limit:
         raise NotImplementedError(
-            f"adc kernels: a [{M}*{K}] table of {entry_bytes}-byte entries "
-            f"does not fit the kernel's shared memory")
-    return min(qc, QC_MAX)
+            f"{what}: the tables kept in shared memory ({n_bytes} bytes) "
+            f"must fit {limit} bytes")
 
 
 def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -186,15 +181,15 @@ def adc_dists_pallas(table: torch.Tensor, codes: torch.Tensor,
     if table.device.type == "cpu":
         return adc_dists_ref(table, codes)
     B, M, K = table.shape
+    _check_tables_fit("adc_dists", 4 * M * K, SMEM_BUDGET)
     tab = table.reshape(B, M * K)
     _check_cuda_operands("adc_dists", table, tab, codes)
     n = codes.shape[0]
-    qc = _queries_per_block(M, K)
     out = torch.empty((B, n), dtype=torch.float32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = build.library().adc_dists_launch(
         tab.data_ptr(), codes.data_ptr(), out.data_ptr(), B, M, K, n,
-        DISTS_ROWS, qc, codes.element_size(), stream)
+        codes.element_size(), stream)
     build.check(err, "adc_dists")
     build.count("adc_dists")
     return out
@@ -249,10 +244,7 @@ def adc_topk_tiles(table: torch.Tensor, codes: torch.Tensor, n_valid: int,
     if tile_n % KERNEL_THREADS:
         raise ValueError(f"adc_topk: tile_n % {KERNEL_THREADS} == 0 "
                          f"required")
-    if 4 * M * K > TOPK_WARP_TABLES:
-        raise NotImplementedError(
-            f"adc_topk: one warp's tables (4*M*K = {4 * M * K} bytes) must "
-            f"fit {TOPK_WARP_TABLES} bytes of shared memory")
+    _check_tables_fit("adc_topk", 4 * M * K, TOPK_WARP_TABLES)
     tab = _kernel_table(table, precision)
     _check_cuda_operands("adc_topk", table, tab, codes)
     nt = codes.shape[0] // tile_n
@@ -389,8 +381,8 @@ def adc_topk_packed_tiles(table: torch.Tensor, codes: torch.Tensor,
         return adc_topk_packed_tiles_ref(table, codes, n_valid, top_k,
                                          tile_n, precision)
     B, M, K = table.shape
-    # the shapes the kernel takes: a query's table within the budget
-    _queries_per_block(M, K, _ENTRY_BYTES[precision])
+    _check_tables_fit("adc_topk_packed", _ENTRY_BYTES[precision] * M * K,
+                     SMEM_BUDGET)
     tab = _kernel_table(table, precision)
     _check_cuda_operands("adc_topk_packed", table, tab, codes)
     out = torch.empty((codes.shape[0] // tile_n, top_k, B),
@@ -504,8 +496,9 @@ def adc_topk_tiledict_tiles(table: torch.Tensor, idx: torch.Tensor,
     tile-dictionary scan: table [B, M, K] f32; idx u8 [N_pad, M]
     positions in the tile's dictionary; dict_vals i32 [nT, M, D], D <=
     256; tile_n <= 4096.  On CUDA tensors this launches
-    ``csrc/adc_topk_tiledict.cu``; on CPU tensors it runs the plain
-    version."""
+    ``csrc/adc_topk.cu`` (``adc_topk_tiledict_launch``: B9's warp kernel
+    over the compact tables, 4*M*D bytes a warp); on CPU tensors it runs
+    the plain version."""
     B, M, K = table.shape
     n_pad = idx.shape[0]
     if (table.dtype != torch.float32 or idx.dim() != 2 or idx.shape[1] != M
@@ -523,15 +516,15 @@ def adc_topk_tiledict_tiles(table: torch.Tensor, idx: torch.Tensor,
     if table.device.type == "cpu":
         return adc_topk_tiledict_tiles_ref(table, idx, dict_vals, n_valid,
                                            top_k, tile_n)
+    _check_tables_fit("adc_topk_tiledict", 4 * M * D, TOPK_WARP_TABLES)
     tab = table.reshape(B, M * K)
     _check_cuda_operands("adc_topk_tiledict", table, tab, idx, dict_vals)
-    qc = max(1, min(TILEDICT_SMEM // (4 * M * D), B))
     out = torch.empty((n_pad // tile_n, top_k, B), dtype=torch.int32,
                       device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = build.library().adc_topk_tiledict_launch(
         tab.data_ptr(), idx.data_ptr(), dict_vals.data_ptr(),
-        out.data_ptr(), B, M, K, D, n_pad, tile_n, int(n_valid), top_k, qc,
+        out.data_ptr(), B, M, K, D, n_pad, tile_n, int(n_valid), top_k,
         stream)
     build.check(err, "adc_topk_tiledict")
     build.count("adc_topk_tiledict")

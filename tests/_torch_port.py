@@ -19,6 +19,17 @@ def structured_codes(rng, n, M, K):
                     ).astype(np.uint8)
 
 
+def tile_dict_codes(rng, n, M, K, width):
+    """Codes [n, M] u8 whose values in subspace m come from a pool of
+    ``width`` centroid ids holding 0 (the padding rows' code): a tile of
+    enough rows has a dictionary ``width`` wide (a power of two >= 8)."""
+    pools = np.stack([np.concatenate(
+        [[0], rng.choice(np.arange(1, K), width - 1, replace=False)])
+        for _ in range(M)])                                 # [M, width]
+    pick = rng.integers(0, width, size=(n, M))
+    return pools[np.arange(M)[None, :], pick].astype(np.uint8)
+
+
 def codebook(rng, M, K, Ds):
     return (rng.normal(size=(M, K, Ds)) * 3 + 1).astype(np.float32)
 

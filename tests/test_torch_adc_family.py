@@ -16,7 +16,8 @@ from deltapq_tpu_torch.ops import adc_kernels as ak
 from deltapq_tpu_torch.tree.build import find_edges_by_diff
 from deltapq_tpu_torch.tree.layout import build_layout
 
-from _torch_port import CPU, assert_ids_up_to_ties, codebook, structured_codes
+from _torch_port import (CPU, assert_ids_up_to_ties, codebook,
+                         structured_codes, tile_dict_codes)
 
 
 @pytest.fixture
@@ -215,17 +216,27 @@ def test_build_tile_dict_is_a_copy(interpret, n, M, K, tile, max_dict):
     assert got[2] == want[2]
 
 
-@pytest.mark.parametrize("B,M,K,n,tile,k", [
-    (8, 4, 64, 1000, 256, 5),                 # n_valid inside the last tile
-    (16, 8, 256, 4096, 2048, 10),
-    (4, 4, 64, 300, 256, 60)])                # top_k beyond the last tile
+@pytest.mark.parametrize("B,M,K,n,tile,k,width", [
+    (8, 4, 64, 1000, 256, 5, None),           # n_valid inside the last tile
+    (16, 8, 256, 4096, 2048, 10, None),
+    (4, 4, 64, 300, 256, 60, None),           # top_k beyond the last tile
+    (8, 8, 256, 3000, 1024, 10, 32),          # the dup_heavy width
+    (6, 4, 256, 1000, 512, 7, 64),
+    (4, 16, 64, 1200, 512, 10, 32)])          # M=16
 def test_adc_topk_tiledict_matches_jax_and_packed_f32(interpret, B, M, K, n,
-                                                      tile, k):
+                                                      tile, k, width):
+    """Clustered codes in lexsort order (width None: what the data gives)
+    or codes drawn from pools of ``width`` centroid ids a subspace."""
     rng = np.random.default_rng(n)
     table = rng.normal(size=(B, M, K)).astype(np.float32) * 10
-    codes = _clustered(n + 1, n, M, K, mut=0.01)
-    codes = padc.pad_codes(codes[np.lexsort(codes.T[::-1])], tile)
+    if width is None:
+        codes = _clustered(n + 1, n, M, K, mut=0.01)
+        codes = codes[np.lexsort(codes.T[::-1])]
+    else:
+        codes = tile_dict_codes(rng, n, M, K, width)
+    codes = padc.pad_codes(codes, tile)
     dicts, idx, D = ak.build_tile_dict(codes, tile_n=tile)
+    assert width is None or D == width
     jd, ji = interpret.adc_topk_tiledict.__wrapped__(
         jnp.asarray(table), jnp.asarray(idx), jnp.asarray(dicts),
         jnp.asarray(codes), jnp.int32(n), top_k=k, tile_n=tile)
@@ -285,6 +296,21 @@ def test_tile_dict_engine_that_does_not_fit_raises():
     assert not eng.ok
     with pytest.raises(RuntimeError):
         eng.query(np.zeros((2, 16), np.float32))
+
+
+@pytest.mark.parametrize("what,n_bytes,limit", [
+    ("adc_dists", 4 * 8 * 256, ak.SMEM_BUDGET),          # M=8, K=256
+    ("adc_dists", 4 * 16 * 1024, ak.SMEM_BUDGET),        # M=16, K=1024
+    ("adc_topk_tiledict", 4 * 16 * 256, ak.TOPK_WARP_TABLES),
+    ("adc_topk_tiledict", 4 * 256 * 256, ak.TOPK_WARP_TABLES)])
+def test_tables_fit_check(what, n_bytes, limit):
+    """The shapes the card kernels take: the tables they keep in shared
+    memory must fit; else NotImplementedError before any launch."""
+    if n_bytes <= limit:
+        ak._check_tables_fit(what, n_bytes, limit)
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            ak._check_tables_fit(what, n_bytes, limit)
 
 
 def test_exact_dists_for_ids_matches_jax(interpret):

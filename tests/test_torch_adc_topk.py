@@ -146,14 +146,16 @@ def test_bad_operands_raise():
 
 def test_bench_adc_rehearses_on_the_cpu(capsys):
     """The ADC benchmark's flow with the plain versions: B6 and B9 in every
-    mode and B10 in both row orders held to their plain versions; no time
-    printed as a device time."""
+    mode and B10 in both row orders held to their plain versions, then B10
+    beside B9 f32 on the dup_heavy codes; no time printed as a device
+    time."""
     from deltapq_tpu_torch import bench_adc
     assert bench_adc.main(["6000", "8"], device="cpu") == 0
     out = capsys.readouterr().out
     assert out.count("bit-equal to its plain version") == 6
     assert out.count("so is B9; B9 / B6 = nan") == 6
-    assert out.count("B10 nan ms") == 2
+    assert out.count("B10 nan ms") == 3
+    assert "dup_heavy lexsort: B10 nan ms" in out
     assert "cpu (plain versions; no device time)" in out
     assert "nan ms" in out
 
@@ -167,6 +169,33 @@ def test_adc_ablation_variants_match_the_kernel_source(variant):
     src = (build.CSRC_DIR / "adc_topk.cu").read_text()
     assert set(ablate_adc.VARIANTS) == {"whole", "group8", "group16",
                                         "warps16", "no-select"}
-    out = ablate_adc.variant_source(src, variant)
+    out = build.variant_source(src, ablate_adc.VARIANTS[variant], variant)
     assert (out == src) == (variant == "whole")
     assert "adc_topk_launch" in out
+
+
+@pytest.mark.parametrize("script,source,variant", [
+    ("ablate_tiledict", "adc_topk.cu", v) for v in (
+        "whole", "group4", "group8", "group16", "query-major",
+        "no-select")] + [
+    ("ablate_dists", "adc_dists.cu", v) for v in (
+        "none", "a", "b", "c", "ab", "ac", "bc", "abc", "qv1", "run8",
+        "w24", "w16", "no-store", "no-lookup")])
+def test_ablation_variants_match_their_sources(script, source, variant):
+    """B10's and B8's ablations: each variant's replacements are in the
+    source exactly once, and only the package's own variant (B10 ``whole``,
+    B8 ``ab``) builds the source unchanged."""
+    import importlib
+
+    mod = importlib.import_module(f"deltapq_tpu_torch.kernels.{script}")
+    variants = {**mod.VARIANTS, **getattr(mod, "DIAGNOSTICS", {})}
+    assert variant in variants
+    src = (build.CSRC_DIR / source).read_text()
+    out = build.variant_source(src, variants[variant], variant)
+    assert (out == src) == (variant in ("whole", "ab"))
+
+
+def test_ablation_variant_without_its_line_raises():
+    with pytest.raises(RuntimeError, match="no longer has"):
+        build.variant_source("int x = 1;", [("int y = 2;", "int y = 3;")],
+                             "broken")

@@ -18,7 +18,8 @@ from deltapq_tpu_torch.ops.delta_tiles import decode_delta_tiles
 from deltapq_tpu_torch.ops.fused import FusedCompressedEngine
 from deltapq_tpu_torch.ops.stream_tiles import decode_stream_tiles
 
-from _torch_port import ADC_TOPK_CASES, adc_topk_case, adc_topk_tiles_model
+from _torch_port import (ADC_TOPK_CASES, adc_topk_case, adc_topk_tiles_model,
+                         tile_dict_codes)
 
 pytestmark = pytest.mark.cuda
 
@@ -451,10 +452,16 @@ def test_adc_topk_kernel_bf16_modes_bit_equal(cuda, precision, B, M, K, n,
 @pytest.mark.parametrize("B,M,K,n,tile", [(200, 8, 256, 20480, 512),
                                           (37, 4, 16, 3000, 8),
                                           (20, 8, 512, 9000, 8),
-                                          (5, 32, 16, 1000, 8)])
+                                          (5, 32, 16, 1000, 8),
+                                          (512, 8, 256, 25576, 8),
+                                          (1, 8, 256, 20000, 8),
+                                          (3, 8, 256, 1001, 1),
+                                          (20, 16, 256, 5000, 8)])
 def test_adc_dists_kernel_bit_equal(cuda, B, M, K, n, tile):
-    """Rows that are no multiple of a block's, int32 codes, M beyond the
-    codes a thread keeps in registers."""
+    """Rows that are no multiple of a block's (8,192) or of a lane's run,
+    int32 codes, M beyond the codes a lane loads at once (4, 8, 16), the
+    main shape's 512 queries, one query, N no multiple of 4 (stores of one
+    float), and M=16, whose tables leave room for 8 queries a block."""
     from deltapq_tpu_torch.ops import adc_kernels as ak
 
     table, codes = _adc_problem(cuda, B, M, K, n, tile, 0)
@@ -527,6 +534,39 @@ def test_adc_topk_tiledict_kernel_bit_equal(cuda, B, M, K, n, tile, k, pool):
     d, i = ak.adc_topk_tiledict(table, idx_d, dicts_d, codes_d, n, k, tile)
     dp, ip = ak.adc_topk_packed(table, codes_d, n, k, tile, "f32")
     assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("B,M,K,width,n,tile,k", [
+    (512, 8, 256, 32, 20000, 2048, 10),   # the dup_heavy shape; n_valid
+                                          # inside the last tile
+    (37, 4, 64, 8, 3000, 256, 1),
+    (1, 16, 256, 64, 9000, 4096, 100),
+    (37, 8, 256, 256, 10000, 2048, 300),  # top_k above one launch's ranks
+    (512, 16, 256, 32, 5000, 1000, 10),   # a tile no multiple of 32 rows
+    (1, 8, 256, 256, 5000, 256, 10),
+    (37, 16, 64, 8, 12288, 4096, 300),
+    (512, 4, 256, 64, 7000, 2048, 100)])
+def test_adc_topk_tiledict_kernel_widths(cuda, B, M, K, width, n, tile, k):
+    """B10 at dictionary widths 8-256 (its compact tables, 4*M*D bytes a
+    warp, from 128 B to 16 KB): one launch, bit-equal to the plain version
+    and to B9's f32 keys on the codes of the same rows."""
+    from deltapq_tpu_torch.ops import adc_kernels as ak
+
+    rng = np.random.default_rng(n + width)
+    table = torch.from_numpy(
+        rng.normal(size=(B, M, K)).astype(np.float32) * 10).to(cuda)
+    codes = pad_codes(tile_dict_codes(rng, n, M, K, width), tile)
+    dicts, idx, D = ak.build_tile_dict(codes, tile_n=tile, max_dict=256)
+    assert D == width
+    idx_d, dicts_d = (torch.from_numpy(a).to(cuda) for a in (idx, dicts))
+    before = build.launch_counts()["adc_topk_tiledict"]
+    keys = ak.adc_topk_tiledict_tiles(table, idx_d, dicts_d, n, k, tile)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["adc_topk_tiledict"] == before + 1
+    assert torch.equal(keys, ak.adc_topk_tiledict_tiles_ref(
+        table, idx_d, dicts_d, n, k, tile))
+    assert torch.equal(keys, ak.adc_topk_packed_tiles(
+        table, torch.from_numpy(codes).to(cuda), n, k, tile, "f32"))
 
 
 def test_plain_scan_engines_on_card(cuda):
