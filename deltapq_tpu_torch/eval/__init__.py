@@ -1,20 +1,19 @@
 """Evaluation: exact groundtruth and the retrieval metrics.
 
-Counterpart of ``deltapq_tpu/eval``.  ``groundtruth_from_file`` is not
-ported yet (it reads TEXMEX files through ``io/``, ROADMAP A).
+Counterpart of ``deltapq_tpu/eval``.
 """
 
 from typing import Dict
 
 import numpy as np
 
-from .groundtruth import exact_topk
+from .groundtruth import exact_topk, groundtruth_from_file
 from .metrics import (epsilon_recall, mean_average_precision, recall_at_k,
                       top1_accuracy, true_distances)
 
 __all__ = [
-    "exact_topk", "recall_at_k", "top1_accuracy", "mean_average_precision",
-    "epsilon_recall", "true_distances", "evaluate",
+    "exact_topk", "groundtruth_from_file", "recall_at_k", "top1_accuracy",
+    "mean_average_precision", "epsilon_recall", "true_distances", "evaluate",
 ]
 
 

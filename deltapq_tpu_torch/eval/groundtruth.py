@@ -1,10 +1,13 @@
 """Exact brute-force top-k groundtruth.
 
-Counterpart of ``deltapq_tpu/eval/groundtruth.py`` (``exact_topk``;
-``groundtruth_from_file`` waits for ``io/``).  The distance matrix of a
-(query batch x database tile) is one f32 matrix product with TF32 off
+Counterpart of ``deltapq_tpu/eval/groundtruth.py`` (``exact_topk``,
+``groundtruth_from_file``).  The distance matrix of a (query batch x
+database tile) is one f32 matrix product with TF32 off
 (``d2 = |q|^2 - 2 q x^T + |x|^2``), with a running top-k merged per
-tile.  Plain PyTorch: the JAX package computes it in XLA.
+tile.  Among equal distances the lower id is kept and listed first, as
+``lax.top_k`` does, so where the f32 distances are exact (integer
+vectors, as bvecs files hold) the result equals the JAX package's.
+Plain PyTorch: the JAX package computes it in XLA.
 """
 
 from __future__ import annotations
@@ -32,8 +35,26 @@ def _exact_tile_topk(q, x_tile, base: int, n_valid: int, best_d, best_i,
                      torch.full_like(d2, float("inf")))
     cat_d = torch.cat([best_d, d2], dim=1)
     cat_i = torch.cat([best_i, ids[None, :].expand(B, tile)], dim=1)
-    top, pos = torch.topk(cat_d, top_k, dim=1, largest=False, sorted=True)
+    top, pos = _smallest_lowest_first(cat_d, top_k)
     return top, torch.gather(cat_i, 1, pos)
+
+
+def _smallest_lowest_first(x, k: int):
+    """(values [B, k] ascending, positions [B, k]) of the k smallest
+    entries per row, equal values taken and listed by ascending position
+    (``torch.topk`` leaves both open).  Positions in ``cat`` order are
+    ids in ascending order: the running best (sorted, earlier tiles)
+    comes first."""
+    kth = torch.topk(x, k, dim=1, largest=False, sorted=True)[0][:, -1:]
+    less = x < kth
+    tied = x == kth
+    room = k - less.sum(dim=1, keepdim=True, dtype=torch.int32)
+    take = less | (tied & (torch.cumsum(tied, dim=1, dtype=torch.int32)
+                           <= room))
+    pos = torch.nonzero(take)[:, 1].reshape(x.shape[0], k)  # ascending
+    vals = torch.gather(x, 1, pos)
+    order = torch.argsort(vals, dim=1, stable=True)
+    return torch.gather(vals, 1, order), torch.gather(pos, 1, order)
 
 
 def exact_topk(queries: np.ndarray, base_iter, top_k: int = 100,
@@ -69,3 +90,16 @@ def exact_topk(queries: np.ndarray, base_iter, top_k: int = 100,
     order = torch.argsort(best_d, dim=1, stable=True)
     return (torch.gather(best_d, 1, order).cpu().numpy(),
             torch.gather(best_i, 1, order).cpu().numpy())
+
+
+def groundtruth_from_file(base_path: str, queries: np.ndarray, ext: str,
+                          top_k: int = 100, top_n: int = -1,
+                          tile_n: int = 262144, device=None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact top-k over a TEXMEX base file streamed in ``tile_n``-row
+    batches onto ``device`` (reference ``groundtruth`` task,
+    ``main.cpp:569-669``)."""
+    from ..io.vecs import iter_vec_batches
+
+    it = iter_vec_batches(base_path, ext=ext, batch_size=tile_n, top_n=top_n)
+    return exact_topk(queries, it, top_k=top_k, device=device)

@@ -125,6 +125,21 @@ def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
     ("pallas" on a CUDA device, "xla" on the CPU).  ``codes`` is a NumPy
     array or a tensor (kept on the device by a caller that queries it
     often).  Returns NumPy (dists [B, top_k], ids [B, top_k])."""
+    d, i = query_plain_tensors(codewords, queries, codes, top_k, tile_n,
+                               engine, device)
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def query_plain_tensors(codewords, queries: np.ndarray, codes,
+                        top_k: int = 10, tile_n: int = 16384,
+                        engine: str = "auto", device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``query_plain`` without the copy to the host: (dists, ids) stay on
+    ``device`` and, with ``codewords`` and ``codes`` already there, the
+    call returns once the work is queued (the queries go up from pinned
+    memory without blocking), so a caller
+    (``parallel.runtime.ContinuousBatcher``) can queue the next batch
+    before it waits for this one."""
     device = resolve_device(device)
     cw = codewords if isinstance(codewords, torch.Tensor) else \
         torch.from_numpy(np.asarray(codewords, np.float32))
@@ -140,7 +155,11 @@ def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
     c = codes if isinstance(codes, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(codes))
     c = c.to(device)
-    table = adc_table(cw, torch.from_numpy(q).to(device))
+    qt = torch.from_numpy(q)
+    if device.type == "cuda":
+        # a copy from pageable memory would wait for the whole stream
+        qt = qt.pin_memory()
+    table = adc_table(cw, qt.to(device, non_blocking=True))
     if engine == "pallas":
         from .adc_kernels import TILE_N, adc_topk_pallas
 
@@ -154,4 +173,4 @@ def query_plain(codewords, queries: np.ndarray, codes, top_k: int = 10,
                               tile_n)
     else:
         raise ValueError(f"unknown engine {engine!r}")
-    return d.cpu().numpy(), i.cpu().numpy()
+    return d, i

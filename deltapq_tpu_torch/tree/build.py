@@ -1,10 +1,9 @@
-"""Approximate DeltaTree edge finding (methods 1 and 2).
+"""Approximate DeltaTree edge finding (methods 1, 2 and 3).
 
-A NumPy copy of ``deltapq_tpu/tree/build.py`` for methods 1 (height-
-aware star, the reference default) and 2 (WOH): the port cannot import
-the JAX package.  Method 3 (table-aware reattachment) is not ported yet
-and raises.  The tests hold the edges, root and heights equal to the
-original's.
+A NumPy copy of ``deltapq_tpu/tree/build.py``: method 1 (height-aware
+star, the reference default), 2 (WOH) and 3 (table-aware minimum-weight
+reattachment, ``_ta_reattach``); the port cannot import the JAX package.
+The tests hold the edges, root and heights equal to the original's.
 
 - rounds diff = 0..diff_argument over a shrinking active set;
 - per round, every C(M, M-diff) subset of kept subspaces hashes the
@@ -85,9 +84,60 @@ class EdgeFindResult:
     rounds_log: list = field(default_factory=list)
 
 
+def _ta_reattach(codes, tables, sorted_ids, starts, sizes, multi,
+                 parent_ids, grp_of, child_mask, par_of_child,
+                 ta_hubs: int):
+    """Minimum-weight reattachment of clique children (method 3).
+
+    Candidate hubs per clique = the height parent (slot 0) + the first
+    ``ta_hubs - 1`` members in sort order.  Every child picks the hub
+    minimizing (diff count, table distance); children that are
+    themselves hubs keep the height parent so hub chains stay acyclic
+    (hub -> parent, child -> any hub).
+    """
+    P = ta_hubs
+    starts_m = starts[multi]
+    sizes_m = sizes[multi]
+    G = len(starts_m)
+    hub_pos = starts_m[:, None] + np.arange(P)[None, :]
+    hub_pos = np.minimum(hub_pos, (starts_m + sizes_m - 1)[:, None])
+    hub_ids = sorted_ids[hub_pos].astype(np.int64)         # [G, P]
+    hub_ids[:, 0] = parent_ids
+
+    # group index (within multi) of each child
+    multi_rank = np.cumsum(multi) - 1
+    gi = multi_rank[grp_of[child_mask]]                     # [C]
+    child_ids = sorted_ids[child_mask].astype(np.int64)     # [C]
+    cand = hub_ids[gi]                                      # [C, P]
+
+    cc = codes[child_ids].astype(np.int64)                  # [C, M]
+    hc = codes[cand.reshape(-1)].astype(np.int64).reshape(
+        cand.shape + (codes.shape[1],))                     # [C, P, M]
+    neq = cc[:, None, :] != hc                              # [C, P, M]
+    ndiff = neq.sum(axis=2).astype(np.float64)              # [C, P]
+    if tables is not None:
+        # pure minimum-weight objective (the reference TA's,
+        # find_edge.cpp:165-215); diff count breaks exact ties
+        M = codes.shape[1]
+        dist = np.zeros(cand.shape, np.float64)
+        for m in range(M):
+            dist += tables[m][cc[:, m][:, None], hc[:, :, m]]
+        key = dist + ndiff * 1e-9
+    else:
+        key = ndiff  # no tables: minimize the diff count
+    key = np.where(cand == child_ids[:, None], np.inf, key)
+    # hubs themselves must keep the height parent (acyclicity)
+    is_hub_child = (cand[:, 1:] == child_ids[:, None]).any(axis=1)
+    best = np.argmin(key, axis=1)
+    best = np.where(is_hub_child, 0, best)
+    return cand[np.arange(len(best)), best].astype(np.uint32)
+
+
 def find_edges_by_diff(codes: np.ndarray, K: int,
                        diff_argument: Optional[int] = None,
                        max_height_folds: int = 1, method: int = 1,
+                       tables: Optional[np.ndarray] = None,
+                       ta_hubs: int = 4,
                        sample_rate: Optional[float] = None,
                        max_combos_per_round: int = 64,
                        seed: int = 12345,
@@ -97,7 +147,18 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
     codes: [N, M] uint8/uint16.  Returns edges forming a tree rooted at
     ``root_id`` (N-1 edges when N >= 1).
 
-    method: 1 = height-aware star (reference default); 2 = WOH.
+    method: 1 = height-aware star (reference default,
+    ``deltapq_create_approx_tree.h:445-627``); 2 = WOH (``:629-792``);
+    3 = TA-style minimum-weight attachment (the quality upgrade kept
+    from the reference's dead ``parallel_dist_diff_find_TA``,
+    ``find_edge.cpp:48-274``): each clique member attaches to the
+    candidate hub (the height parent + the clique's first ``ta_hubs-1``
+    members) minimizing table distance (diff count without tables)
+    instead of an arbitrary equal-hash parent — a lower-weight tree
+    with tighter max_dist bounds and better DFS locality.  Pass
+    ``tables`` ([M, K, K] inter-centroid distances); hub chains can
+    exceed the height accounting by one level per round (worst case M
+    extra levels, repaired at serialization if depth > 15).
 
     Combination subsampling (M > 8): enumerating every C(M, M-diff)
     kept-subset is impractical at M=16 (65536 sort rounds total), so
@@ -112,9 +173,8 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
     so low-diff structure — where the bytes are — survives.  M <= 8
     always enumerates fully (reference behavior).
     """
-    if method not in (1, 2):
-        raise NotImplementedError(
-            f"edge-finding method {method} is not ported (1 and 2 are)")
+    if method not in (1, 2, 3):
+        raise ValueError(f"unknown edge-finding method {method}")
     codes = np.asarray(codes)
     n, M = codes.shape
     if diff_argument is None:
@@ -166,7 +226,7 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
             h = heights[sorted_ids].astype(np.int64)
             pos = np.arange(len(sorted_ids), dtype=np.int64)
 
-            if method == 1:
+            if method in (1, 3):
                 # parent = first member with max height
                 gmax = np.maximum.reduceat(h, starts)
                 cand = np.where(h == gmax[np.repeat(
@@ -182,6 +242,9 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
                 bump = second == gmax_m
                 heights[parent_ids[bump]] += 1
                 new_height = gmax_m + 1
+                # method 3's hub chains can add one extra level per
+                # round beyond this accounting; the worst-case overrun
+                # is M levels, caught by serialize_dtc's auto-repair
             else:  # method 2, WOH: first member is parent
                 parent_pos = starts[multi]
                 parent_ids = sorted_ids[parent_pos]
@@ -204,6 +267,11 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
             grp_parent = np.full(len(starts), -1, np.int64)
             grp_parent[multi] = parent_ids
             par_of_child = grp_parent[grp_of[child_mask]].astype(np.uint32)
+            if method == 3 and len(child_ids):
+                par_of_child = _ta_reattach(
+                    codes, tables, sorted_ids, starts, sizes, multi,
+                    parent_ids, grp_of, child_mask, par_of_child,
+                    ta_hubs)
             edge_parents.append(par_of_child)
             edge_children.append(child_ids.astype(np.uint32))
 

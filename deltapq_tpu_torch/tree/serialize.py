@@ -1,10 +1,11 @@
 """DTC compressed-code serialization, byte-exact with the reference.
 
-A NumPy copy of the DTC part of ``deltapq_tpu/tree/serialize.py``
-(``serialize_dtc``, ``write_dtc``, ``read_dtc_raw``,
-``deserialize_dtc``, ``decode_dtc_to_codes``); the port has no native
-parser, so the decoders are the Python loops.  The tests hold the bytes
-equal to the original's.
+A NumPy copy of the DTC and diff-index parts of
+``deltapq_tpu/tree/serialize.py`` (``serialize_dtc``, ``write_dtc``,
+``read_dtc_raw``, ``deserialize_dtc``, ``decode_dtc_to_codes``;
+``serialize_diff_index``, ``write_diff_index``, ``decode_diff_index``);
+the port has no native parser, so the decoders are the Python loops.
+The tests hold the bytes equal to the original's.
 
 Format (K <= 256, M <= 8): file header ``int64 n_codes, int64 n_bytes``;
 stream: M root code bytes, then the N-1 non-root nodes in DFS order,
@@ -175,5 +176,86 @@ def decode_dtc_to_codes(stream: np.ndarray, n_codes: int, M: int
         s, e = diff_off[i], diff_off[i + 1]
         row[lut[int(bitmaps[i])]] = diff_to[s:e]
         stack[d] = row
+        codes[i] = row
+    return codes
+
+
+# --------------------------------------------------------------------------
+# Sequential diff index (no tree) — create_diff_index (:1972-2053)
+# --------------------------------------------------------------------------
+
+def serialize_diff_index(codes: np.ndarray) -> bytes:
+    """Delta each code vs the previous code in file order."""
+    codes = np.asarray(codes)
+    n, M = codes.shape
+    if codes.dtype == np.uint16:
+        wide = True
+    else:
+        wide = False
+    diff_mask = np.zeros((n, M), bool)
+    diff_mask[0] = False
+    diff_mask[1:] = codes[1:] != codes[:-1]
+    nd = diff_mask[1:].sum(axis=1).astype(np.int64)
+    bytes_per_diff = 2 if wide else 1
+    sizes = 1 + nd * bytes_per_diff
+    offs = M * bytes_per_diff + np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    total = M * bytes_per_diff + int(sizes.sum())
+    out = np.zeros(total, np.uint8)
+    if wide:
+        out[:2 * M] = codes[0].astype("<u2").view(np.uint8)
+    else:
+        out[:M] = codes[0]
+    # bitmaps
+    bits = (diff_mask[1:].astype(np.uint16) <<
+            np.arange(M, dtype=np.uint16)[None, :]).sum(axis=1)
+    out[offs] = bits.astype(np.uint8)
+    rows, cols = np.nonzero(diff_mask[1:])
+    vals = codes[1:][rows, cols]
+    intra = np.arange(len(rows), dtype=np.int64) - \
+        np.repeat(np.cumsum(nd) - nd, nd)
+    if wide:
+        v16 = vals.astype("<u2").view(np.uint8).reshape(-1, 2)
+        out[offs[rows] + 1 + 2 * intra] = v16[:, 0]
+        out[offs[rows] + 2 + 2 * intra] = v16[:, 1]
+    else:
+        out[offs[rows] + 1 + intra] = vals.astype(np.uint8)
+    return out.tobytes()
+
+
+def write_diff_index(path: str, codes: np.ndarray) -> None:
+    stream = serialize_diff_index(codes)
+    with open(path, "wb") as f:
+        np.int64(len(codes)).tofile(f)
+        np.int64(len(stream)).tofile(f)
+        f.write(stream)
+
+
+def decode_diff_index(stream: np.ndarray, n_codes: int, M: int,
+                      K: int = 256) -> np.ndarray:
+    """Lossless decode of the sequential diff index."""
+    stream = np.asarray(stream, np.uint8)
+    wide = K > 256
+    popcount = _POPCOUNT
+    lut = [np.flatnonzero([(b >> m) & 1 for m in range(8)])
+           for b in range(256)]
+    dtype = np.uint16 if wide else np.uint8
+    codes = np.zeros((n_codes, M), dtype)
+    if wide:
+        codes[0] = stream[:2 * M].view("<u2")
+        off = 2 * M
+    else:
+        codes[0] = stream[:M]
+        off = M
+    for i in range(1, n_codes):
+        bm = int(stream[off]); off += 1
+        nd = popcount[bm]
+        row = codes[i - 1].copy()
+        ms = lut[bm]
+        if wide:
+            row[ms] = stream[off:off + 2 * nd].view("<u2")
+            off += 2 * nd
+        else:
+            row[ms] = stream[off:off + nd]
+            off += nd
         codes[i] = row
     return codes

@@ -1135,3 +1135,61 @@ def test_adc_topk_kernel_many_items(cuda):
         d, i = ak.adc_topk_tiles(table, codes, n, k, tile, precision)
         rd, ri = ak.adc_topk_tiles_ref(table, codes, n, k, tile, precision)
         assert torch.equal(d, rd) and torch.equal(i, ri), precision
+
+
+def test_cli_on_the_card(cuda, tmp_path):
+    """A small CLI run on the card: ``query -engine pallas`` (B6) and
+    ``query_compressed -engine auto`` (B1 bf16 + B2 over the DeltaTree)
+    held to ``query -engine xla`` on the same card.  Integer vectors and
+    codewords make every distance exact, so the three are bit-equal."""
+    import contextlib
+    import io as _io
+
+    from deltapq_tpu_torch import cli
+    from deltapq_tpu_torch.io import write_codewords, write_vecs
+    from deltapq_tpu_torch.profiling import Metrics
+
+    rng = np.random.default_rng(11)
+    M, K, Ds = 8, 32, 2
+    centers = rng.integers(100, 600, size=(24, M * Ds))
+
+    def mk(n):
+        x = centers[rng.integers(0, 24, n)] + rng.integers(
+            -80, 81, size=(n, M * Ds))
+        return np.clip(x, 0, 699).astype(np.float32)
+
+    root = str(tmp_path)
+    write_vecs(f"{root}/base.fvecs", mk(5000))
+    learn = mk(1000)
+    write_vecs(f"{root}/learn.fvecs", learn)
+    write_vecs(f"{root}/query.fvecs", mk(100))
+    pick = rng.choice(len(learn), K, replace=False)
+    write_codewords(f"{root}/M{M}K{K}codewords.txt", np.stack(
+        [learn[pick, m * Ds:(m + 1) * Ds] for m in range(M)]))
+    common = ["-dataset", root, "-m", str(M), "-k", str(K)]
+    out = {}
+    with contextlib.redirect_stdout(_io.StringIO()):
+        for task in ("encode", "approx_tree"):
+            assert cli.main([*common, "-task", task], device=cuda) == 0
+        for task, engine in (("query", "xla"), ("query", "pallas"),
+                             ("query_compressed", "auto")):
+            args = cli.build_parser().parse_args(
+                [*common, "-task", task, "-engine", engine, "-topk", "10",
+                 "-batch", "64"])
+            args.device = cuda
+            build.reset_launch_counts()
+            out[task, engine] = getattr(cli, f"task_{task}")(args,
+                                                             Metrics())
+            torch.cuda.synchronize()
+            out[task, engine, "launches"] = build.launch_counts()
+    xd, xi = out["query", "xla"]
+    assert out["query", "pallas", "launches"]["adc_topk"] > 0
+    counts = out["query_compressed", "auto", "launches"]
+    assert counts["stream_mins_bf16"] > 0 and counts["rerank"] > 0
+    for key in (("query", "pallas"), ("query_compressed", "auto")):
+        d, i = out[key]
+        assert np.array_equal(d, xd), key
+        # ids: equal distances make equal rows interchangeable
+        for b in range(len(d)):
+            assert set(i[b][d[b] < d[b, -1]]) == set(xi[b][xd[b] < xd[b,
+                                                                    -1]])

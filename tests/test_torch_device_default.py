@@ -9,9 +9,11 @@ import pytest
 import torch
 
 import deltapq_tpu_torch
-from deltapq_tpu_torch import bench_gist, bigscale, convert, index, synth
+from deltapq_tpu_torch import (bench_gist, bigscale, cli, convert, index,
+                               synth)
 from deltapq_tpu_torch.eval import groundtruth
-from deltapq_tpu_torch.ops import adc, adc_kernels, decoded, fused, kmeans
+from deltapq_tpu_torch.ops import (adc, adc_kernels, decoded, delta, fused,
+                                   kmeans)
 
 ENTRY_POINTS = [
     index.DeltaPQIndex.__init__, index.DeltaPQIndex.build,
@@ -31,7 +33,9 @@ ENTRY_POINTS = [
     synth.make_clustered_codes, synth.make_gist_workload, bench_gist.main,
     adc_kernels.TileDictEngine.__init__,
     decoded.DecodedEngine.__init__, decoded.DecodedEngine.load,
-    groundtruth.exact_topk,
+    groundtruth.exact_topk, groundtruth.groundtruth_from_file,
+    cli.main, delta.query_compressed, delta.make_compressed_query_fn,
+    adc.query_plain_tensors,
 ]
 
 
@@ -90,3 +94,6 @@ def test_default_device_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         index.DeltaPQIndex(cw, codes, build_tree=False).search(
             np.zeros((1, 4), np.float32), 2)
+    # the CLI, before any task (update reads files only)
+    with pytest.raises((RuntimeError, AssertionError)):
+        cli.main(["-dataset", "unused", "-task", "update"])

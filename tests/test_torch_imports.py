@@ -39,11 +39,19 @@ def test_no_jax_in_port_sources():
     "deltapq_tpu_torch.ops.topk", "deltapq_tpu_torch.ops.decoded",
     "deltapq_tpu_torch.ops.adc_kernels", "deltapq_tpu_torch.eval",
     "deltapq_tpu_torch.eval.metrics", "deltapq_tpu_torch.eval.groundtruth",
-    "deltapq_tpu_torch.bench_engines", "deltapq_tpu_torch.bench_gist"])
+    "deltapq_tpu_torch.bench_engines", "deltapq_tpu_torch.bench_gist",
+    "deltapq_tpu_torch.cli", "deltapq_tpu_torch.config",
+    "deltapq_tpu_torch.io", "deltapq_tpu_torch.io.vecs",
+    "deltapq_tpu_torch.io.codes", "deltapq_tpu_torch.io.codewords",
+    "deltapq_tpu_torch.io.groundtruth", "deltapq_tpu_torch.io.artifacts",
+    "deltapq_tpu_torch.profiling", "deltapq_tpu_torch.ops.delta",
+    "deltapq_tpu_torch.parallel", "deltapq_tpu_torch.parallel.runtime",
+    "deltapq_tpu_torch.tree.with_id", "deltapq_tpu_torch.tree.traverse",
+    "deltapq_tpu_torch.tree.serialize", "deltapq_tpu_torch.tree.build"])
 def test_module_alone_imports_without_jax(module):
-    """Each module of the plain-scan family on its own, in a fresh
-    interpreter: it is there, and brings in neither jax nor the JAX
-    package."""
+    """Each module of the plain-scan family and of the CLI's layer on its
+    own, in a fresh interpreter: it is there, and brings in neither jax
+    nor the JAX package."""
     path = ROOT.joinpath(*module.split("."))
     assert path.with_suffix(".py").exists() or (path / "__init__.py").exists()
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
@@ -52,3 +60,25 @@ def test_module_alone_imports_without_jax(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_cli_module_runs_without_jax():
+    """``python -m deltapq_tpu_torch.cli --help`` in a fresh interpreter:
+    the console script's module answers without importing jax."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['deltapq-tpu-torch', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('deltapq_tpu_torch.cli', "
+            "run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert 'deltapq_tpu' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "-engine" in out.stdout and "fused_dedup" in out.stdout
+    out = subprocess.run([sys.executable, "-m", "deltapq_tpu_torch.cli",
+                          "--help"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and "-dataset" in out.stdout, out.stderr

@@ -43,8 +43,10 @@ def test_edges_and_dfs_equal(kind, M, K, method):
 
 def test_unported_options_raise():
     codes = _codes("structured", 4, 32)
-    with pytest.raises(NotImplementedError):
-        find_edges_by_diff(codes, K=32, method=3)
+    # method 3 is ported (tests/test_torch_delta.py holds it to the JAX
+    # edges); a method the reference does not have is refused
+    with pytest.raises(ValueError):
+        find_edges_by_diff(codes, K=32, method=4)
     res = find_edges_by_diff(codes, K=32)
     # the table-driven build is ported: without codewords or tables it
     # refuses, as the JAX package's does
