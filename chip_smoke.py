@@ -144,7 +144,9 @@ Phases, each timed:
    code file), query_compressed auto (B1 bf16 + B2: distances bit-equal
    to xla) and xla (the level-wise query: rtol 1e-5, atol 1e-4),
    diff_index, diff_scan -engine pallas (its decode checked by the task,
-   distances bit-equal to xla), mAP and update; query_compressed once
+   distances bit-equal to xla), mAP and update, query -shards 4 (the
+   plain scan sharded over 4 shards of the card: distances bit-equal to
+   xla, ids up to audited ties); query_compressed once
    more as ``python3 -m deltapq_tpu_torch.cli`` in a fresh interpreter.
    Each path must launch its kernels (B6 for pallas, B4 for fused, B3 for
    fused_codes, B1 bf16 and B2 for fused_compressed and query_compressed
@@ -154,6 +156,36 @@ Phases, each timed:
    on engines built as the CLI builds them from its files, B=512 of its
    queries, timed; listed as ``<name>@cli`` (B1 bf16 on fused_compressed's
    lexsort order as ``stream_mins_bf16@cli_lexsort``).
+16. sharded on one card (runs after phase 13; no scaling is claimed:
+   the shards of one card run one after the other): on phase 3's rows
+   (DFS order) at B=512, top-10, ``ShardedCompressedEngine`` over meshes
+   of 1, 2 and 4 shards of ``cuda:0`` at bf16 and of 4 at int16, warmup
+   and five timed batches each (host wall, QPS, first-shot fraction),
+   every batch held to ``adc_query_topk`` (distances bit-equal, ids up
+   to audited ties), B5 launched once a shard a batch and B2 at least as
+   often; B5 bf16 and B2 on shard 0 of 4 against their plain versions
+   (``delta_mins_bf16@sharded``, ``rerank@sharded``, bound on the shard's
+   valid rows); then at S=4 ``sharded_query_plain`` (equal to
+   ``query_plain(engine="xla")``), ``pipelined_query`` over four batches
+   (each equal to ``sharded_query_plain``), ``sharded_query_decoded``
+   (equal to ``DecodedEngine``) and ``sharded_query_compressed`` (four
+   DeltaTrees from a spawn pool; allclose to ``adc_query_topk``);
+   ``make_dp_lloyd_step`` at S=4 on the learn pool against one
+   single-shard step (centres where the labels cannot differ,
+   distortion rtol 1e-5); ``init_distributed`` at world size 1 over NCCL
+   and the S=2 engine through the group's gather (same arrays as without
+   it); ``ChunkedCompressedEngine(mesh=S2)`` at ``chunk_rows=2**19``, its
+   ``save`` and ``from_saved(mmap=True, mesh=S2)``, both exact;
+   ``DedupCompressedEngine(mesh=S2)`` on phase 7's dup_heavy codes,
+   exact; ``parallel.dryrun.dryrun_multichip(4)``;
+17. serving (runs after phase 16): ``CoalescingServer`` over phase 5's
+   int16 stream engine, eight client threads each submitting eight waves
+   of 128 rows (from a pool of 10,000 queries drawn as in phase 5) at
+   once, ``max_wait_ms=2``, at ``wave_rows`` 512, 1024 and 2048: served
+   QPS, dispatches and rows a dispatch, every wave bit-equal to
+   ``adc_query_topk`` on its rows (ids up to audited ties); the engine's
+   direct QPS at B = 512, 1024 and 2048; ``query_coalesced`` over the
+   same waves equal to the per-wave queries.
 
 Every kernel's entry in the ``kernels`` line carries ``bound_ms``: the
 least time the card could take for the same work, the larger of the
@@ -170,9 +202,11 @@ import contextlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -206,8 +240,16 @@ from deltapq_tpu_torch.ops.fused import (DedupCompressedEngine,
 from deltapq_tpu_torch.ops.kmeans import pq_learn
 from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
                                                 decode_stream_tiles)
+from deltapq_tpu_torch.parallel import (ShardedCompressedEngine,
+                                        init_distributed, make_dp_lloyd_step,
+                                        make_mesh, pipelined_query,
+                                        shard_rows, sharded_query_decoded,
+                                        sharded_query_plain)
+from deltapq_tpu_torch.parallel.dryrun import dryrun_multichip
 from deltapq_tpu_torch.parallel.runtime import (ContinuousBatcher,
                                                 batch_iterator)
+from deltapq_tpu_torch.parallel.sharded_tree import sharded_query_compressed
+from deltapq_tpu_torch.serving import CoalescingServer, query_coalesced
 from deltapq_tpu_torch.synth import (WORKLOADS, gist_vectors,
                                      make_gist_workload, workload_vectors)
 from deltapq_tpu_torch.tree.build import find_edges_by_diff
@@ -419,6 +461,7 @@ def main() -> int:
         t = time.perf_counter()
         codes = pq_encode(cw, x).cpu().numpy()
         log(f"pq_encode: {time.perf_counter() - t:.1f} s")
+        learn = x[:TRAIN].copy()          # phase 16's Lloyd step
         del x
         n_distinct = len(np.unique(codes, axis=0))
         t = time.perf_counter()
@@ -570,7 +613,10 @@ def main() -> int:
                                       launches)
     phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
                       codes_db64, launches)
-    del eng
+    phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
+                    launches, codes_db, codes_db64, dup)
+    phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64)
+    del eng, learn
     phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
                        launches)
     phase10_big_n(dev, tag, cw, codes, rng, launches)
@@ -1471,6 +1517,13 @@ def phase15_cli(dev, tag, kernels, launches):
                 big_check(cw_t, q, codes_db, codes_db64, d, i, CLI_N)
                 log(f"query -engine {e}: distances bit-equal to "
                     f"adc_query_topk, ids equal up to audited ties")
+        (d, i), _, _ = run("query", "-shards", "4")
+        check(np.array_equal(d, res["xla"][0]),
+              "query -shards 4 distances != query -engine xla")
+        big_check(cw_t, q, codes_db, codes_db64, d, i, CLI_N)
+        log("query -shards 4 (the plain scan on 4 shards of the card): "
+            "distances bit-equal to -engine xla and adc_query_topk, ids "
+            "equal up to audited ties")
         batcher_depths(dev, tag, cw_t, codes, parts["query"])
         _, m, _ = run("recall")
         gt_ids, _ = read_groundtruth(os.path.join(
@@ -2058,6 +2111,328 @@ def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
         log(f"DecodedEngine.query over {n_small} rows bit-equal to "
             f"adc_query_topk; save + load on the card {secs:.1f} s, same "
             f"results")
+
+
+
+SHARDS = (1, 2, 4)     # phase 16: shards of the one card
+SERVE_WAVES, SERVE_ROWS, SERVE_POOL = 64, 128, 10_000   # phase 17
+SERVE_CLIENTS = 8
+SERVE_WAVE_ROWS = (512, 1024, 2048)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_batches(tag, label, e, rng, codes_db, codes_db64, n, key):
+    """Warmup, then N_BATCHES timed top-10 queries of B through a sharded
+    engine, the launch counts set to 0 just before the first and read
+    after the last; each batch then held to ``adc_query_topk`` (the
+    checks launch no kernel).  The scan kernel ``key`` must have run
+    once a non-empty shard a batch, B2 at least as often.  Returns the
+    counts."""
+    t = time.perf_counter()
+    e.warmup(batch_sizes=(B,), top_k=TOP_K)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    build.reset_launch_counts()
+    walls, fracs, got = [], [], []
+    for _ in range(N_BATCHES):
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, ids = e.query(q, top_k=TOP_K)
+        walls.append(time.perf_counter() - t)
+        fracs.append(e.last_exact_frac)
+        got.append((q, d, ids))
+    counts = build.launch_counts()
+    for q, d, ids in got:
+        big_check(e.shards[0][0].codewords, q, codes_db, codes_db64, d,
+                  ids, n)
+    live = sum(1 for s, _ in e.shards if s.n_valid)
+    check(counts[key] == live * N_BATCHES,
+          f"{label}: {key} launched {counts[key]} times, not "
+          f"{live * N_BATCHES}")
+    check(counts["rerank"] >= live * N_BATCHES,
+          f"{label}: rerank launched {counts['rerank']} times")
+    wall = float(np.mean(walls))
+    log(f"{tag} {label}: warmup {warm:.2f} s; {N_BATCHES} batches of "
+        f"B={B}, top-{TOP_K}: host wall {wall * 1e3:.4f} ms/batch -> "
+        f"{B / wall:.1f} QPS; certified first-shot (every shard) "
+        f"{float(np.mean(fracs)):.4f}; launches {key} {counts[key]}, rerank "
+        f"{counts['rerank']}; distances bit-equal to adc_query_topk, ids "
+        f"equal up to audited ties")
+    return counts
+
+
+def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
+                    launches, codes_db, codes_db64, dup):
+    """The multi-device layer on meshes of 1, 2 and 4 shards of the one
+    card: no scaling is claimed (the shards of one card run one after
+    the other)."""
+    with Phase("16 sharded on one card"):
+        cw_np = cw.cpu().numpy()
+        codes_scan = codes[order]
+        for S, prec in ((1, "bf16"), (2, "bf16"), (4, "bf16"),
+                        (4, "int16")):
+            mesh = make_mesh(S, device=dev)
+            t = time.perf_counter()
+            e = ShardedCompressedEngine(cw, codes_scan, mesh,
+                                        row_to_db=order, precision=prec)
+            log(f"ShardedCompressedEngine S={S} {prec}: slot tiles (S "
+                f"{e.tiles.S}, Cap {e.tiles.Cap}) + upload "
+                f"{time.perf_counter() - t:.1f} s, "
+                f"{e.bytes_per_vec():.4f} B/vec")
+            key = fk._launch_name("delta_mins", prec)
+            counts = sharded_batches(tag, f"sharded engine S={S} {prec}", e,
+                                     rng, codes_db, codes_db64, N, key)
+            if (S, prec) == (4, "bf16"):
+                launches["delta_mins_bf16@sharded"] = counts[key]
+                launches["rerank@sharded"] = counts["rerank"]
+                es = e.shards[0][0]
+                q = rng.normal(size=(B, D)).astype(np.float32)
+                mins, echo = scan_vs_plain(
+                    tag, "sharded B5 delta_mins bf16 (shard 0 of 4)", es, q,
+                    lambda qop, uq: fk.fused_delta_mins_ref(
+                        qop, es.cwbd, es.row_data, es.ovf, es.n_valid,
+                        es.tiles.S, u=uq, mode="bf16"),
+                    kernels, "delta_mins_bf16@sharded", bf16_tol)
+                rerank_vs_plain(tag, "sharded B2 rerank (shard 0 of 4)",
+                                "rerank@sharded", kernels, es.prepare(q)[0],
+                                mins, echo)
+                del mins, echo
+            del e
+
+        mesh4 = make_mesh(4, device=dev)
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        t = time.perf_counter()
+        d, ids = sharded_query_plain(cw, q, codes, top_k=TOP_K, mesh=mesh4)
+        t_sh = time.perf_counter() - t
+        dx, _ = query_plain_tensors(cw, q, codes_db[:N], top_k=TOP_K,
+                                    engine="xla", device=dev)
+        check(np.array_equal(d, dx.cpu().numpy()),
+              "sharded_query_plain distances != query_plain xla")
+        big_check(cw, q, codes_db, codes_db64, d, ids, N)
+        log(f"{tag} sharded_query_plain S=4 (B={B}): {t_sh:.3f} s host "
+            f"wall; distances bit-equal to query_plain(engine='xla') and "
+            f"adc_query_topk, ids up to audited ties")
+        qs = rng.normal(size=(4 * B, D)).astype(np.float32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pd, pi = pipelined_query(cw, qs, codes, mesh4, top_k=TOP_K,
+                                 batch_size=B)
+        t_pipe = time.perf_counter() - t
+        for b0 in range(0, 4 * B, B):
+            sd, si = sharded_query_plain(cw, qs[b0:b0 + B], codes,
+                                         top_k=TOP_K, mesh=mesh4)
+            check(np.array_equal(pd[b0:b0 + B], sd)
+                  and np.array_equal(pi[b0:b0 + B], si),
+                  "pipelined_query != sharded_query_plain on a batch")
+            big_check(cw, qs[b0:b0 + B], codes_db, codes_db64, sd, si, N)
+        log(f"{tag} pipelined_query S=4, 4 batches of {B}: {t_pipe:.3f} s "
+            f"host wall; each batch equal to sharded_query_plain, distances "
+            f"bit-equal to adc_query_topk")
+        t = time.perf_counter()
+        dd, di = sharded_query_decoded(cw_np, q, codes, top_k=TOP_K,
+                                       mesh=mesh4)
+        t_dec = time.perf_counter() - t
+        big_check(cw, q, codes_db, codes_db64, dd, di, N)
+        de, _ = DecodedEngine(cw_np, codes, device=dev).query(q, top_k=TOP_K)
+        check(np.array_equal(np.asarray(de), dd),
+              "sharded_query_decoded != DecodedEngine")
+        log(f"{tag} sharded_query_decoded S=4 bf16x2 (B={B}): {t_dec:.3f} s "
+            f"host wall with the decoded cache build; distances equal to "
+            f"DecodedEngine's and bit-equal to adc_query_topk")
+        t = time.perf_counter()
+        dc, ic = sharded_query_compressed(cw_np, codes, q, top_k=TOP_K,
+                                          mesh=mesh4, workers=4)
+        t_cmp = time.perf_counter() - t
+        dr, ir = adc_query_topk(adc_table(cw, torch.from_numpy(q).to(dev)),
+                                codes_db, N, TOP_K, 16384)
+        dr = dr.cpu().numpy()
+        check(np.allclose(dc, dr, rtol=1e-5, atol=1e-4),
+              "sharded_query_compressed out of tolerance")
+        log(f"{tag} sharded_query_compressed S=4 (four DeltaTrees on a "
+            f"spawn pool of 4, level-wise query, B={B}): {t_cmp:.2f} s host "
+            f"wall; max |d - adc_query_topk| {float(np.abs(dc - dr).max()):.3g}"
+            f", id agreement {float(np.mean(ic == ir.cpu().numpy())):.4f}")
+
+        M_, K_, Ds_ = cw_np.shape
+        x = torch.from_numpy(np.ascontiguousarray(
+            learn.reshape(len(learn), M_, Ds_).transpose(1, 0, 2)))
+        c4, dist4 = make_dp_lloyd_step(mesh4)(shard_rows(mesh4, x, dim=1),
+                                              cw)
+        c1, dist1 = make_dp_lloyd_step(make_mesh(1, device=dev))(
+            [x.to(dev)], cw)
+        # a row whose two nearest centres lie closer than the f32
+        # rounding of its distances (|x|^2 + |c|^2 scale) may take either
+        # label: the centres it touches are not compared
+        xd, cd = x.to(dev, torch.float64), cw.to(torch.float64)
+        d2 = ((xd[:, :, None, :] - cd[:, None]) ** 2).sum(-1)
+        two = torch.topk(d2, 2, dim=2, largest=False)
+        scale = (xd * xd).sum(-1) + (cd * cd).sum(-1).amax(1)[:, None]
+        near = (two.values[..., 1] - two.values[..., 0]) < 1e-5 * scale
+        keep = torch.ones((M_, K_), dtype=torch.bool, device=dev)
+        mm, rr = torch.nonzero(near, as_tuple=True)
+        keep[mm, two.indices[mm, rr, 0]] = False
+        keep[mm, two.indices[mm, rr, 1]] = False
+        del d2, xd, cd
+        check(torch.allclose(c4[keep], c1[keep], rtol=1e-5, atol=1e-4),
+              "DP Lloyd step S=4 != S=1 where the labels agree")
+        check(abs(float(dist4) - float(dist1)) <= 1e-5 * abs(float(dist1)),
+              "DP Lloyd distortion S=4 != S=1")
+        log(f"DP Lloyd step S=4 on the {len(learn)}-row learn pool: centres "
+            f"allclose to one single-shard step on {int(keep.sum())} of "
+            f"{M_ * K_} (the rest touched by rows whose labels f32 "
+            f"rounding may flip), distortion "
+            f"{float(dist4):.6g} / {float(dist1):.6g}")
+
+        port = free_port()
+        check(init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev) == 1,
+              "init_distributed: world size")
+        try:
+            mesh_g = make_mesh(2, device=dev)
+            check(mesh_g.group is not None, "the mesh has no group")
+            res = []
+            for m in (mesh_g, alone(mesh_g)):
+                e = ShardedCompressedEngine(cw, codes_scan, m,
+                                            row_to_db=order)
+                res.append(e.query(q, top_k=TOP_K))
+                del e
+            check(all(np.array_equal(a, b) for a, b in zip(*res)),
+                  "the group's gather changed the S=2 results")
+        finally:
+            torch.distributed.destroy_process_group()
+        big_check(cw, q, codes_db, codes_db64, *res[0], N)
+        log(f"init_distributed(tcp://127.0.0.1:{port}, world 1, NCCL): the "
+            f"S=2 sharded engine through the group's all_gather gives the "
+            f"same arrays as without the group; group destroyed")
+
+        mesh2 = make_mesh(2, device=dev)
+        t = time.perf_counter()
+        ch = ChunkedCompressedEngine(cw_np, codes_scan, row_to_db=order,
+                                     chunk_rows=2 ** 19, mesh=mesh2)
+        log(f"ChunkedCompressedEngine(mesh=S2, chunk_rows=2**19): "
+            f"{len(ch.chunks)} chunks x 2 shards, "
+            f"{time.perf_counter() - t:.1f} s")
+        build.reset_launch_counts()
+        d, ids = ch.query(q, top_k=TOP_K)
+        big_check(cw, q, codes_db, codes_db64, d, ids, N)
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as path:
+            t = time.perf_counter()
+            ch.save(path)
+            back = ChunkedCompressedEngine.from_saved(path, mmap=True,
+                                                      mesh=mesh2)
+            t_io = time.perf_counter() - t
+            d2, i2 = back.query(q, top_k=TOP_K)
+        check(back.precision == ch.precision
+              and all(c.precision == ch.precision for c in back.chunks),
+              "from_saved(mesh=) did not keep the saved precision")
+        big_check(cw, q, codes_db, codes_db64, d2, i2, N)
+        counts = build.launch_counts()
+        check(counts["delta_mins_int8"] == 2 * len(back.chunks) * 2,
+              f"chunked mesh engine launches {counts}")
+        log(f"{tag} chunked engine on S=2 ({ch.precision}): exact; save + "
+            f"from_saved(mmap=True, mesh=S2) {t_io:.1f} s, exact; "
+            f"first-shot {np.round(back.last_exact_fracs, 4).tolist()}")
+        del ch, back
+
+        cw_d = torch.from_numpy(dup["cw"]).to(dev)
+        cdb = torch.from_numpy(pad_codes(dup["codes"], 16384)).to(dev)
+        de = DedupCompressedEngine(dup["cw"], dup["codes"], mesh=mesh2)
+        for _ in range(2):
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            d, ids = de.query(q, top_k=TOP_K)
+            big_check(cw_d, q, cdb, None, d, ids, N)
+        log(f"DedupCompressedEngine(mesh=S2) on the dup_heavy codes "
+            f"({de.n_unique} distinct, {de.engine.precision}): 2 batches "
+            f"exact")
+        del de, cdb
+        dryrun_multichip(4, device=dev)
+
+
+def alone(mesh):
+    """The same shards as ``mesh``, in this process alone (no group)."""
+    return type(mesh)(devices=mesh.devices, axis_names=mesh.axis_names)
+
+
+def phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64):
+    """``CoalescingServer`` over phase 5's int16 stream engine: eight
+    client threads each submit eight waves of 128 rows at once, at three
+    dispatch widths; every wave held to ``adc_query_topk``; then the
+    engine's direct QPS at B = 512, 1024 and 2048 and ``query_coalesced``
+    over the same waves."""
+    with Phase("17 serving"):
+        pool = rng.normal(size=(SERVE_POOL, D)).astype(np.float32)
+        waves = [pool[rng.integers(0, SERVE_POOL, SERVE_ROWS)]
+                 for _ in range(SERVE_WAVES)]
+        per_client = SERVE_WAVES // SERVE_CLIENTS
+
+        def check_wave(w, d, ids):
+            table = adc_table(cw, torch.from_numpy(w).to(dev))
+            check_batch(table, codes_db, codes_db64,
+                        torch.from_numpy(d).to(dev),
+                        torch.from_numpy(ids).to(dev))
+
+        for rows in SERVE_WAVE_ROWS:
+            eng.query(pool[:rows], top_k=TOP_K)        # this width, warm
+            out, errs = [None] * SERVE_WAVES, []
+
+            def client(c):
+                try:
+                    futs = [(w, srv.submit(waves[w])) for w in
+                            range(c * per_client, (c + 1) * per_client)]
+                    for w, f in futs:
+                        out[w] = f.result(timeout=120)
+                except Exception as e:  # reported below
+                    errs.append(e)
+
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with CoalescingServer(eng, wave_rows=rows, max_wait_ms=2.0,
+                                  top_k=TOP_K) as srv:
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(SERVE_CLIENTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=300)
+            wall = time.perf_counter() - t
+            check(not errs and all(o is not None for o in out),
+                  f"serving wave_rows={rows}: {errs[:1]}")
+            for w, (d, ids) in zip(waves, out):
+                check_wave(w, d, ids)
+            n_rows = SERVE_WAVES * SERVE_ROWS
+            log(f"{tag} CoalescingServer wave_rows={rows}, max_wait_ms=2, "
+                f"{SERVE_CLIENTS} clients x {per_client} waves of "
+                f"{SERVE_ROWS}: {n_rows / wall:.1f} served QPS ({wall:.4f} "
+                f"s wall), {srv.dispatches} dispatches, "
+                f"{srv.rows_served / max(srv.dispatches, 1):.1f} rows a "
+                f"dispatch; every wave bit-equal to adc_query_topk, ids up "
+                f"to audited ties")
+        for b in SERVE_WAVE_ROWS:
+            qb = pool[:b]
+            eng.query(qb, top_k=TOP_K)
+            walls = []
+            for i in range(N_BATCHES):
+                qb = pool[(i + 1) * b % (SERVE_POOL - b):][:b]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.query(qb, top_k=TOP_K)
+                walls.append(time.perf_counter() - t)
+            wall = float(np.mean(walls))
+            log(f"{tag} int16 stream engine direct, B={b}: host wall "
+                f"{wall * 1e3:.4f} ms/batch -> {b / wall:.1f} QPS")
+        got = query_coalesced(eng, waves, top_k=TOP_K, wave_rows=1024)
+        for w, (d, ids) in zip(waves, got):
+            dw, _ = eng.query(w, top_k=TOP_K)
+            check(np.array_equal(d, dw), "query_coalesced != per-wave query")
+            check_wave(w, d, ids)
+        log(f"query_coalesced over the {SERVE_WAVES} waves (wave_rows "
+            f"1024): distances equal to the per-wave queries, ids up to "
+            f"audited ties")
 
 
 def big_check(cw, q, codes_db, codes_db64, d, ids, n):

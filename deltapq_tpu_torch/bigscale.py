@@ -20,9 +20,9 @@ per-batch scratch:
 * ``ChunkedCompressedEngine`` -- one ``FusedCompressedEngine`` per row
   chunk, resident on the device or uploaded chunk by chunk per query
   batch from host (or memory-mapped) stream tiles; per-chunk exact
-  top-k merged on the host.
-
-The multi-GPU forms (``mesh=``) are not ported (ROADMAP A9).
+  top-k merged on the host.  With ``mesh=`` each chunk is a
+  ``parallel.fused_sharded.ShardedCompressedEngine`` whose slot tiles
+  split over the mesh's shards (chunks still run one after the other).
 """
 
 from __future__ import annotations
@@ -38,15 +38,11 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .ops.delta_tiles import decode_delta_tiles
 from .ops.encode import pq_encode
 from .ops.fused import FusedCompressedEngine, _np_f32
-from .ops.stream_tiles import StreamTiles, build_stream_tiles
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the sharded (mesh=) forms are not "
-                                  "ported (ROADMAP A9)")
+from .ops.stream_tiles import (StreamTiles, build_stream_tiles,
+                               decode_stream_tiles)
 
 
 def encode_stream(codewords, chunks: Iterable[np.ndarray]) -> np.ndarray:
@@ -183,6 +179,14 @@ class BigCompressedIndex:
         return self.engine.query(queries, top_k=top_k)
 
 
+def _sharded_chunk(codewords, codes_scan, ids, mesh, axis, precision):
+    from .parallel.fused_sharded import ShardedCompressedEngine
+
+    return ShardedCompressedEngine(codewords, codes_scan, mesh,
+                                   row_to_db=ids, axis=axis,
+                                   precision=precision)
+
+
 class ChunkedCompressedEngine:
     """Compressed tier split into row chunks: the out-of-core path.
 
@@ -193,6 +197,10 @@ class ChunkedCompressedEngine:
     Each chunk's top-k is exact (its own certificate, ladder and
     terminal scan), so the merged top-k of the concatenated per-chunk
     results equals the plain scan's up to equal-distance ties.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) each chunk's rows split
+    over the mesh's shards (``ShardedCompressedEngine`` at ``precision``,
+    exact as every chunk is); the chunks are then resident on the mesh.
 
     After each ``query``: ``last_exact_fracs`` holds each chunk's
     certified first-shot fraction, ``last_upload_s`` the host seconds
@@ -205,14 +213,15 @@ class ChunkedCompressedEngine:
     def __init__(self, codewords, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
                  precision: str = "int8", chunk_rows: int = CHUNK_ROWS,
-                 resident: bool = True, mesh=None, device=None):
-        _no_mesh(mesh)
+                 resident: bool = True, mesh=None, shard_axis: str = "shard",
+                 device=None):
         n = len(codes_scan)
         chunk_rows = max(1024, (chunk_rows // 1024) * 1024)
         self.codewords = _np_f32(codewords)
         self.precision = precision
-        self.resident = resident
-        self.device = resolve_device(device)
+        self.resident = resident or mesh is not None
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.chunks: List = []
         self._host: List = []
         for lo in range(0, n, chunk_rows):
@@ -220,7 +229,11 @@ class ChunkedCompressedEngine:
             ids = (np.asarray(row_to_db)[lo:hi]
                    if row_to_db is not None
                    else np.arange(lo, hi, dtype=np.int64))
-            if resident:
+            if mesh is not None:
+                self.chunks.append(_sharded_chunk(
+                    self.codewords, codes_scan[lo:hi], ids, mesh,
+                    shard_axis, precision))
+            elif resident:
                 self.chunks.append(FusedCompressedEngine(
                     self.codewords, codes_scan[lo:hi], row_to_db=ids,
                     precision=precision, device=self.device))
@@ -250,12 +263,14 @@ class ChunkedCompressedEngine:
         items = self.chunks if self.resident else self._host
         base = 0
         for i, item in enumerate(items):
-            st = item.tiles if self.resident else item[0]
-            if self.resident:
-                ids = (item.row_to_db.cpu().numpy()
-                       if item.row_to_db is not None else None)
-            else:
-                ids = item[1]
+            st, ids = ((item.tiles, item.row_to_db) if self.resident
+                       else item)
+            if not isinstance(st, StreamTiles):
+                # a sharded chunk scans slot tiles: its file holds the
+                # same rows as stream tiles
+                st = build_stream_tiles(decode_delta_tiles(st))
+            if isinstance(ids, torch.Tensor):
+                ids = ids.cpu().numpy()
             ids = (np.asarray(ids) if ids is not None
                    else np.arange(base, base + st.n_valid, dtype=np.int64))
             base += st.n_valid
@@ -269,26 +284,32 @@ class ChunkedCompressedEngine:
 
     @classmethod
     def from_saved(cls, path: str, mmap: bool = True,
-                   resident: bool = False, mesh=None, device=None
+                   resident: bool = False, mesh=None,
+                   shard_axis: str = "shard", device=None
                    ) -> "ChunkedCompressedEngine":
-        """Reopen a saved chunked engine.  ``mmap=True`` with
-        ``resident=False`` is the beyond-host-RAM mode: tiles stay on
-        disk and each query batch streams them chunk by chunk through
-        the device."""
-        _no_mesh(mesh)
+        """Reopen a saved chunked engine at its saved precision.
+        ``mmap=True`` with ``resident=False`` is the beyond-host-RAM
+        mode: tiles stay on disk and each query batch streams them chunk
+        by chunk through the device.  ``mesh``: each chunk's rows split
+        over the mesh's shards, resident there."""
         with open(os.path.join(path, "header.json")) as f:
             h = json.load(f)
         self = cls.__new__(cls)
         self.codewords = np.load(os.path.join(path, "codewords.npy"))
         self.precision = h["precision"]
-        self.resident = resident
-        self.device = resolve_device(device)
+        self.resident = resident or mesh is not None
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.chunks, self._host = [], []
         for i in range(int(h["n_chunks"])):
             cdir = os.path.join(path, f"chunk_{i:04d}")
             st = StreamTiles.load(cdir, mmap=mmap)
             ids = np.fromfile(os.path.join(cdir, "ids.i64"), np.int64)
-            if resident:
+            if mesh is not None:
+                self.chunks.append(_sharded_chunk(
+                    self.codewords, decode_stream_tiles(st), ids, mesh,
+                    shard_axis, self.precision))
+            elif resident:
                 self.chunks.append(FusedCompressedEngine.from_tiles(
                     self.codewords, st, row_to_db=ids,
                     precision=self.precision, device=self.device))

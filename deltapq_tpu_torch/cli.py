@@ -11,8 +11,9 @@ Where it differs from the JAX CLI:
 
 - ``learn`` seeds a ``torch.Generator``, not a ``jax.random`` key, so
   the codewords differ from the JAX package's for the same seed;
-- ``-shards N`` with N > 0 raises ``NotImplementedError``: the sharded
-  engines are not ported (ROADMAP A5);
+- ``-shards N`` shards the plain scan over ``make_mesh(N)``: N shards
+  placed round-robin over the cards (on one card, N shards of it), where
+  the JAX CLI takes the first N devices;
 - ``query_compressed`` takes the fused compressed engine (bf16, as the
   JAX ``from_tree`` default) for ``auto`` and ``fused_compressed`` on a
   CUDA device, where the JAX CLI takes it on a TPU;
@@ -83,8 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-batch", type=int, default=128,
                    help="query batch size per device dispatch")
     p.add_argument("-shards", type=int, default=0,
-                   help="shard over this many devices (0 = single device; "
-                        "not ported: N > 0 raises)")
+                   help="shard over this many devices (0 = single device)")
     p.add_argument("-metrics_out", default=None,
                    help="write stage metrics JSON to this path")
     p.add_argument("-rand_sample", type=int, default=0,
@@ -311,16 +311,18 @@ def _fused_engine(args, cw, codes):
 def task_query(args, metrics: Metrics):
     """Plain ADC query (pqtree -task query / deltapq -task pqscan)."""
     from .ops.adc import query_plain
+    from .parallel import make_mesh, sharded_query_plain
 
-    if args.shards:
-        raise NotImplementedError(
-            "-shards: the sharded engines are not ported yet (ROADMAP A5)")
     cw = _codewords(args)
     codes = _load_codes(args)
     q = _load_queries(args)
     t0 = time.perf_counter()
     with metrics.stage("query"):
-        if args.engine == "decoded":
+        if args.shards:
+            d, i = sharded_query_plain(
+                cw, q, codes, top_k=args.topk,
+                mesh=make_mesh(args.shards, device=args.device))
+        elif args.engine == "decoded":
             from .ops.decoded import DecodedEngine
             eng = DecodedEngine(cw, codes, device=args.device)
             d, i = eng.query(q, top_k=args.topk)

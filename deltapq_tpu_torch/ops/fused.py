@@ -34,9 +34,9 @@ Each batch of the fused tiers:
 
 Every precision of the JAX package (int8, int16, bf16) is ported, for
 M <= 16 (the GIST shape M=16, Ds=60 runs with two mask planes and the
-grouped query layout of ``fused_kernels.group_geometry``); not ported
-yet: the sharded (``mesh=``) inner engine of the dedup tier (ROADMAP
-A9).  ``bigscale.py`` holds the chunked engine.
+grouped query layout of ``fused_kernels.group_geometry``).
+``bigscale.py`` holds the chunked engine, ``parallel/fused_sharded.py``
+the sharded one.
 """
 
 from __future__ import annotations
@@ -147,7 +147,8 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     ``engine.ns_hint`` (per-index calibration), else
     ``_default_n_sub``; ``ns_hint`` doubles when the first-shot rate
     collapses.  The cap rung's rows shrink as B grows (its [B, S]
-    intermediates).  Returns (d, rows, first-shot certified fraction)."""
+    intermediates).  Returns (d, rows, ok1): ``ok1`` [B] the first-shot
+    certificate."""
     ns_total = mins_nb.shape[0]
     pool = _pool_for(ns_total)
     n_units = -(-ns_total // pool)
@@ -168,7 +169,7 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     if (engine is not None and n_sub is None
             and first_frac < ADAPT_GROW_BELOW and ns < ns_cap):
         engine.ns_hint = min(ns * 2, ns_cap)
-    return d, rows, first_frac
+    return d, rows, ok1
 
 
 def _int8_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
@@ -333,10 +334,10 @@ class _FusedEngine:
         """Stage 3: selection, rerank, ladder, terminal scan and the id
         map.  Returns (dists [b, top_k], ids [b, top_k]) on the device."""
         q2, err_r, scale2 = cert
-        d, rows, frac = _select_with_escalation(
+        d, rows, ok1 = _select_with_escalation(
             mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
             err_r=err_r, scale2=scale2, engine=self)
-        self.last_exact_frac = frac
+        self.last_exact_frac = float(ok1.to(torch.float32).mean())
         if self.row_to_db is not None:
             mapped = self.row_to_db[torch.clamp(rows, 0, self.n_valid - 1)]
             rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
@@ -650,8 +651,10 @@ class DedupCompressedEngine:
     as in the JAX package), and above ``chunked_min_rows`` distinct
     codes that engine is a ``bigscale.ChunkedCompressedEngine`` with
     resident chunks.  The row expansion (sorted permutation + CSR
-    counts) lives on the host.  The sharded inner engine (the JAX
-    package's ``mesh=``) is not ported (ROADMAP A9).
+    counts) lives on the host.  With ``mesh`` (a ``parallel.mesh.Mesh``)
+    the distinct codes split over the mesh's shards: the inner engine is
+    a ``ShardedCompressedEngine`` at ``precision``, built at once, and
+    no query takes the exact-all branch.
     """
 
     EXACT_ALL_MAX_ROWS = 65536
@@ -659,10 +662,12 @@ class DedupCompressedEngine:
 
     def __init__(self, codewords, codes_db: np.ndarray,
                  precision: str = "int8", fmt: str = "stream",
-                 chunked_min_rows: int = CHUNKED_MIN_ROWS, device=None):
+                 chunked_min_rows: int = CHUNKED_MIN_ROWS,
+                 mesh=None, shard_axis: str = "shard", device=None):
         codes_db = np.asarray(codes_db)
         cwf = _np_f32(codewords)
-        self.device = resolve_device(device)
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.codewords = torch.from_numpy(cwf).to(self.device)
         self.M, _, self.Ds = cwf.shape
         self.D = self.M * self.Ds
@@ -679,7 +684,13 @@ class DedupCompressedEngine:
         self._unique_codes = sc[new]
         self.engine = None
         self._codes_pad = None
-        if self.n_unique <= self.EXACT_ALL_MAX_ROWS:
+        if mesh is not None:
+            from ..parallel.fused_sharded import ShardedCompressedEngine
+
+            self.engine = ShardedCompressedEngine(
+                cwf, self._unique_codes, mesh, axis=shard_axis,
+                precision=precision)
+        elif self.n_unique <= self.EXACT_ALL_MAX_ROWS:
             n_pad = -(-self.n_unique // 1024) * 1024
             self._codes_pad = _codes_tensor(
                 self._unique_codes, n_pad, cwf.shape[1]).to(self.device)

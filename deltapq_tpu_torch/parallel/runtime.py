@@ -1,9 +1,11 @@
-"""Continuous query batching.
+"""Multi-process runtime and continuous query batching.
 
-Counterpart of ``ContinuousBatcher`` and ``batch_iterator`` in
-``deltapq_tpu/parallel/runtime.py`` (``init_distributed`` waits for the
-multi-GPU port, ROADMAP A5).  No reference counterpart: the reference is
-a single-process OpenMP program.
+Counterpart of ``deltapq_tpu/parallel/runtime.py``.  No reference
+counterpart: the reference is a single-process OpenMP program.
+
+``init_distributed`` joins processes with ``torch.distributed`` (NCCL
+for the cards, gloo for the CPU); after it, ``mesh.make_mesh`` spans
+every process.
 
 ``ContinuousBatcher`` keeps a bounded window of batches in flight
 (default 2 = double buffering).  A query function that returns tensors
@@ -18,10 +20,45 @@ its batch keeps it ahead of the next batch on the stream: a plain
 from __future__ import annotations
 
 import collections
-from typing import Callable, Iterable, Iterator, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     device=None) -> int:
+    """Join this process to a ``torch.distributed`` default group;
+    returns the world size.
+
+    With no arguments nothing is joined: the size of an already
+    initialized default group, else 1.  With them, ``init_process_group``
+    over ``tcp://{coordinator_address}`` (``host:port``) with
+    ``num_processes`` ranks, this one ``process_id``; the backend is NCCL
+    for a CUDA ``device`` (None: the card) and gloo for the CPU.  A
+    missing NCCL raises: no other backend takes its place."""
+    if coordinator_address is None and num_processes is None:
+        return (dist.get_world_size()
+                if dist.is_available() and dist.is_initialized() else 1)
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        raise ValueError("init_distributed takes coordinator_address, "
+                         "num_processes and process_id together")
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    if not dist.is_available() or (
+            backend == "nccl" and not dist.is_nccl_available()):
+        raise RuntimeError(f"torch.distributed has no {backend} backend "
+                           f"here")
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes),
+                            rank=int(process_id))
+    return dist.get_world_size()
 
 
 def _to_host_async(out):

@@ -191,8 +191,15 @@ def test_chunked_from_saved_mmap_across_packages(data, tmp_path):
             str(tmp_path / "jax"), mmap=True, resident=resident, device=CPU)
         d2, i2 = b2.query(data["queries"], top_k=TOPK)
         assert np.array_equal(d2, d0) and np.array_equal(i2, i0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        pbig.ChunkedCompressedEngine(cw, codes, mesh=object(), device=CPU)
+    # the mesh form reopens the same directory, exact at its precision
+    from deltapq_tpu_torch.parallel import make_mesh
+
+    b3 = pbig.ChunkedCompressedEngine.from_saved(
+        str(tmp_path / "jax"), mmap=True, mesh=make_mesh(2, device=CPU))
+    assert all(c.precision == "int8" for c in b3.chunks)
+    d3, i3 = b3.query(data["queries"], top_k=TOPK)
+    assert np.array_equal(d3, d0)
+    _check(data, d3, i3)
 
 
 def test_dedup_int8_inner_engine_above_exact_all(data, monkeypatch):

@@ -274,10 +274,26 @@ def test_force_0_skips_a_second_build(runs, capsys):
 
 
 def test_shards_raise(runs):
+    """``-shards N`` raises no more: the plain scan sharded over N CPU
+    shards gives ``-engine xla``'s distances, ids up to ties."""
     _, pdir, _ = runs
-    with pytest.raises(NotImplementedError, match="A5"):
-        pcli.main(["-dataset", pdir, "-task", "query", *COMMON, "-shards",
-                   "2"], device=CPU)
+    with contextlib.redirect_stdout(io.StringIO()):
+        xd, xi = pcli.task_query(_args(pcli, pdir, "query", "-topk", "10",
+                                       "-engine", "xla",
+                                       device=torch.device(CPU)), Metrics())
+        for shards in ("2", "4"):
+            d, i = pcli.task_query(_args(pcli, pdir, "query", "-topk", "10",
+                                         "-shards", shards,
+                                         device=torch.device(CPU)),
+                                   Metrics())
+            assert np.array_equal(d, xd)
+            cw = j_read_codewords(os.path.join(pdir, f"M{M}K{K}codewords.txt"))
+            q = read_vecs(os.path.join(pdir, "query.fvecs"))
+            table = ((q.reshape(len(q), M, 1, DS) - cw[None]) ** 2).sum(3)
+            codes, _ = read_codes(os.path.join(pdir, CODES), M=M, K=K)
+            assert_ids_up_to_ties(table, codes, i, xi, 10)
+    assert pcli.main(["-dataset", pdir, "-task", "query", *COMMON, "-N",
+                      str(N_BASE), "-shards", "2"], device=CPU) == 0
 
 
 def test_unknown_task_is_refused(runs, capsys):

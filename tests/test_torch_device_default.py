@@ -14,6 +14,9 @@ from deltapq_tpu_torch import (bench_gist, bigscale, cli, convert, index,
 from deltapq_tpu_torch.eval import groundtruth
 from deltapq_tpu_torch.ops import (adc, adc_kernels, decoded, delta, fused,
                                    kmeans)
+from deltapq_tpu_torch.parallel import (dryrun, fused_sharded, mesh,
+                                        pipeline, runtime, sharded,
+                                        sharded_tree)
 
 ENTRY_POINTS = [
     index.DeltaPQIndex.__init__, index.DeltaPQIndex.build,
@@ -36,6 +39,11 @@ ENTRY_POINTS = [
     groundtruth.exact_topk, groundtruth.groundtruth_from_file,
     cli.main, delta.query_compressed, delta.make_compressed_query_fn,
     adc.query_plain_tensors,
+    mesh.make_mesh, runtime.init_distributed,
+    fused_sharded.ShardedCompressedEngine.__init__,
+    sharded.sharded_query_plain, sharded.sharded_query_decoded,
+    pipeline.pipelined_query, sharded_tree.sharded_query_compressed,
+    dryrun.dryrun_multichip,
 ]
 
 

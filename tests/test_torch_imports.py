@@ -46,6 +46,12 @@ def test_no_jax_in_port_sources():
     "deltapq_tpu_torch.io.groundtruth", "deltapq_tpu_torch.io.artifacts",
     "deltapq_tpu_torch.profiling", "deltapq_tpu_torch.ops.delta",
     "deltapq_tpu_torch.parallel", "deltapq_tpu_torch.parallel.runtime",
+    "deltapq_tpu_torch.parallel.mesh", "deltapq_tpu_torch.parallel.sharded",
+    "deltapq_tpu_torch.parallel.fused_sharded",
+    "deltapq_tpu_torch.parallel.pipeline",
+    "deltapq_tpu_torch.parallel.sharded_tree",
+    "deltapq_tpu_torch.parallel.dryrun",
+    "deltapq_tpu_torch.parallel.multicard", "deltapq_tpu_torch.serving",
     "deltapq_tpu_torch.tree.with_id", "deltapq_tpu_torch.tree.traverse",
     "deltapq_tpu_torch.tree.serialize", "deltapq_tpu_torch.tree.build"])
 def test_module_alone_imports_without_jax(module):
