@@ -179,13 +179,17 @@ Phases, each timed:
    ``DedupCompressedEngine(mesh=S2)`` on phase 7's dup_heavy codes,
    exact; ``parallel.dryrun.dryrun_multichip(4)``;
 17. serving (runs after phase 16): ``CoalescingServer`` over phase 5's
-   int16 stream engine, eight client threads each submitting eight waves
-   of 128 rows (from a pool of 10,000 queries drawn as in phase 5) at
-   once, ``max_wait_ms=2``, at ``wave_rows`` 512, 1024 and 2048: served
-   QPS, dispatches and rows a dispatch, every wave bit-equal to
-   ``adc_query_topk`` on its rows (ids up to audited ties); the engine's
-   direct QPS at B = 512, 1024 and 2048; ``query_coalesced`` over the
-   same waves equal to the per-wave queries.
+   int16 stream engine at ``wave_rows`` 512, 1024 and 2048,
+   ``max_wait_ms=2``.  At each width: the engine's direct QPS over 256
+   back-to-back batches of that width; then a started server, warmed by
+   four dispatches' worth of waves, serves 256 dispatches' worth of
+   128-row waves (rows drawn from a pool of 10,000 queries drawn as in
+   phase 5) from eight client threads, each keeping four waves in
+   flight: served QPS over that window (first submit to last result),
+   dispatches and rows a dispatch, wave latency p50 / p99, and served /
+   direct.  Every served wave is held to ``adc_query_topk`` on its rows
+   (distances bit-equal, ids up to audited ties); ``query_coalesced``
+   over 64 waves equals the per-wave queries.
 
 Every kernel's entry in the ``kernels`` line carries ``bound_ms``: the
 least time the card could take for the same work, the larger of the
@@ -198,6 +202,7 @@ line.  Its last two lines are a JSON object of per-kernel measurements
 and ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -2115,9 +2120,11 @@ def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
 
 
 SHARDS = (1, 2, 4)     # phase 16: shards of the one card
-SERVE_WAVES, SERVE_ROWS, SERVE_POOL = 64, 128, 10_000   # phase 17
-SERVE_CLIENTS = 8
+SERVE_ROWS, SERVE_POOL = 128, 10_000    # phase 17: rows a wave, the pool
+SERVE_CLIENTS, SERVE_DEPTH = 8, 4       # client threads, waves in flight
 SERVE_WAVE_ROWS = (512, 1024, 2048)
+SERVE_DISPATCHES = 256                  # the timed window, in dispatches
+SERVE_COALESCED = 64                    # waves through query_coalesced
 
 
 def free_port():
@@ -2358,81 +2365,127 @@ def alone(mesh):
     return type(mesh)(devices=mesh.devices, axis_names=mesh.axis_names)
 
 
+def serve_window(srv, pool, idx):
+    """``SERVE_CLIENTS`` client threads push the waves ``pool[idx[w]]``
+    (round-robin over the clients) through the started server ``srv``,
+    each client keeping ``SERVE_DEPTH`` waves in flight: it submits the
+    next as soon as its oldest resolves.  Returns the results in wave
+    order, the host clock at each wave's submit and at its resolution
+    (stamped by the server's thread: read them after it has stopped),
+    and the window's host wall (first submit to last result)."""
+    n = len(idx)
+    out, errs = [None] * n, []
+    sent, done = np.zeros(n), np.zeros(n)
+    go = threading.Barrier(SERVE_CLIENTS + 1)
+
+    def stamp(w):
+        return lambda _: done.__setitem__(w, time.perf_counter())
+
+    def client(c):
+        try:
+            go.wait()
+            live = collections.deque()
+            for w in range(c, n, SERVE_CLIENTS):
+                if len(live) == SERVE_DEPTH:
+                    v, f = live.popleft()
+                    out[v] = f.result(timeout=120)
+                sent[w] = time.perf_counter()
+                f = srv.submit(pool[idx[w]])
+                f.add_done_callback(stamp(w))
+                live.append((w, f))
+            for v, f in live:
+                out[v] = f.result(timeout=120)
+        except Exception as e:  # reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    go.wait()
+    t = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    check(not errs and all(o is not None for o in out),
+          f"serving: {errs[:1]}")
+    return out, (sent, done), wall
+
+
 def phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64):
-    """``CoalescingServer`` over phase 5's int16 stream engine: eight
-    client threads each submit eight waves of 128 rows at once, at three
-    dispatch widths; every wave held to ``adc_query_topk``; then the
-    engine's direct QPS at B = 512, 1024 and 2048 and ``query_coalesced``
-    over the same waves."""
+    """``CoalescingServer`` over phase 5's int16 stream engine at three
+    dispatch widths: the engine's direct QPS over ``SERVE_DISPATCHES``
+    batches, then a started, warm server over ``SERVE_DISPATCHES``
+    dispatches' worth of waves from closed-loop clients; every served
+    wave held to ``adc_query_topk``; then ``query_coalesced``."""
     with Phase("17 serving"):
         pool = rng.normal(size=(SERVE_POOL, D)).astype(np.float32)
-        waves = [pool[rng.integers(0, SERVE_POOL, SERVE_ROWS)]
-                 for _ in range(SERVE_WAVES)]
-        per_client = SERVE_WAVES // SERVE_CLIENTS
+        # each pool row's table and exact top-k, in waves of SERVE_ROWS
+        tables, refs = [], []
+        for r0 in range(0, SERVE_POOL, SERVE_ROWS):
+            tables.append(adc_table(cw, torch.from_numpy(
+                pool[r0:r0 + SERVE_ROWS]).to(dev)))
+            refs.append(adc_query_topk(tables[-1], codes_db, N, TOP_K,
+                                       16384))
+        table_pool = torch.cat(tables)
+        ref_d = torch.cat([r[0] for r in refs])
+        ref_i = torch.cat([r[1] for r in refs])
+        del tables, refs
 
-        def check_wave(w, d, ids):
-            table = adc_table(cw, torch.from_numpy(w).to(dev))
-            check_batch(table, codes_db, codes_db64,
-                        torch.from_numpy(d).to(dev),
-                        torch.from_numpy(ids).to(dev))
+        def check_waves(idx, out):
+            for w0 in range(0, len(idx), 64):
+                rows = torch.from_numpy(idx[w0:w0 + 64].reshape(-1)).to(dev)
+                d = np.concatenate([o[0] for o in out[w0:w0 + 64]])
+                ids = np.concatenate([o[1] for o in out[w0:w0 + 64]])
+                check_batch(table_pool[rows], codes_db, codes_db64,
+                            torch.from_numpy(d).to(dev),
+                            torch.from_numpy(ids).to(dev),
+                            ref=(ref_d[rows], ref_i[rows]))
 
         for rows in SERVE_WAVE_ROWS:
-            eng.query(pool[:rows], top_k=TOP_K)        # this width, warm
-            out, errs = [None] * SERVE_WAVES, []
-
-            def client(c):
-                try:
-                    futs = [(w, srv.submit(waves[w])) for w in
-                            range(c * per_client, (c + 1) * per_client)]
-                    for w, f in futs:
-                        out[w] = f.result(timeout=120)
-                except Exception as e:  # reported below
-                    errs.append(e)
-
+            batches = [pool[rng.integers(0, SERVE_POOL, rows)]
+                       for _ in range(SERVE_DISPATCHES)]
+            eng.query(batches[0], top_k=TOP_K)         # this width, warm
             torch.cuda.synchronize()
             t = time.perf_counter()
+            for qb in batches:
+                eng.query(qb, top_k=TOP_K)
+            direct = SERVE_DISPATCHES * rows / (time.perf_counter() - t)
+            del batches
+            per = rows // SERVE_ROWS                  # waves a dispatch
+            idx = rng.integers(0, SERVE_POOL,
+                               (SERVE_DISPATCHES * per, SERVE_ROWS))
             with CoalescingServer(eng, wave_rows=rows, max_wait_ms=2.0,
                                   top_k=TOP_K) as srv:
-                threads = [threading.Thread(target=client, args=(c,))
-                           for c in range(SERVE_CLIENTS)]
-                for th in threads:
-                    th.start()
-                for th in threads:
-                    th.join(timeout=300)
-            wall = time.perf_counter() - t
-            check(not errs and all(o is not None for o in out),
-                  f"serving wave_rows={rows}: {errs[:1]}")
-            for w, (d, ids) in zip(waves, out):
-                check_wave(w, d, ids)
-            n_rows = SERVE_WAVES * SERVE_ROWS
+                warm, _, _ = serve_window(srv, pool, idx[:4 * per])
+                k0, r0 = srv.dispatches, srv.rows_served
+                out, (sent, done), wall = serve_window(srv, pool, idx)
+                k, r = srv.dispatches - k0, srv.rows_served - r0
+            lat = done - sent
+            check(r == idx.size, f"served {r} rows, not {idx.size}")
+            check_waves(idx[:4 * per], warm)
+            check_waves(idx, out)
+            served = idx.size / wall
             log(f"{tag} CoalescingServer wave_rows={rows}, max_wait_ms=2, "
-                f"{SERVE_CLIENTS} clients x {per_client} waves of "
-                f"{SERVE_ROWS}: {n_rows / wall:.1f} served QPS ({wall:.4f} "
-                f"s wall), {srv.dispatches} dispatches, "
-                f"{srv.rows_served / max(srv.dispatches, 1):.1f} rows a "
-                f"dispatch; every wave bit-equal to adc_query_topk, ids up "
-                f"to audited ties")
-        for b in SERVE_WAVE_ROWS:
-            qb = pool[:b]
-            eng.query(qb, top_k=TOP_K)
-            walls = []
-            for i in range(N_BATCHES):
-                qb = pool[(i + 1) * b % (SERVE_POOL - b):][:b]
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                eng.query(qb, top_k=TOP_K)
-                walls.append(time.perf_counter() - t)
-            wall = float(np.mean(walls))
-            log(f"{tag} int16 stream engine direct, B={b}: host wall "
-                f"{wall * 1e3:.4f} ms/batch -> {b / wall:.1f} QPS")
+                f"{SERVE_CLIENTS} clients x {SERVE_DEPTH} waves of "
+                f"{SERVE_ROWS} in flight, {len(idx)} waves after "
+                f"{4 * per} warm: {served:.1f} served QPS ({wall:.4f} s "
+                f"wall), {k} dispatches, {r / max(k, 1):.1f} rows a "
+                f"dispatch, wave latency p50 "
+                f"{np.percentile(lat, 50) * 1e3:.4f} / p99 "
+                f"{np.percentile(lat, 99) * 1e3:.4f} ms; direct B={rows} "
+                f"over {SERVE_DISPATCHES} batches {direct:.1f} QPS; served "
+                f"/ direct {served / direct:.4f}; every wave bit-equal to "
+                f"adc_query_topk, ids up to audited ties")
+        waves = [pool[i] for i in idx[:SERVE_COALESCED]]
         got = query_coalesced(eng, waves, top_k=TOP_K, wave_rows=1024)
-        for w, (d, ids) in zip(waves, got):
+        for w, (d, _) in zip(waves, got):
             dw, _ = eng.query(w, top_k=TOP_K)
             check(np.array_equal(d, dw), "query_coalesced != per-wave query")
-            check_wave(w, d, ids)
-        log(f"query_coalesced over the {SERVE_WAVES} waves (wave_rows "
-            f"1024): distances equal to the per-wave queries, ids up to "
-            f"audited ties")
+        check_waves(idx[:SERVE_COALESCED], got)
+        log(f"query_coalesced over {SERVE_COALESCED} waves (wave_rows "
+            f"1024): distances equal to the per-wave queries, bit-equal to "
+            f"adc_query_topk, ids up to audited ties")
 
 
 def big_check(cw, q, codes_db, codes_db64, d, ids, n):
@@ -2446,11 +2499,13 @@ def big_check(cw, q, codes_db, codes_db64, d, ids, n):
                 torch.from_numpy(ids).to(dev), n)
 
 
-def check_batch(table, codes_db, codes_db64, d, ids, n=N):
-    """Engine results against the plain exact scan over the same table:
-    distances bit-equal; each id carries its reported distance; id sets
-    differ only at f64-audited ties of the top-k boundary."""
-    dr, ir = adc_query_topk(table, codes_db, n, TOP_K, 16384)
+def check_batch(table, codes_db, codes_db64, d, ids, n=N, ref=None):
+    """Engine results against the plain exact scan over the same table
+    (or ``ref``, its (dists, ids) computed before): distances bit-equal;
+    each id carries its reported distance; id sets differ only at
+    f64-audited ties of the top-k boundary."""
+    dr, ir = (ref if ref is not None
+              else adc_query_topk(table, codes_db, n, TOP_K, 16384))
     check(torch.equal(d, dr), "distances differ from adc_query_topk")
     Bq, Mq, _ = table.shape
     c = codes_db64[ids.clamp_min(0)]                       # [B, k, M]

@@ -181,10 +181,11 @@ class BigCompressedIndex:
 
 def _sharded_chunk(codewords, codes_scan, ids, mesh, axis, precision):
     from .parallel.fused_sharded import ShardedCompressedEngine
+    from .parallel.mesh import check_axis
 
+    check_axis(mesh, axis)
     return ShardedCompressedEngine(codewords, codes_scan, mesh,
-                                   row_to_db=ids, axis=axis,
-                                   precision=precision)
+                                   row_to_db=ids, precision=precision)
 
 
 class ChunkedCompressedEngine:
@@ -201,6 +202,7 @@ class ChunkedCompressedEngine:
     With ``mesh`` (a ``parallel.mesh.Mesh``) each chunk's rows split
     over the mesh's shards (``ShardedCompressedEngine`` at ``precision``,
     exact as every chunk is); the chunks are then resident on the mesh.
+    ``shard_axis`` must name the mesh's axis (ValueError otherwise).
 
     After each ``query``: ``last_exact_fracs`` holds each chunk's
     certified first-shot fraction, ``last_upload_s`` the host seconds

@@ -104,6 +104,26 @@ def _flat(pack: DeltaPack, fn, device) -> torch.Tensor:
         device)
 
 
+def level_dists(tf: torch.Tensor, root_idx: torch.Tensor, levels
+                ) -> torch.Tensor:
+    """Distances [B, nodes] in level-major order from the flat table
+    ``tf`` [B, M*K]: the root's table sum, then each level's parents'
+    distances plus its summed diff terms.  ``levels`` yields a level's
+    (parent_local, seg, midx_to, midx_from) index tensors."""
+    B = tf.shape[0]
+    prev = torch.sum(tf.index_select(1, root_idx), dim=1)[:, None]
+    blocks = [prev]
+    for parent_local, seg, midx_to, midx_from in levels:
+        terms = (tf.index_select(1, midx_to)
+                 - tf.index_select(1, midx_from))
+        delta = torch.zeros((B, parent_local.shape[0]), dtype=tf.dtype,
+                            device=tf.device)
+        delta.index_add_(1, seg, terms)
+        prev = prev.index_select(1, parent_local) + delta
+        blocks.append(prev)
+    return torch.cat(blocks, dim=1)
+
+
 def make_compressed_query_fn(pack: DeltaPack, device=None
                              ) -> Callable[[torch.Tensor], torch.Tensor]:
     """(table [B, M, K] f32 on ``device``) -> dists [B, N] in database
@@ -123,23 +143,15 @@ def make_compressed_query_fn(pack: DeltaPack, device=None
         np.arange(pack.M, dtype=np.int64) * pack.K
         + pack.root_code).to(device)
     db_to_lm = torch.from_numpy(pack.db_to_lm.astype(np.int64)).to(device)
+    levels = [(parent_all[node_off[d]:node_off[d + 1]],
+               seg_all[diff_off[d]:diff_off[d + 1]],
+               midx_to_all[diff_off[d]:diff_off[d + 1]],
+               midx_from_all[diff_off[d]:diff_off[d + 1]])
+              for d in range(len(level_sizes))]
 
     def run(table: torch.Tensor) -> torch.Tensor:
-        B = table.shape[0]
-        tf = table.reshape(B, -1)
-        prev = torch.sum(tf.index_select(1, root_idx), dim=1)[:, None]
-        blocks = [prev]
-        for d, n_lvl in enumerate(level_sizes):
-            ns, ne = node_off[d], node_off[d + 1]
-            ds, de = diff_off[d], diff_off[d + 1]
-            terms = (tf.index_select(1, midx_to_all[ds:de])
-                     - tf.index_select(1, midx_from_all[ds:de]))
-            delta = torch.zeros((B, n_lvl), dtype=tf.dtype, device=device)
-            delta.index_add_(1, seg_all[ds:de], terms)
-            prev = prev.index_select(1, parent_all[ns:ne]) + delta
-            blocks.append(prev)
-        dist_lm = torch.cat(blocks, dim=1)             # [B, N] level-major
-        return dist_lm.index_select(1, db_to_lm)
+        tf = table.reshape(table.shape[0], -1)
+        return level_dists(tf, root_idx, levels).index_select(1, db_to_lm)
 
     return run
 

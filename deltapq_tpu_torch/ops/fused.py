@@ -654,7 +654,8 @@ class DedupCompressedEngine:
     counts) lives on the host.  With ``mesh`` (a ``parallel.mesh.Mesh``)
     the distinct codes split over the mesh's shards: the inner engine is
     a ``ShardedCompressedEngine`` at ``precision``, built at once, and
-    no query takes the exact-all branch.
+    no query takes the exact-all branch; ``shard_axis`` must name the
+    mesh's axis (ValueError otherwise).
     """
 
     EXACT_ALL_MAX_ROWS = 65536
@@ -686,10 +687,11 @@ class DedupCompressedEngine:
         self._codes_pad = None
         if mesh is not None:
             from ..parallel.fused_sharded import ShardedCompressedEngine
+            from ..parallel.mesh import check_axis
 
+            check_axis(mesh, shard_axis)
             self.engine = ShardedCompressedEngine(
-                cwf, self._unique_codes, mesh, axis=shard_axis,
-                precision=precision)
+                cwf, self._unique_codes, mesh, precision=precision)
         elif self.n_unique <= self.EXACT_ALL_MAX_ROWS:
             n_pad = -(-self.n_unique // 1024) * 1024
             self._codes_pad = _codes_tensor(

@@ -64,14 +64,13 @@ class ShardedCompressedEngine:
     def __init__(self, codewords, codes_scan: np.ndarray,
                  mesh: Optional[Mesh] = None,
                  row_to_db: Optional[np.ndarray] = None,
-                 axis: str = "shard", precision: str = "bf16",
-                 device=None):
+                 precision: str = "bf16", device=None):
         if mesh is None:
             mesh = make_mesh(device=device)
         codewords = _np_f32(codewords)
         M, K, Ds = codewords.shape
         self.M, self.K, self.Ds, self.D = M, K, Ds, M * Ds
-        self.mesh, self.axis, self.precision = mesh, axis, precision
+        self.mesh, self.precision = mesh, precision
         self.tiles = build_delta_tiles(np.asarray(codes_scan))
         self.n_valid = self.tiles.n_valid
         rd, ovf = self.tiles.row_data, self.tiles.ovf

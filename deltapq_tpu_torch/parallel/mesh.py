@@ -89,6 +89,14 @@ def make_mesh(num_devices: Optional[int] = None, axis_name: str = "shard",
     return Mesh(tuple(local), (axis_name,))
 
 
+def check_axis(mesh: Mesh, axis: str) -> None:
+    """Raise ValueError unless ``axis`` names the mesh's axis, as JAX's
+    ``shard_map`` refuses an axis its mesh lacks."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"the mesh's axis is {mesh.axis_names[0]!r}, "
+                         f"not {axis!r}")
+
+
 def _to_tensor(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x

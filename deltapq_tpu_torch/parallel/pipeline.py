@@ -30,8 +30,8 @@ from .sharded import (_codewords_on, _local_valid, _local_scan_topk,
                       _on_devices, _pad_codes_for_mesh)
 
 
-def make_pipelined_query_fn(mesh: Mesh, top_k: int, tile_n: int = 8192,
-                            axis: str = "shard") -> Callable:
+def make_pipelined_query_fn(mesh: Mesh, top_k: int, tile_n: int = 8192
+                            ) -> Callable:
     """Returns ``fn(codewords [M, K, Ds], qbatches [NB, B, D],
     codes_shards, n_valid) -> (dists [NB, B, top_k], ids [NB, B,
     top_k])`` on ``mesh.devices[0]``, the codes split over the mesh as
@@ -120,7 +120,7 @@ def pipelined_query(codewords, queries: np.ndarray, codes: np.ndarray,
     q_pad = np.zeros((nb * batch_size, D), np.float32)
     q_pad[:nq] = q
     codes_pad, n_valid = _pad_codes_for_mesh(np.asarray(codes), mesh)
-    fn = make_pipelined_query_fn(mesh, top_k, axis=mesh.axis_names[0])
+    fn = make_pipelined_query_fn(mesh, top_k)
     d, i = fn(_codewords_on(cw, mesh.devices[0]),
               torch.from_numpy(q_pad.reshape(nb, batch_size, D)),
               shard_rows(mesh, codes_pad), n_valid)

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.adc import adc_table, adc_tile_dists, no_tf32
+from ..ops.adc import adc_query_topk, adc_table, no_tf32
 from ..ops.adc_kernels import _exact_dists_for_ids
 from ..ops.decoded import _cross_f32, build_decoded_cache
 from ..ops.fused import _np_f32
@@ -57,35 +57,18 @@ def _stable_smallest(x: torch.Tensor, k: int
 def _local_scan_topk(table: torch.Tensor, codes_local: torch.Tensor,
                      n_valid: int, base: int, top_k: int, tile_n: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over this shard's rows (the streaming scan of
-    ``ops.adc.adc_query_topk`` with a global id offset ``base``): rows
-    >= ``n_valid`` (local) are +inf.  Returns (dists [B, top_k] f32,
-    global ids [B, top_k] int64, -1 where fewer rows)."""
-    B = table.shape[0]
-    n_local = codes_local.shape[0]
-    if n_local % tile_n:
-        # one tile covering the shard (callers normally pad each shard's
-        # rows to a multiple of tile_n)
-        tile_n = n_local
-    dev = table.device
-    best_d = torch.full((B, top_k), float("inf"), dtype=torch.float32,
-                        device=dev)
-    best_i = torch.full((B, top_k), -1, dtype=torch.int64, device=dev)
-    for t0 in range(0, n_local, tile_n):
-        local = t0 + torch.arange(tile_n, device=dev)
-        d = adc_tile_dists(table, codes_local[t0:t0 + tile_n])
-        d = torch.where((local < n_valid)[None, :], d,
-                        torch.full_like(d, float("inf")))
-        cat_d = torch.cat([best_d, d], dim=1)
-        cat_i = torch.cat([best_i, (base + local)[None, :].expand(B, tile_n)],
-                          dim=1)
-        best_d, pos = _stable_smallest(cat_d, top_k)
-        best_i = torch.gather(cat_i, 1, pos)
-    return best_d, best_i
+    """Top-k over this shard's rows (``ops.adc.adc_query_topk``, in one
+    tile where ``tile_n`` does not divide them) with the global id offset
+    ``base``: rows >= ``n_valid`` (local) are +inf.  Returns (dists
+    [B, top_k] f32, global ids [B, top_k] int64, -1 where fewer rows)."""
+    rows = codes_local.shape[0]
+    d, i = adc_query_topk(table, codes_local, n_valid, top_k,
+                          tile_n if rows % tile_n == 0 else rows)
+    return d, torch.where(torch.isfinite(d), i + base, torch.full_like(i, -1))
 
 
-def make_sharded_query_fn(mesh: Mesh, top_k: int, tile_n: int = 8192,
-                          axis: str = "shard") -> Callable:
+def make_sharded_query_fn(mesh: Mesh, top_k: int, tile_n: int = 8192
+                          ) -> Callable:
     """Returns ``fn(table [B, M, K], codes_shards, n_valid) -> (dists
     [B, top_k], ids [B, top_k])`` on ``mesh.devices[0]``: codes_shards
     are this process's row shards (``shard_rows`` of [N_pad, M]), equal
@@ -151,8 +134,7 @@ def sharded_query_plain(codewords, queries: np.ndarray, codes: np.ndarray,
     cw = _codewords_on(codewords, mesh.devices[0])
     M, K, Ds = cw.shape
     table = adc_table(cw, _padded_queries(queries, M * Ds).to(cw.device))
-    fn = make_sharded_query_fn(mesh, top_k, tile_n=min(tile_n, per),
-                               axis=mesh.axis_names[0])
+    fn = make_sharded_query_fn(mesh, top_k, tile_n=min(tile_n, per))
     d, i = fn(table, shard_rows(mesh, codes_p), n_valid)
     return d.cpu().numpy(), i.cpu().numpy()
 
@@ -161,7 +143,7 @@ def sharded_query_plain(codewords, queries: np.ndarray, codes: np.ndarray,
 # Data-parallel k-means (the framework's "training step")
 # --------------------------------------------------------------------------
 
-def make_dp_lloyd_step(mesh: Mesh, axis: str = "shard") -> Callable:
+def make_dp_lloyd_step(mesh: Mesh) -> Callable:
     """One data-parallel Lloyd iteration over a sharded learn set.
 
     Returns ``step(x_shards, centers) -> (new_centers [M, K, Ds],
@@ -204,8 +186,7 @@ def make_dp_lloyd_step(mesh: Mesh, axis: str = "shard") -> Callable:
 # --------------------------------------------------------------------------
 
 def make_sharded_decoded_query_fn(mesh: Mesh, top_k: int,
-                                  precision: str = "bf16x2",
-                                  axis: str = "shard") -> Callable:
+                                  precision: str = "bf16x2") -> Callable:
     """Sharded decoded-cache query: returns ``fn(table [B, M, K],
     queries [B, D] f32, hi_shards, lo_shards, pre_shards, codes_shards)
     -> (dists [B, top_k], ids [B, top_k])``, the shards being this
@@ -282,7 +263,6 @@ def sharded_query_decoded(codewords, queries: np.ndarray, codes: np.ndarray,
     cw = _codewords_on(cwn, mesh.devices[0])
     q = _padded_queries(queries, M * Ds).to(cw.device)
     table = adc_table(cw, q)
-    fn = make_sharded_decoded_query_fn(mesh, top_k, precision,
-                                       mesh.axis_names[0])
+    fn = make_sharded_decoded_query_fn(mesh, top_k, precision)
     d, i = fn(table, q, hi_s, lo_s, pre_s, shard_rows(mesh, codes_p))
     return d.cpu().numpy(), i.cpu().numpy()

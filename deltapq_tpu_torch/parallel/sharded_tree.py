@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.adc import adc_table
-from ..ops.delta import build_delta_pack
+from ..ops.delta import build_delta_pack, level_dists
 from ..ops.fused import _np_f32
 from ..ops.topk import smallest_k
 from ..tree.build import find_edges_by_diff
@@ -174,7 +174,7 @@ def build_sharded_pack(trees: List[DeltaTree], row_bases: np.ndarray,
 
 
 def make_sharded_compressed_query_fn(mesh: Mesh, pack: ShardedDeltaPack,
-                                     top_k: int, axis: str = "shard"
+                                     top_k: int
                                      ) -> Callable[[torch.Tensor], Tuple]:
     """Returns ``run(table [B, M, K]) -> (dists [B, top_k], global ids
     [B, top_k])`` on ``mesh.devices[0]``; this process's shards of the
@@ -204,19 +204,9 @@ def make_sharded_compressed_query_fn(mesh: Mesh, pack: ShardedDeltaPack,
                   for d in dict.fromkeys(mesh.devices)}
         ds, ids = [], []
         for sh in shards:
-            tf, dev = tables[sh["dev"]], sh["dev"]
-            prev = torch.sum(tf.index_select(1, sh["root_idx"]),
-                             dim=1)[:, None]
-            blocks = [prev]
-            for parent_local, seg, midx_to, midx_from in sh["levels"]:
-                terms = (tf.index_select(1, midx_to)
-                         - tf.index_select(1, midx_from))
-                delta = torch.zeros((B, parent_local.shape[0]),
-                                    dtype=tf.dtype, device=dev)
-                delta.index_add_(1, seg, terms)
-                prev = prev.index_select(1, parent_local) + delta
-                blocks.append(prev)
-            db_dist = torch.cat(blocks, dim=1).index_select(
+            dev = sh["dev"]
+            db_dist = level_dists(tables[dev], sh["root_idx"],
+                                  sh["levels"]).index_select(
                 1, sh["db_to_lm"])                             # [B, n_pad]
             valid = torch.arange(n_pad, device=dev) < sh["n_local"]
             db_dist = torch.where(valid[None, :], db_dist,
@@ -253,7 +243,6 @@ def sharded_query_compressed(codewords, codes: np.ndarray,
     M, K, Ds = cwn.shape
     cw = _codewords_on(cwn, mesh.devices[0])
     table = adc_table(cw, _padded_queries(queries, M * Ds).to(cw.device))
-    run = make_sharded_compressed_query_fn(mesh, pack, top_k,
-                                           mesh.axis_names[0])
+    run = make_sharded_compressed_query_fn(mesh, pack, top_k)
     d, i = run(table)
     return d.cpu().numpy(), i.cpu().numpy()

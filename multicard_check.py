@@ -1,4 +1,5 @@
-"""The multi-device layer across every card of one host.
+"""The port's multi-device layer across every card of one host: a check
+that needs two or more cards, beside ``chip_smoke.py``, which needs one.
 
 First one process over all the cards (``make_mesh()``: a shard a card),
 then one NCCL process a card (``init_distributed``, world = the card
@@ -9,8 +10,8 @@ decoded queries and the DP Lloyd step each answer exactly as the exact
 scan, or as the same mesh's shards run on one card.  Raises on any
 difference.
 
-Usage: ``python3 -m deltapq_tpu_torch.parallel.multicard`` from the
-repository root, on a host with two or more cards.
+Usage: ``python3 multicard_check.py`` from the repository root, on a
+host with two or more cards.
 """
 
 import os
@@ -22,15 +23,15 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import build
-from ..ops.adc import adc_query_topk, adc_table, pad_codes
-from .dryrun import dryrun_multichip
-from .fused_sharded import ShardedCompressedEngine
-from .mesh import Mesh, make_mesh, shard_rows
-from .pipeline import pipelined_query
-from .runtime import init_distributed
-from .sharded import (make_dp_lloyd_step, sharded_query_decoded,
-                      sharded_query_plain)
+from deltapq_tpu_torch.kernels import build
+from deltapq_tpu_torch.ops.adc import adc_query_topk, adc_table, pad_codes
+from deltapq_tpu_torch.parallel.dryrun import dryrun_multichip
+from deltapq_tpu_torch.parallel.fused_sharded import ShardedCompressedEngine
+from deltapq_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_rows
+from deltapq_tpu_torch.parallel.pipeline import pipelined_query
+from deltapq_tpu_torch.parallel.runtime import init_distributed
+from deltapq_tpu_torch.parallel.sharded import (
+    make_dp_lloyd_step, sharded_query_decoded, sharded_query_plain)
 
 M, K, DS, N, B, TOP_K, N_BATCHES = 8, 256, 16, 1 << 20, 512, 10, 5
 
@@ -165,8 +166,8 @@ def main() -> int:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "deltapq_tpu_torch.parallel.multicard",
-         str(r), str(cards), str(port)], cwd=os.getcwd())
+        [sys.executable, os.path.abspath(__file__), str(r), str(cards),
+         str(port)], cwd=os.path.dirname(os.path.abspath(__file__)))
         for r in range(cards)]
     try:
         rcs = [p.wait(timeout=400) for p in procs]
@@ -176,7 +177,7 @@ def main() -> int:
                 p.kill()
                 p.wait()
     check(rcs == [0] * cards, f"worker exit codes {rcs}")
-    print(f"multicard: {cards} cards OK", flush=True)
+    print(f"multicard_check: {cards} cards OK", flush=True)
     return 0
 
 

@@ -269,7 +269,7 @@ def test_sharded_query_compressed_matches_jax(data, S):
     assert_ids_up_to_ties(data["table"], codes, i, ei, TOPK)
 
 
-_JAX_ENGINE = {}
+_JAX_ENGINE, _JAX_PLAIN = {}, {}
 
 
 def _jax_engine_results(data, S, codes, order):
@@ -283,14 +283,28 @@ def _jax_engine_results(data, S, codes, order):
     return _JAX_ENGINE[key]
 
 
+def _jax_exact(data, S, codes):
+    """The JAX package's exact sharded scan over the same codes,
+    codebook and queries (no certificate: every row scanned)."""
+    key = (S, len(codes))
+    if key not in _JAX_PLAIN:
+        _JAX_PLAIN[key] = tuple(np.asarray(a) for a in
+                                jsharded.sharded_query_plain(
+                                    data["cw"], data["q"], codes,
+                                    top_k=TOPK, mesh=jmake_mesh(S)))
+    return _JAX_PLAIN[key]
+
+
 @pytest.mark.parametrize("S", SHARDS)
 @pytest.mark.parametrize("precision", ["bf16", "int8", "int16"])
 def test_sharded_engine_matches_jax(data, S, precision):
     """Exact at every precision and shard count (ladder + terminal
-    scan per shard).  Held to the JAX engine (bf16, its only mode) where
-    its first shot certified every query; where it did not, the JAX
-    engine returns uncertified rows (its one fixed rung, no ladder) and
-    the port is held to its own exact scan only."""
+    scan per shard): held to the JAX package's exact sharded scan
+    always, and to the JAX engine (bf16, its only mode) where its first
+    shot certified every query.  Where it did not, the JAX engine
+    returns uncertified rows (its one fixed rung, no ladder), no better
+    than the exact ones.  On these inputs the JAX engine certifies every
+    query at S=2 and none at S=4, so both branches run."""
     codes = data["codes"]
     order = np.lexsort(codes.T[::-1])
     e = ShardedCompressedEngine(data["cw"], codes[order],
@@ -300,11 +314,12 @@ def test_sharded_engine_matches_jax(data, S, precision):
     assert all(s.precision == precision for s, _ in e.shards)
     d, i = e.query(data["q"], top_k=TOPK)
     assert 0.0 <= e.last_exact_frac <= 1.0
+    _check(data, d, i, *_jax_exact(data, S, codes))
     jd, ji, jfrac, jbpv = _jax_engine_results(data, S, codes, order)
+    assert (jfrac == 1.0) == (S == 2), jfrac
     if jfrac == 1.0:
         _check(data, d, i, jd, ji)
     else:
-        _check(data, d, i)
         assert np.all(jd[:, -1] >= d[:, -1] - 1e-4)
     assert e.bytes_per_vec() == pytest.approx(jbpv)
 
@@ -320,7 +335,7 @@ def test_sharded_engine_empty_last_shard(data):
     assert [s.n_valid for s, _ in e.shards] == [1024, 1024, 452, 0]
     assert [base for _, base in e.shards] == [0, 1024, 2048, 3072]
     d, i = e.query(data["q"], top_k=TOPK)
-    _check(data, d, i, codes=codes)
+    _check(data, d, i, *_jax_exact(data, 4, codes), codes=codes)
     jd, ji, jfrac, _ = _jax_engine_results(data, 4, codes, order)
     if jfrac == 1.0:
         _check(data, d, i, jd, ji, codes=codes)
@@ -346,6 +361,21 @@ def test_sharded_engine_exact_where_the_first_shot_fails(data):
     d, i = e.query(data["q"], top_k=TOPK)
     assert e.last_exact_frac < 1.0
     _check(data, d, i)
+
+
+def test_shard_axis_must_name_the_mesh_axis(data):
+    """``shard_axis`` names the mesh's axis or raises ValueError, as
+    JAX's ``shard_map`` refuses an axis its mesh lacks."""
+    codes = data["codes"][:2048]
+    mesh = make_mesh(2, device=CPU, axis_name="rows")
+    with pytest.raises(ValueError, match="rows"):
+        pbig.ChunkedCompressedEngine(data["cw"], codes, mesh=mesh)
+    with pytest.raises(ValueError, match="rows"):
+        DedupCompressedEngine(data["cw"], codes, mesh=mesh)
+    e = DedupCompressedEngine(data["cw"], codes, mesh=mesh,
+                              shard_axis="rows")
+    d, i = e.query(data["q"], top_k=TOPK)
+    _check(data, d, i, codes=codes)
 
 
 @pytest.mark.parametrize("S", SHARDS)
