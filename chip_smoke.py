@@ -8,7 +8,9 @@ non-zero and prints no result.  It imports nothing of JAX.
 Phases, each timed:
 
 1. device: the card's name and power limit, CUDA and nvcc versions;
-2. kernel build: nvcc builds ``deltapq_tpu_torch/csrc/*.cu`` afresh;
+2. kernel build: nvcc builds ``deltapq_tpu_torch/csrc/*.cu`` afresh, and
+   g++ the host library ``deltapq_tpu_torch/native/dtc_native.cpp`` (the
+   DFS layout and the DTC and diff-index codecs of phases 3, 15 and 18);
 3. data and index: the sift_like workload at N = 1,048,576, D=128, M=8,
    K=256 -- PQ learn + encode on the card, DeltaTree (method 1), DFS
    order, stream tiles; prints the distinct-code count and B/vec;
@@ -190,6 +192,34 @@ Phases, each timed:
    direct.  Every served wave is held to ``adc_query_topk`` on its rows
    (distances bit-equal, ids up to audited ties); ``query_coalesced``
    over 64 waves equals the per-wave queries.
+18. the rest of the package (runs after phase 17, on phase 3's data):
+   the native library must have built; ``build_layout`` on phase 3's
+   edges with the native and the Python DFS (every array equal), the
+   DTC parse and decode and the diff-index decode of the N-row streams
+   native and Python (byte-equal), each wall printed;
+   ``scan_query_native`` for 8 queries against ``adc_query_topk``
+   (distances rtol 1e-5, ids up to audited ties); the exact-MST tree on
+   the first 262,144 rows (cut: the NumPy rounds and the depth repair
+   would take most of the phase at N): spanning, no more diffs than the
+   approximate tree, lossless through ``serialize_dtc``'s repair, its
+   B/vec, and an int16 engine over its DFS order for 2 checked batches
+   (B1 and B2 launched); ``tree_height`` / ``rotate_tree`` and the bit
+   format on 65,536 rows (cut: Python loops), ``query_bits`` at B=512;
+   ``block_aware_size`` of phase 3's tree; the row store at N with 128
+   raw bytes a row, lossless, ``query_row_store`` at B=512 (raw rows =
+   ``raw[ids]``); the legacy prefix tree on 16,384 rows (cut: a query
+   expands up to 256 children a node a level, and at 65,536 rows one
+   query in 16 took 72 s on a CPU): ``dichotomize_codewords`` on the
+   card, a re-encode, ``BitVecsStore`` and 16 ``prefix_tree_query`` top-1
+   within 1e-3 of ``query_plain``; ``make_sharded_delta_query_fn`` over
+   phase 8's slot tiles on 1, 2 and 4 shards, and over a codebook learned
+   on D=108 (not divisible by M; Ds 14, zero-padded) on 16,384 rows, for
+   queries drawn as database rows plus noise (B5 once a shard, B2 at
+   least as often; where certified equal to ``ShardedCompressedEngine``;
+   every row its own exact distance and no j-th distance below the exact
+   j-th; at least ``SHARDED_MIN_OK[D][S]`` certified);
+   ``entry()``'s flagship step (B5 and B2 launched; certified distances
+   bit-equal to ``adc_query_topk``).
 
 Every kernel's entry in the ``kernels`` line carries ``bound_ms``: the
 least time the card could take for the same work, the larger of the
@@ -218,6 +248,7 @@ import numpy as np
 import torch
 
 from deltapq_tpu_torch import bench_engines, bench_gist, bench_stream, cli
+from deltapq_tpu_torch import entry as flagship
 from deltapq_tpu_torch.bigscale import (BigCompressedIndex,
                                         ChunkedCompressedEngine,
                                         encode_stream)
@@ -228,19 +259,25 @@ from deltapq_tpu_torch.index import DeltaPQIndex
 from deltapq_tpu_torch.io import (read_codes, read_codewords,
                                   read_groundtruth, write_vecs)
 from deltapq_tpu_torch.kernels import build
+from deltapq_tpu_torch.legacy import (BitVecsStore, dichotomize_codewords,
+                                      prefix_tree_query)
+from deltapq_tpu_torch.native import build as native_build
+from deltapq_tpu_torch.native import (diff_index_decode_native, have_native,
+                                      scan_query_native)
 from deltapq_tpu_torch.ops import adc_kernels as ak
 from deltapq_tpu_torch.ops import fused_kernels as fk
 from deltapq_tpu_torch.ops.adc import (adc_query_topk, adc_table, pad_codes,
-                                       query_plain_tensors)
+                                       query_plain, query_plain_tensors)
 from deltapq_tpu_torch.ops import decoded as pdecoded
 from deltapq_tpu_torch.ops.decoded import DecodedEngine
 from deltapq_tpu_torch.ops.encode import pq_encode
-from deltapq_tpu_torch.ops.delta_tiles import (build_delta_tiles,
+from deltapq_tpu_torch.ops.delta_tiles import (DeltaTiles, build_delta_tiles,
                                                decode_delta_tiles)
 from deltapq_tpu_torch.ops.fused import (DedupCompressedEngine,
                                          FusedCodesEngine,
                                          FusedCompressedEngine,
-                                         FusedDecodedEngine, _pool_for,
+                                         FusedDecodedEngine,
+                                         _default_n_sub, _pool_for,
                                          fused_select_esc)
 from deltapq_tpu_torch.ops.kmeans import pq_learn
 from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
@@ -251,15 +288,24 @@ from deltapq_tpu_torch.parallel import (ShardedCompressedEngine,
                                         shard_rows, sharded_query_decoded,
                                         sharded_query_plain)
 from deltapq_tpu_torch.parallel.dryrun import dryrun_multichip
+from deltapq_tpu_torch.parallel.fused_sharded import \
+    make_sharded_delta_query_fn
 from deltapq_tpu_torch.parallel.runtime import (ContinuousBatcher,
                                                 batch_iterator)
 from deltapq_tpu_torch.parallel.sharded_tree import sharded_query_compressed
 from deltapq_tpu_torch.serving import CoalescingServer, query_coalesced
 from deltapq_tpu_torch.synth import (WORKLOADS, gist_vectors,
                                      make_gist_workload, workload_vectors)
+from deltapq_tpu_torch.tree import layout as tree_layout
 from deltapq_tpu_torch.tree.build import find_edges_by_diff
+from deltapq_tpu_torch.tree.exact_mst import find_edges_exact_mst
 from deltapq_tpu_torch.tree.layout import build_layout
-from deltapq_tpu_torch.tree.serialize import decode_dtc_to_codes, read_dtc_raw
+from deltapq_tpu_torch.tree.reroot import rotate_tree, tree_height
+from deltapq_tpu_torch.tree.serialize import (
+    block_aware_size, decode_diff_index, decode_dtc_to_codes, deserialize_bits,
+    deserialize_dtc, deserialize_dtc_row_store, query_bits, query_row_store,
+    read_dtc_raw, serialize_bits, serialize_diff_index, serialize_dtc,
+    serialize_dtc_row_store)
 
 N = 1 << 20
 D, M, K = 128, 8, 256
@@ -348,6 +394,21 @@ CLI_MUST = {("query", "pallas"): ("adc_topk",),
             ("query", "fused_codes"): ("codes_mins",),
             ("query", "fused_compressed"): ("stream_mins_bf16", "rerank"),
             ("query_compressed", "auto"): ("stream_mins_bf16", "rerank")}
+MST_N = 262_144        # phase 18: rows of the exact-MST tree (cut)
+ROTATE_N = 65_536      # phase 18: rows of the rotation and the bit format (cut)
+LEGACY_N = 16_384      # phase 18: rows of the prefix-tree store (cut)
+RAW_D = 128            # phase 18: raw u8 bytes a row of the row store
+ODD_D = 108            # phase 18: a width not divisible by M (Ds 14)
+QUERY_SIGMA = 0.8      # phase 18: query = a database row + N(0, 0.8^2),
+                       # the sift_like recipe's own per-row noise
+#: phase 18: least certified share of the one-rung step at S shards, by
+#: case.  The step certifies a query only where every shard does, at one
+#: fixed rung, so the share falls with S: 0.9551 / 0.4375 / 0.1465 at N on
+#: the H100; at D=108 on 16,384 rows (the first rows of N, so a query's
+#: cluster is mostly missing) 0.5820 at S=1 on the H100 and 0.6387 /
+#: 0.4375 / 0.3789 on a CPU.  Each floor sits well below its reading
+SHARDED_MIN_OK = {D: {1: 0.85, 2: 0.35, 4: 0.10},
+                  ODD_D: {1: 0.45, 2: 0.25, 4: 0.20}}
 
 
 def log(*a):
@@ -449,6 +510,10 @@ def main() -> int:
         info = build.build(force=True)
         build.library()
         log(f"nvcc {' '.join(build.NVCC_FLAGS)}: {info.seconds:.1f} s")
+        t = time.perf_counter()
+        native_build.build(force=True)
+        log(f"g++ {' '.join(native_build.GXX_FLAGS)} (native/"
+            f"dtc_native.cpp): {time.perf_counter() - t:.1f} s")
         for line in info.log.splitlines():
             if any(w in line for w in ("entry function", "Used", "spill")):
                 log("  " + line.strip())
@@ -467,6 +532,7 @@ def main() -> int:
         codes = pq_encode(cw, x).cpu().numpy()
         log(f"pq_encode: {time.perf_counter() - t:.1f} s")
         learn = x[:TRAIN].copy()          # phase 16's Lloyd step
+        legacy_x = x[:LEGACY_N].copy()    # phase 18's prefix-tree store
         del x
         n_distinct = len(np.unique(codes, axis=0))
         t = time.perf_counter()
@@ -621,7 +687,9 @@ def main() -> int:
     phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                     launches, codes_db, codes_db64, dup)
     phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64)
-    del eng, learn
+    phase18_rest(dev, tag, cw, codes, order, res, tree, eng.bytes_per_vec(),
+                 dt, legacy_x, codes_db, codes_db64)
+    del eng, learn, legacy_x, res, tree
     phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
                        launches)
     phase10_big_n(dev, tag, cw, codes, rng, launches)
@@ -2507,13 +2575,26 @@ def check_batch(table, codes_db, codes_db64, d, ids, n=N, ref=None):
     dr, ir = (ref if ref is not None
               else adc_query_topk(table, codes_db, n, TOP_K, 16384))
     check(torch.equal(d, dr), "distances differ from adc_query_topk")
+    check(torch.equal(own_dists(table, codes_db64, ids), d),
+          "an id does not carry its distance")
+    audit_ties(table, codes_db64, ids, ir)
+
+
+def own_dists(table, codes_db64, ids):
+    """The f32 table sum of each id's code, in ascending m [B, k]."""
     Bq, Mq, _ = table.shape
     c = codes_db64[ids.clamp_min(0)]                       # [B, k, M]
     own = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
     bi = torch.arange(Bq, device=ids.device)[:, None]
     for m in range(Mq):
         own = own + table[bi, m, c[:, :, m]]
-    check(torch.equal(own, d), "an id does not carry its distance")
+    return own
+
+
+def audit_ties(table, codes_db64, ids, ir, rtol=1e-5):
+    """Id sets may differ only where the f64 distances of the top-k
+    boundary tie within ``rtol``."""
+    Mq = table.shape[1]
     same = torch.sort(ids, 1).values == torch.sort(ir, 1).values
     t64 = table.to(torch.float64)
     for b in torch.nonzero(~same.all(1)).flatten().tolist():
@@ -2521,8 +2602,345 @@ def check_batch(table, codes_db, codes_db64, d, ids, n=N, ref=None):
                      codes_db64].sum(1)
         srt = torch.sort(d64).values
         gap = float((srt[TOP_K] - srt[TOP_K - 1]) / srt[TOP_K - 1].abs())
-        check(gap < 1e-5, f"query {b}: id sets differ without a tie "
+        check(gap < rtol, f"query {b}: id sets differ without a tie "
                           f"(f64 gap {gap:.3g})")
+
+
+TREE_FIELDS = ("vec_id", "parent_pos", "depth", "diff_num", "diff_off",
+               "diff_m", "diff_to", "child_pos_start", "child_num",
+               "max_dist", "max_dist2p")
+
+
+def synced(dev, fn, *a):
+    """fn(*a), the card synchronised after it."""
+    out = fn(*a)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out
+
+
+def timed(fn, *a, **k):
+    """(fn's result, host wall s)."""
+    t = time.perf_counter()
+    out = fn(*a, **k)
+    return out, time.perf_counter() - t
+
+
+def sharded_step_case(dev, tag, label, cw, codes_scan, order, q, codes_db,
+                      codes_db64, n, tiles=None):
+    """``make_sharded_delta_query_fn`` at the engine's first rung on 1, 2
+    and 4 shards of ``dev`` over the slot tiles of ``codes_scan`` (row i
+    is database row ``order[i]``), queries q [B, D] (D <= M*Ds; the rest
+    zero).  B5 launches once a shard.  Certified rows equal the exact
+    ``ShardedCompressedEngine`` (itself held to ``adc_query_topk``);
+    every row carries its own exact f32 distance, and the j-th distance
+    is never below the exact j-th; at least ``SHARDED_MIN_OK[D][S]`` of
+    the queries certify at S shards."""
+    cw_np = cw.cpu().numpy()
+    Mc, _, Dsc = cw_np.shape
+    Dc = Mc * Dsc
+    qp = np.zeros((len(q), Dc), np.float32)
+    qp[:, :q.shape[1]] = q
+    ref = ShardedCompressedEngine(cw, codes_scan, make_mesh(1, device=dev),
+                                  row_to_db=order, precision="bf16")
+    d_ref, i_ref = ref.query(qp, top_k=TOP_K)
+    if tiles is None:
+        tiles = ref.tiles
+    del ref
+    table = adc_table(cw, torch.from_numpy(qp).to(dev))
+    d_ref = torch.from_numpy(d_ref).to(dev)
+    i_ref = torch.from_numpy(i_ref).to(dev)
+    check_batch(table, codes_db, codes_db64, d_ref, i_ref, n=n)
+    mu = fk.codebook_center(cw_np)
+    cwbd = fk.build_blockdiag_codebook(cw_np, center=mu).to(dev)
+    qc = qp - mu[None, :]
+    qk = torch.from_numpy(fk.pack_query_grouped(qc, Mc, Dsc)).to(dev)
+    qk = qk.to(torch.bfloat16).t().contiguous()
+    q2 = torch.from_numpy((qc * qc).sum(axis=1)).to(dev)
+    rd_t = torch.from_numpy(tiles.row_data).to(dev)
+    ovf_t = torch.from_numpy(tiles.ovf).to(dev)
+    order_t = torch.from_numpy(order).to(dev)
+    check(tiles.n_tiles % max(SHARDS) == 0,
+          f"{label}: {tiles.n_tiles} tiles do not split over the shards")
+    for S in SHARDS:
+        ns_total = tiles.n_tiles // S * (fk.TILE // fk.SUB)
+        pool = _pool_for(ns_total)
+        ns = _default_n_sub(TOP_K, -(-ns_total // pool), fk.SUB * pool)
+        fn = make_sharded_delta_query_fn(make_mesh(S, device=dev), TOP_K,
+                                         ns, pool, tiles.S, Ds=Dsc)
+        build.reset_launch_counts()
+        (d, rows, ok), t_fn = timed(synced, dev, fn, qk, q2, table, cwbd,
+                                    rd_t, ovf_t, n)
+        counts = build.launch_counts()
+        live = sum(1 for g in range(S)
+                   if g * (tiles.n_tiles // S) * fk.TILE < n)
+        check(counts["delta_mins_bf16"] == live and counts["rerank"] >= live,
+              f"{label} S={S}: B5 once a non-empty shard, B2 at least as "
+              f"often: {counts}")
+        ids = torch.where(rows >= 0, order_t[rows.clamp_min(0)], -1)
+        check(torch.equal(d[ok], d_ref[ok]),
+              f"{label} S={S}: certified distances != "
+              f"ShardedCompressedEngine")
+        audit_ties(table[ok], codes_db64, ids[ok], i_ref[ok])
+        fin = torch.isfinite(d)
+        check(bool((ids[fin] >= 0).all()) and torch.equal(
+            own_dists(table, codes_db64, ids)[fin], d[fin]),
+            f"{label} S={S}: a returned row does not carry its exact f32 "
+            f"distance")
+        check(bool((d >= d_ref).all()),
+              f"{label} S={S}: a j-th distance below the exact j-th")
+        okf = float(ok.float().mean())
+        check(okf >= SHARDED_MIN_OK[q.shape[1]][S],
+              f"{label} S={S}: only {okf:.4f} of the queries certified")
+        log(f"{tag} make_sharded_delta_query_fn {label} N={n} S={S} (n_sub "
+            f"{ns}, pool {pool}): {t_fn:.4f} s host wall, ok {okf:.4f}; B5 "
+            f"{counts['delta_mins_bf16']}, B2 {counts['rerank']}; certified "
+            f"rows equal to ShardedCompressedEngine (ids up to audited "
+            f"ties), every row its own exact distance, none below the "
+            f"exact j-th")
+
+
+def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
+                 codes_db, codes_db64):
+    """The last of the package on phase 3's data: the native library
+    against the Python loops, the exact-MST tree, the rotation, the
+    block-aware size, the bit and row-store formats and their queries,
+    the legacy prefix tree, the one-rung sharded step and ``entry``.
+    Its draws come from a generator of its own, so the later phases
+    draw what they drew before it ran."""
+    with Phase("18 the rest of the package"):
+        rng = np.random.default_rng(18)
+        cw_np = cw.cpu().numpy()
+        check(have_native(), "the native library did not build on this "
+                             "host (g++ -O3 -march=native)")
+        log(f"native library: {native_build.lib_path()}")
+
+        # -- native against the Python loops, on phase 3's tree --------
+        tn, t_nat = timed(build_layout, codes, res.edges, res.root_id, K=K,
+                          tables="skip")
+        saved = tree_layout.dfs_layout_native
+        tree_layout.dfs_layout_native = lambda *a: None
+        try:
+            tp, t_py = timed(build_layout, codes, res.edges, res.root_id,
+                             K=K, tables="skip")
+        finally:
+            tree_layout.dfs_layout_native = saved
+        for f in TREE_FIELDS:
+            check(np.array_equal(getattr(tn, f), getattr(tp, f)),
+                  f"build_layout: native and Python {f} differ")
+        log(f"{tag} build_layout (N={N}): native DFS {t_nat:.3f} s, Python "
+            f"DFS {t_py:.3f} s; every DeltaTree array equal")
+        stream = np.frombuffer(serialize_dtc(tn), np.uint8)
+        pn, t_pn = timed(deserialize_dtc, stream, N, M)
+        pp, t_pp = timed(deserialize_dtc, stream, N, M, use_native=False)
+        check(all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(pn, pp)), "DTC parse: native != Python")
+        dn, t_dn = timed(decode_dtc_to_codes, stream, N, M)
+        dp, t_dp = timed(decode_dtc_to_codes, stream, N, M, use_native=False)
+        check(np.array_equal(dn, dp) and np.array_equal(dn, codes[order]),
+              "DTC decode: native != Python or not lossless")
+        ds = np.frombuffer(serialize_diff_index(codes), np.uint8)
+        xn, t_xn = timed(diff_index_decode_native, ds, N, M)
+        xp, t_xp = timed(decode_diff_index, ds, N, M, K)
+        check(np.array_equal(xn, xp) and np.array_equal(xn, codes),
+              "diff index decode: native != Python or not lossless")
+        log(f"{tag} DTC stream {len(stream)} bytes: parse native "
+            f"{t_pn:.4f} s / Python {t_pp:.3f} s, decode native {t_dn:.4f} s "
+            f"/ Python {t_dp:.3f} s; diff index {len(ds)} bytes: decode "
+            f"native {t_xn:.4f} s / Python {t_xp:.3f} s; byte-equal")
+        q8 = rng.normal(size=(8, D)).astype(np.float32)
+        table = adc_table(cw, torch.from_numpy(q8).to(dev))
+        dr, ir = adc_query_topk(table, codes_db, N, TOP_K, 16384)
+        tab_np = table.cpu().numpy()
+        t = time.perf_counter()
+        scans = [scan_query_native(stream, N, M, K, tab_np[b], TOP_K)
+                 for b in range(8)]
+        t_scan = time.perf_counter() - t
+        d_n = np.stack([s[0] for s in scans])
+        ids_n = np.stack([tn.vec_id[s[1]] for s in scans]).astype(np.int64)
+        check(np.allclose(d_n, dr.cpu().numpy(), rtol=1e-5, atol=0),
+              "scan_query_native distances vs adc_query_topk")
+        audit_ties(table, codes_db64, torch.from_numpy(ids_n).to(dev), ir,
+                   rtol=1e-5)
+        log(f"{tag} scan_query_native, 8 queries over the DTC stream: "
+            f"{t_scan:.4f} s; distances within rtol 1e-5 of adc_query_topk "
+            f"(max |d| diff {float(np.abs(d_n - dr.cpu().numpy()).max()):.3g}"
+            f"), ids up to audited ties")
+        del tp, pn, pp, dn, dp, ds, xn, xp
+
+        # -- the exact-MST tree ----------------------------------------
+        cm = codes[:MST_N]
+        mst, t_mst = timed(find_edges_exact_mst, cm, K)
+        ra, t_ra = timed(find_edges_by_diff, cm, K=K, method=1)
+        kids = mst.edges[:, 1].astype(np.int64)
+        check(len(mst.edges) == MST_N - 1
+              and len(np.unique(kids)) == MST_N - 1
+              and mst.root_id not in set(kids.tolist()),
+              "the exact-MST tree does not span")
+        check(mst.n_diffs <= ra.n_diffs,
+              "the exact MST has more diffs than the approximate tree")
+        tm = build_layout(cm, mst.edges, mst.root_id, K=K, tables="skip")
+        h_before = tree_height(mst.edges, mst.root_id, MST_N)
+        s_m, t_ser = timed(serialize_dtc, tm)          # repairs tm in place
+        check(int(tm.depth.max()) <= 15, "repair left depth > 15")
+        om = tm.vec_id.astype(np.int64)
+        check(np.array_equal(decode_dtc_to_codes(
+            np.frombuffer(s_m, np.uint8), MST_N, M), cm[om]),
+            "the exact-MST DTC is not lossless")
+        ta = build_layout(cm, ra.edges, ra.root_id, K=K, tables="skip")
+        s_a = serialize_dtc(ta)
+        em = FusedCompressedEngine(cw, cm[om], row_to_db=om,
+                                   precision="int16", device=dev)
+        bpv_a = build_stream_tiles(
+            cm[ta.vec_id.astype(np.int64)]).bytes_per_vec()
+        log(f"{tag} exact MST (N={MST_N}, cut): edges {t_mst:.2f} s "
+            f"(approximate {t_ra:.2f} s), diffs {mst.n_diffs} (approximate "
+            f"{ra.n_diffs}), height {h_before} -> {int(tm.depth.max())} by "
+            f"serialize_dtc's repair ({t_ser:.2f} s); DTC B/vec "
+            f"{len(s_m) / MST_N:.4f} (approximate {len(s_a) / MST_N:.4f}); "
+            f"stream tiles B/vec {em.bytes_per_vec():.4f} (approximate "
+            f"{bpv_a:.4f}; phase 3's approximate tree at N={N}: "
+            f"{bpv3:.4f}); lossless")
+        build.reset_launch_counts()
+        for _ in range(2):
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            table, qop, uq, cert, b = em.prepare(q)
+            mins, echo = em.scan(qop, uq)
+            d, ids = em.select(table, cert, mins, echo, b, TOP_K)
+            check_batch(table[:b], codes_db, codes_db64[:MST_N], d, ids,
+                        n=MST_N)
+        counts = build.launch_counts()
+        check(counts["stream_mins"] > 0 and counts["rerank"] > 0,
+              f"the exact-MST engine's kernels: {counts}")
+        log(f"int16 engine over its DFS order: 2 batches of {B} bit-equal "
+            f"to adc_query_topk; launches B1 {counts['stream_mins']}, B2 "
+            f"{counts['rerank']}")
+        del em, mins, echo, tm, ta, mst, ra
+
+        # -- rotation, block-aware size, bit format (cut) --------------
+        cr = codes[:ROTATE_N]
+        mr = find_edges_exact_mst(cr, K)
+        h, t_h = timed(tree_height, mr.edges, mr.root_id, ROTATE_N)
+        (oe, root2, h2), t_rot = timed(rotate_tree, mr.edges, mr.root_id,
+                                       ROTATE_N)
+        check(h2 <= h and tree_height(oe, root2, ROTATE_N) == h2,
+              "rotate_tree did not lower the height")
+        log(f"{tag} tree_height / rotate_tree (exact MST, N={ROTATE_N}, "
+            f"cut): height {h} -> {h2}, {t_h:.3f} s / {t_rot:.3f} s")
+        bas, t_bas = timed(block_aware_size, tree)
+        log(f"{tag} block_aware_size (phase 3's tree): {bas['blocks']} "
+            f"blocks of 4096 B = {bas['bytes']} B "
+            f"({bas['bytes'] / N:.4f} B/vec; plain {bas['plain_bytes']}), "
+            f"{t_bas:.3f} s")
+        rb = find_edges_by_diff(cr, K=K, method=1)
+        tb = build_layout(cr, rb.edges, rb.root_id, K=K, tables="skip")
+        check(int(tb.depth.max()) <= 7, "the bit format's depth field "
+                                        "holds 3 bits")
+        (bs, n_bits), t_bs = timed(serialize_bits, tb)
+        cb, t_bd = timed(deserialize_bits, bs, n_bits, ROTATE_N, M)
+        check(np.array_equal(cb, cr[tb.vec_id.astype(np.int64)]),
+              "the bit format is not lossless")
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        (d, ids), t_qb = timed(query_bits, bs, n_bits, ROTATE_N, M, cw_np,
+                               q, tb.vec_id, top_k=TOP_K, device=dev)
+        big_check(cw, q, codes_db, codes_db64[:ROTATE_N], d, ids, ROTATE_N)
+        log(f"{tag} bit format (N={ROTATE_N}, cut): {n_bits} bits, write "
+            f"{t_bs:.2f} s, read {t_bd:.2f} s, lossless; query_bits B={B} "
+            f"{t_qb:.3f} s, bit-equal to adc_query_topk")
+
+        # -- row store --------------------------------------------------
+        raw = rng.integers(0, 256, (N, RAW_D), dtype=np.uint8)
+        rs, t_rw = timed(serialize_dtc_row_store, tree, raw)
+        check(len(rs) == len(stream) + N * RAW_D, "row-store size")
+        (cr_, raw_r), t_rr = timed(deserialize_dtc_row_store, rs, N, M,
+                                   RAW_D)
+        check(np.array_equal(cr_, codes[order])
+              and np.array_equal(raw_r, raw[order]),
+              "the row store is not lossless")
+        (d, ids, rows), t_qr = timed(query_row_store, rs, N, M, RAW_D, cw_np,
+                                     q, tree.vec_id, top_k=TOP_K, device=dev)
+        big_check(cw, q, codes_db, codes_db64, d, ids, N)
+        check(np.array_equal(rows, raw[ids]), "row store: raw rows")
+        log(f"{tag} row store (N={N}, {RAW_D} raw B a row): {len(rs)} "
+            f"bytes, write {t_rw:.2f} s, read {t_rr:.2f} s, lossless; "
+            f"query_row_store B={B} {t_qr:.3f} s, distances bit-equal to "
+            f"adc_query_topk, raw rows = raw[ids]")
+        del rs, raw, raw_r, cr_, stream
+
+        # -- legacy prefix tree (cut) ----------------------------------
+        cw2, t_dich = timed(dichotomize_codewords, cw_np, device=dev)
+        for m in range(M):
+            check(np.array_equal(np.unique(cw2[m], axis=0),
+                                 np.unique(cw_np[m], axis=0)),
+                  "dichotomize_codewords is not a permutation")
+        codes2 = pq_encode(torch.from_numpy(cw2).to(dev),
+                           legacy_x).cpu().numpy()
+        store = BitVecsStore(codes2)
+        ql = legacy_x[rng.integers(0, LEGACY_N, 16)] + 0.02
+        d1, _ = query_plain(cw2, ql, codes2, top_k=1, engine="xla",
+                            device=dev)
+        t = time.perf_counter()
+        nodes = []
+        for b in range(len(ql)):
+            _, dist, st = prefix_tree_query(store, cw2, ql[b],
+                                            codes_db=codes2)
+            check(abs(dist - float(d1[b, 0])) < 1e-3,
+                  f"prefix_tree_query top-1 {dist} != {float(d1[b, 0])}")
+            nodes.append(st["nodes_expanded"])
+        t_pq = time.perf_counter() - t
+        log(f"{tag} legacy (N={LEGACY_N}, cut): dichotomize_codewords on "
+            f"the card {t_dich:.2f} s; 16 prefix_tree_query {t_pq:.3f} s, "
+            f"nodes expanded {min(nodes)}-{max(nodes)}; top-1 within 1e-3 "
+            f"of query_plain")
+
+        # -- the one-rung sharded step over phase 8's slot tiles --------
+        ql = (legacy_x[rng.integers(0, LEGACY_N, B)]
+              + rng.normal(size=(B, D)).astype(np.float32) * QUERY_SIGMA)
+        sharded_step_case(dev, tag, f"D={D}", cw, codes[order], order, ql,
+                          codes_db, codes_db64, N, tiles=dt)
+        # D not divisible by M: pq_learn pads D up to M*Ds with zeros, so
+        # the block-diagonal codebook's last columns are zero
+        xs = np.ascontiguousarray(legacy_x[:, :ODD_D])
+        gen = torch.Generator(device=dev).manual_seed(18)
+        cw_o = pq_learn(gen, xs, M=M, K=K, max_iters=20, n_init=1,
+                        device=dev)
+        Ds_o = cw_o.shape[2]
+        check(Ds_o * M > ODD_D and not bool(cw_o[M - 1, :, ODD_D - (M - 1)
+                                                   * Ds_o:].any()),
+              "pq_learn did not zero-pad the last subspace")
+        codes_o = pq_encode(cw_o, xs).cpu().numpy()
+        order_o = np.lexsort(codes_o.T[::-1])
+        db_o = torch.from_numpy(pad_codes(codes_o, 16384)).to(dev)
+        qo = (xs[rng.integers(0, LEGACY_N, B)]
+              + rng.normal(size=(B, ODD_D)).astype(np.float32) * QUERY_SIGMA)
+        sharded_step_case(dev, tag, f"D={ODD_D} (Ds {Ds_o}, zero-padded)",
+                          cw_o, codes_o[order_o], order_o, qo, db_o,
+                          db_o[:LEGACY_N].to(torch.int64), LEGACY_N)
+
+        # -- entry ------------------------------------------------------
+        fwd, args = flagship.entry(device=dev)
+        build.reset_launch_counts()
+        (d, rows), t_e = timed(fwd, *args)
+        counts = build.launch_counts()
+        check(counts["delta_mins_bf16"] > 0 and counts["rerank"] > 0,
+              f"entry's fwd: {counts}")
+        d2, rows2, ok = flagship.step(*args)
+        check(torch.equal(d, d2) and torch.equal(rows, rows2),
+              "entry: fwd != step")
+        ce = decode_delta_tiles(DeltaTiles(
+            row_data=args[4].cpu().numpy(), ovf=args[5].cpu().numpy(),
+            n_valid=flagship.N, M=M, S=args[4].shape[1] - 1,
+            Cap=args[5].shape[2]))
+        te = adc_table(args[0], args[1])
+        ce_t = torch.from_numpy(ce).to(dev)
+        dr, ir = adc_query_topk(te, ce_t, flagship.N, TOP_K, 1024)
+        check(ok.any() and torch.equal(d[ok], dr[ok]),
+              "entry: certified distances != adc_query_topk")
+        audit_ties(te[ok], ce_t.to(torch.int64), rows[ok], ir[ok])
+        log(f"{tag} entry(): fwd {t_e:.4f} s host wall (first call), ok "
+            f"{float(ok.float().mean()):.4f}; B5 {counts['delta_mins_bf16']},"
+            f" B2 {counts['rerank']}; certified distances bit-equal to "
+            f"adc_query_topk, rows up to audited ties")
 
 
 if __name__ == "__main__":

@@ -577,8 +577,11 @@ def task_diff_scan(args, metrics: Metrics):
     """Query over the sequential diff index (reference ``diff_scan``,
     ``deltapq_approx_tree_main.cpp:428-495`` /
     ``query_processing_diff_scan_o_direct``): decode the tree-less diff
-    stream losslessly (the Python decoder), then run the plain ADC scan
-    -- distances are identical to pqscan by construction."""
+    stream losslessly (the C++ decoder of ``native/`` at K <= 256 and
+    M <= 8 when the library is available, else the Python loop), then
+    run the plain ADC scan -- distances are identical to pqscan by
+    construction."""
+    from .native import diff_index_decode_native
     from .ops.adc import query_plain
     from .tree.serialize import decode_diff_index
 
@@ -594,7 +597,11 @@ def task_diff_scan(args, metrics: Metrics):
         n_bytes = int(np.fromfile(f, np.int64, 1)[0])
         stream = np.fromfile(f, np.uint8, n_bytes)
     with metrics.stage("decode"):
-        decoded = decode_diff_index(stream, n_codes, args.m, args.k)
+        # the C++ decoder takes one byte a diff and an 8-bit bitmap
+        decoded = (diff_index_decode_native(stream, n_codes, args.m)
+                   if args.k <= 256 and args.m <= 8 else None)
+        if decoded is None:
+            decoded = decode_diff_index(stream, n_codes, args.m, args.k)
     if not np.array_equal(decoded, codes[:n_codes]):
         raise RuntimeError("diff index decode mismatch")
     q = _load_queries(args)

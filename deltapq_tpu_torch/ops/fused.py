@@ -683,29 +683,48 @@ class DedupCompressedEngine:
         self.order = order
         self.n_rows = len(codes_db)
         self._unique_codes = sc[new]
-        self.engine = None
+        self._precision, self._fmt = precision, fmt
+        self._chunked_min_rows = chunked_min_rows
+        self._mesh = mesh
+        self._engine = None
         self._codes_pad = None
         if mesh is not None:
-            from ..parallel.fused_sharded import ShardedCompressedEngine
             from ..parallel.mesh import check_axis
 
             check_axis(mesh, shard_axis)
-            self.engine = ShardedCompressedEngine(
-                cwf, self._unique_codes, mesh, precision=precision)
-        elif self.n_unique <= self.EXACT_ALL_MAX_ROWS:
+        if mesh is None and self.n_unique <= self.EXACT_ALL_MAX_ROWS:
             n_pad = -(-self.n_unique // 1024) * 1024
             self._codes_pad = _codes_tensor(
                 self._unique_codes, n_pad, cwf.shape[1]).to(self.device)
-        elif self.n_unique > chunked_min_rows:
-            from ..bigscale import ChunkedCompressedEngine
-
-            self.engine = ChunkedCompressedEngine(
-                cwf, self._unique_codes, precision=precision,
-                resident=True, device=self.device)
         else:
-            self.engine = FusedCompressedEngine(
-                cwf, self._unique_codes, precision=precision, fmt=fmt,
-                device=self.device)
+            self.engine  # built at once: every query path needs it
+
+    @property
+    def engine(self):
+        """The inner engine over the distinct codes, built on first
+        access: a ``ShardedCompressedEngine`` with a mesh, a
+        ``ChunkedCompressedEngine`` above ``chunked_min_rows`` distinct
+        codes, else a ``FusedCompressedEngine``, each at ``precision``.
+        In the exact-all regime no query touches it."""
+        if self._engine is None:
+            cwf = self.codewords.cpu().numpy()
+            if self._mesh is not None:
+                from ..parallel.fused_sharded import ShardedCompressedEngine
+
+                self._engine = ShardedCompressedEngine(
+                    cwf, self._unique_codes, self._mesh,
+                    precision=self._precision)
+            elif self.n_unique > self._chunked_min_rows:
+                from ..bigscale import ChunkedCompressedEngine
+
+                self._engine = ChunkedCompressedEngine(
+                    cwf, self._unique_codes, precision=self._precision,
+                    resident=True, device=self.device)
+            else:
+                self._engine = FusedCompressedEngine(
+                    cwf, self._unique_codes, precision=self._precision,
+                    fmt=self._fmt, device=self.device)
+        return self._engine
 
     @property
     def n_unique(self) -> int:
@@ -715,8 +734,8 @@ class DedupCompressedEngine:
         """Device-resident tile bytes of the distinct codes amortized
         over ALL rows: the inner engine's, or in the exact-all regime
         the stream tiles it would build."""
-        if self.engine is not None:
-            return (self.engine.bytes_per_vec() * self.n_unique
+        if self._engine is not None:
+            return (self._engine.bytes_per_vec() * self.n_unique
                     / max(self.n_rows, 1))
         return (build_stream_tiles(self._unique_codes).nbytes()
                 / max(self.n_rows, 1))

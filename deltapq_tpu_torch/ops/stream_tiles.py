@@ -64,6 +64,14 @@ class StreamTiles:
     def n_planes(self) -> int:
         return (self.M + 7) // 8
 
+    @property
+    def n_tiles(self) -> int:
+        return self.row_data.shape[0]
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_tiles * TILE
+
     def nbytes(self) -> int:
         return self.row_data.nbytes + self.vals.nbytes
 

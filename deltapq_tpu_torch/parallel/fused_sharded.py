@@ -1,5 +1,6 @@
 """Sharded compressed engine: the slot-tile scan kernel over the port's
-mesh.
+mesh, and the one-rung sharded query step
+(``make_sharded_delta_query_fn``) it grew from.
 
 Counterpart of ``deltapq_tpu/parallel/fused_sharded.py``.  Each shard
 holds a contiguous range of the slot tiles (``ops/delta_tiles.py``)
@@ -36,9 +37,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import fused_kernels as fk
 from ..ops.delta_tiles import DeltaTiles, TILE, _full_planes, build_delta_tiles
 from ..ops.fused import FusedCompressedEngine, _np_f32, _select_with_escalation
-from .mesh import Mesh, all_gather, gather_topk, make_mesh
+from .mesh import Mesh, all_gather, gather_topk, make_mesh, shard_rows
 
 
 def _to(x, device):
@@ -50,6 +52,68 @@ def _current(device):
     device's streams."""
     return (torch.cuda.device(device) if device.type == "cuda"
             else nullcontext())
+
+
+def make_sharded_delta_query_fn(mesh: Mesh, top_k: int, n_sub: int,
+                                pool: int, S: int, *, Ds: int):
+    """The sharded slot-tile query step over the JAX operands: returns
+    ``fn(q, q2, table, cwbd, row_data, ovf, n_valid) -> (dists [B,
+    top_k], rows [B, top_k] global scan rows, ok [B])``, with q [G*Dg, B]
+    bf16 (the grouped layout), q2 [B] f32, table [B, M, K] f32, cwbd the
+    bf16 block-diagonal codebook, row_data [nT, P+S, TILE] u8 and ovf
+    [nT, M, Cap] u8 whole (nT a multiple of the shard count; each shard
+    keeps its contiguous tile range, as ``shard_rows`` splits).
+
+    Each shard runs the slot-tile scan (kernel B5 on a card) and
+    ``select_rerank`` (kernel B2) at the fixed ``n_sub`` -- no ladder, so
+    ``ok`` (the AND of every shard's certificate) says which queries are
+    exact -- and ``gather_topk`` merges the shards.  A shard holding no
+    valid row launches nothing and adds +inf rows (ok); the JAX step
+    scans it all the same.  ``Ds`` is the codewords' subspace width,
+    which the CUDA kernels need and the JAX operands do not carry: the
+    block-diagonal codebook cannot give it, since a codebook learned on
+    D not divisible by M has zero columns at the end of its last
+    subspace (``ops.kmeans.pq_learn`` pads D up to M*Ds)."""
+
+    def fn(q, q2, table, cwbd, row_data, ovf, n_valid):
+        n_valid = int(n_valid)
+        M = ovf.shape[1]
+        rds, ovfs = shard_rows(mesh, row_data), shard_rows(mesh, ovf)
+        rows_local = rds[0].shape[0] * TILE
+        per_dev = {}
+        ds, rows, oks = [], [], []
+        for g, dev, rd, ov in zip(mesh.shard_ids(), mesh.devices, rds, ovfs):
+            if dev not in per_dev:
+                cw = cwbd.to(dev)
+                compact = None
+                if dev.type == "cuda":
+                    compact = fk.compact_codebook(cw, M, Ds, "bf16")
+                per_dev[dev] = (q.to(dev), q2.to(dev), table.to(dev), cw,
+                                compact)
+            qd, q2d, td, cw, compact = per_dev[dev]
+            base = g * rows_local
+            local_valid = min(max(n_valid - base, 0), rows_local)
+            B = qd.shape[1]
+            if local_valid == 0:
+                ds.append(torch.full((B, top_k), float("inf"), device=dev))
+                rows.append(torch.full((B, top_k), -1, dtype=torch.int64,
+                                       device=dev))
+                oks.append(torch.ones(B, dtype=torch.bool, device=dev))
+                continue
+            with _current(dev):
+                mins, echo = fk.fused_delta_mins(
+                    qd, cw, rd, ov, local_valid, S, compact=compact,
+                    mode="bf16")
+                d, r, ok = fk.select_rerank(
+                    fk.pool_mins_nb(mins, pool), q2d, td, echo, local_valid,
+                    top_k, n_sub, pool, prepooled=True)
+            ds.append(d)
+            rows.append(torch.where(r >= 0, r.to(torch.int64) + base, -1))
+            oks.append(ok)
+        d, r = gather_topk(mesh, ds, rows, top_k)
+        return d, r, all_gather(mesh, oks).all(dim=0)
+
+    return fn
 
 
 class ShardedCompressedEngine:

@@ -5,9 +5,10 @@ per-node pruning bounds from the K x K inter-centroid tables
 (``mkk_tables``, ``ancestor_max_dists``; zero in the light build,
 ``tables="skip"``), CSR adjacency with children ordered by descending
 ``max_dist2p`` (natural order in the light build) or by code, the
-explicit-stack DFS numbering, and per-node diff lists vs the parent.
-The port uses the Python DFS: it loads no native library.  The tests
-hold every field equal to the original's.
+DFS numbering (the C++ ``dfs_layout`` of ``native/``, or the
+explicit-stack Python loop when the library is unavailable), and
+per-node diff lists vs the parent.  The tests hold every field equal to
+the original's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from ..native import dfs_layout_native
 
 
 @dataclass
@@ -44,12 +47,17 @@ class DeltaTree:
     def decode_codes(self) -> np.ndarray:
         """Reconstruct the full [N_db, M] code array (losslessness
         check): a node's code is its parent's with its diffs applied,
-        level by level (parents precede children in DFS order)."""
+        level by level (parents precede children in DFS order).  The
+        levels come from the parent pointers: the u8 ``depth`` wraps in a
+        tree taller than 255 (an exact-MST tree of 65,536 rows), where
+        the JAX method, which reads ``depth``, decodes wrongly and so
+        feeds ``repair_tree`` wrong codes."""
         n = self.n
         codes = np.zeros((n, self.M), dtype=self.diff_to.dtype)
-        maxd = int(self.depth.max()) if n else 0
+        depth = _depths(self.parent_pos)
+        maxd = int(depth.max()) if n else 0
         for d in range(maxd + 1):
-            sel = np.flatnonzero(self.depth == d)
+            sel = np.flatnonzero(depth == d)
             if d > 0:
                 codes[sel] = codes[self.parent_pos[sel]]
             cnt = self.diff_num[sel].astype(np.int64)
@@ -60,6 +68,20 @@ class DeltaTree:
         out = np.empty_like(codes)
         out[self.vec_id.astype(np.int64)] = codes
         return out
+
+
+def _depths(parent_pos: np.ndarray) -> np.ndarray:
+    """Exact int64 depth of every node from its parent pointer (-1 at
+    the root), by pointer jumping: O(n log height)."""
+    jump = parent_pos.astype(np.int64)
+    depth = (jump >= 0).astype(np.int64)      # hops from a node to jump
+    while True:
+        live = np.flatnonzero(jump >= 0)
+        if not len(live):
+            return depth
+        up = jump[live]
+        depth[live] += depth[up]
+        jump[live] = jump[up]
 
 
 def _ragged_indices(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -121,6 +143,41 @@ def ancestor_max_dists(codes: np.ndarray, parents: np.ndarray,
     return max_dists, max_dist2p
 
 
+def _dfs_python(n, child_sorted, offsets, root_id):
+    """Explicit-stack DFS over the CSR children: (dfs_vec, dfs_parent,
+    dfs_depth), the order of the native ``dfs_layout``."""
+    dfs_vec = np.empty(n, np.uint32)
+    dfs_parent = np.empty(n, np.int32)
+    dfs_depth = np.empty(n, np.uint8)
+    pos_of = np.empty(n, np.int64)
+    dfs_vec[0] = root_id
+    dfs_parent[0] = -1
+    dfs_depth[0] = 0
+    pos_of[root_id] = 0
+    idx = 1
+    cur = offsets.copy()
+    stack_arr = np.empty(n + 1, np.int64)
+    sp = 0
+    stack_arr[0] = root_id
+    while sp >= 0:
+        v = stack_arr[sp]
+        if cur[v] < offsets[v + 1]:
+            c = child_sorted[cur[v]]
+            cur[v] += 1
+            dfs_vec[idx] = c
+            dfs_parent[idx] = pos_of[v]
+            dfs_depth[idx] = dfs_depth[pos_of[v]] + 1
+            pos_of[c] = idx
+            idx += 1
+            sp += 1
+            stack_arr[sp] = c
+        else:
+            sp -= 1
+    if idx != n:
+        raise ValueError(f"forest not reachable from root: {idx} != {n}")
+    return dfs_vec, dfs_parent, dfs_depth
+
+
 def build_layout(codes: np.ndarray, edges: np.ndarray, root_id: int,
                  K: int, codewords: Optional[np.ndarray] = None,
                  tables=None, child_order: str = "dist") -> DeltaTree:
@@ -162,50 +219,29 @@ def build_layout(codes: np.ndarray, edges: np.ndarray, root_id: int,
     counts = np.bincount(par_sorted, minlength=n)
     offsets = np.concatenate([[0], np.cumsum(counts)])
 
-    # iterative explicit-stack DFS (the dfs_node_layout ordering)
-    dfs_vec = np.empty(n, np.uint32)
-    dfs_parent = np.empty(n, np.int32)
-    dfs_depth = np.empty(n, np.uint8)
-    pos_of = np.empty(n, np.int64)
-    dfs_vec[0] = root_id
-    dfs_parent[0] = -1
-    dfs_depth[0] = 0
-    pos_of[root_id] = 0
-    idx = 1
-    cur = offsets.copy()
-    stack_arr = np.empty(n + 1, np.int64)
-    sp = 0
-    stack_arr[0] = root_id
-    while sp >= 0:
-        v = stack_arr[sp]
-        if cur[v] < offsets[v + 1]:
-            c = child_sorted[cur[v]]
-            cur[v] += 1
-            dfs_vec[idx] = c
-            dfs_parent[idx] = pos_of[v]
-            dfs_depth[idx] = dfs_depth[pos_of[v]] + 1
-            pos_of[c] = idx
-            idx += 1
-            sp += 1
-            stack_arr[sp] = c
-        else:
-            sp -= 1
-    if idx != n:
-        raise ValueError(f"forest not reachable from root: {idx} != {n}")
+    # the dfs_node_layout ordering: the C++ DFS (native/dtc_native.cpp),
+    # or an explicit-stack Python loop when the library is unavailable
+    native_out = dfs_layout_native(n, child_sorted.astype(np.uint32),
+                                   offsets.astype(np.int64), int(root_id))
+    if native_out is not None:
+        dfs_vec, dfs_parent, dfs_depth = native_out[:3]
+    else:
+        dfs_vec, dfs_parent, dfs_depth = _dfs_python(n, child_sorted,
+                                                     offsets, root_id)
 
-    # child_pos_start / child_num: a DFS subtree of position i ends just
-    # before the next position with depth <= depth[i]
+    # child_pos_start / child_num: a DFS subtree of position i is the
+    # positions i .. i + size - 1, so child_num is its size less one.
+    # Sizes add up level by level from the deepest, over the exact
+    # depths (the u8 depth wraps above 255)
     child_pos_start = np.arange(1, n + 1, dtype=np.uint32)
-    depths_i64 = dfs_depth.astype(np.int64)
-    subtree_end = np.full(n, n, np.int64)
-    for d in range(int(depths_i64.max()) + 1):
-        at_or_above = np.flatnonzero(depths_i64 <= d)
-        mine = np.flatnonzero(depths_i64 == d)
-        nxt = np.searchsorted(at_or_above, mine, side="right")
-        subtree_end[mine] = np.where(
-            nxt < len(at_or_above),
-            at_or_above[np.minimum(nxt, len(at_or_above) - 1)], n)
-    child_num = (subtree_end - np.arange(n) - 1).astype(np.uint32)
+    depths = _depths(dfs_parent)
+    by_depth = np.argsort(depths, kind="stable")
+    level_ends = np.cumsum(np.bincount(depths))
+    size = np.ones(n, np.int64)
+    for hi, lo in zip(level_ends[:0:-1], level_ends[-2::-1]):
+        lvl = by_depth[lo:hi]
+        np.add.at(size, dfs_parent[lvl].astype(np.int64), size[lvl])
+    child_num = (size - 1).astype(np.uint32)
 
     # diffs vs parent code, in subspace order; the root stores its full
     # code as M pseudo-diffs

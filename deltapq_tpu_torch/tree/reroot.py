@@ -1,10 +1,13 @@
-"""Tree re-rooting for the DTC depth limit.
+"""Tree re-rooting: the DTC depth limit and height reduction.
 
-A NumPy copy of the parts of ``deltapq_tpu/tree/reroot.py`` that
-``serialize_dtc`` needs: ``reroot_min_height`` (the tree's center, found
-with two BFS sweeps, is a minimum-height root) and ``repair_tree``,
-which rebuilds a tree deeper than the DTC format's 4-bit depth nibble.
-The tests hold its output equal to the original's.
+A NumPy copy of ``deltapq_tpu/tree/reroot.py``: ``reroot_min_height``
+(the tree's center, found with two BFS sweeps, is a minimum-height
+root), ``repair_tree``, which rebuilds a tree deeper than the DTC
+format's 4-bit depth nibble, ``tree_height`` and ``rotate_tree`` (the
+reference's iterative root rotation, ``PQBase::rotate_trees``).  The
+last two walk the tree level by level over CSR arrays where the
+original walks Python dicts, in the same order.  The tests hold every
+output equal to the original's.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .layout import _ragged_indices
 
 def _bfs_farthest(adj: List[List[int]], start: int
                   ) -> Tuple[int, np.ndarray]:
@@ -72,6 +76,82 @@ def reroot_min_height(edges: np.ndarray, n: int
                     nxt.append(c)
         frontier = nxt
     return oriented[:k], center, new_height
+
+
+def _csr(edges: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Undirected CSR adjacency (neighbors, offsets [n+1]); each node's
+    neighbors in edge order, as appending edge by edge lists them."""
+    e = np.asarray(edges, np.int64).reshape(-1, 2)
+    src = e.reshape(-1)
+    dst = e[:, ::-1].reshape(-1)
+    order = np.argsort(src, kind="stable")
+    off = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=n))])
+    return dst[order], off
+
+
+def _bfs_levels(nbr: np.ndarray, off: np.ndarray, root: int, n: int
+                ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """BFS from ``root``: the levels (each in queue order) and each
+    reached node's parent (-1 for the root and unreached nodes)."""
+    parent = np.full(n, -1, np.int64)
+    seen = np.zeros(n, bool)
+    seen[root] = True
+    levels = [np.array([root], np.int64)]
+    while True:
+        fr = levels[-1]
+        cnt = off[fr + 1] - off[fr]
+        w = nbr[_ragged_indices(off[fr], cnt)]
+        p = np.repeat(fr, cnt)
+        new = ~seen[w]
+        w, p = w[new], p[new]
+        if not len(w):
+            return levels, parent
+        _, first = np.unique(w, return_index=True)
+        first.sort()
+        w, p = w[first], p[first]
+        seen[w] = True
+        parent[w] = p
+        levels.append(w)
+
+
+def tree_height(edges: np.ndarray, root: int, n: int) -> int:
+    """Height of the tree when rooted at ``root``."""
+    nbr, off = _csr(edges, n)
+    return len(_bfs_levels(nbr, off, int(root), n)[0]) - 1
+
+
+def rotate_tree(edges: np.ndarray, root: int, n: int
+                ) -> Tuple[np.ndarray, int, int]:
+    """Iterative root rotation (``PQBase::rotate_trees``,
+    ``pqbase.cpp:177-286``): repeatedly move the root to its highest
+    child while that reduces the height -- a greedy descent toward the
+    tree center.  Returns (oriented edges, new_root, new_height)."""
+    nbr, off = _csr(edges, n)
+
+    def heights_from(r):
+        levels, parent = _bfs_levels(nbr, off, r, n)
+        h = np.zeros(n, np.int64)
+        for lvl in reversed(levels[1:]):
+            np.maximum.at(h, parent[lvl], h[lvl] + 1)
+        return h, parent, np.concatenate(levels)
+
+    root = int(root)
+    min_height = None
+    while True:
+        h, parent, order = heights_from(root)
+        if min_height is not None and min_height <= h[root]:
+            break
+        min_height = h[root]
+        kids = nbr[off[root]:off[root + 1]]
+        # the first child of the greatest height, if that height is > 0
+        if not len(kids) or h[kids].max() <= 0:
+            break
+        root = int(kids[np.argmax(h[kids])])
+
+    h, parent, order = heights_from(root)
+    rest = order[1:]
+    oriented = np.stack([parent[rest], rest], axis=1).astype(np.uint32)
+    return oriented, root, int(h[root])
 
 
 def repair_tree(tree, max_depth: int = 15, codewords=None, tables=None):

@@ -1,11 +1,13 @@
 """DTC compressed-code serialization, byte-exact with the reference.
 
-A NumPy copy of the DTC and diff-index parts of
-``deltapq_tpu/tree/serialize.py`` (``serialize_dtc``, ``write_dtc``,
-``read_dtc_raw``, ``deserialize_dtc``, ``decode_dtc_to_codes``;
-``serialize_diff_index``, ``write_diff_index``, ``decode_diff_index``);
-the port has no native parser, so the decoders are the Python loops.
-The tests hold the bytes equal to the original's.
+A NumPy copy of ``deltapq_tpu/tree/serialize.py``: the DTC stream
+(``serialize_dtc``, ``write_dtc``, ``read_dtc_raw``, ``deserialize_dtc``,
+``decode_dtc_to_codes``; the decoders take the C++ parser of ``native/``
+when ``use_native`` and the library is available, else the Python
+loops), the sequential diff index, the block-aware size of reference
+method 4, the legacy bit format and the row-store variant, with
+``query_bits`` and ``query_row_store`` scanning the decoded codes on a
+device.  The tests hold the bytes equal to the original's.
 
 Format (K <= 256, M <= 8): file header ``int64 n_codes, int64 n_bytes``;
 stream: M root code bytes, then the N-1 non-root nodes in DFS order,
@@ -21,6 +23,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ..native import dtc_decode_native, dtc_parse_native
 from .layout import DeltaTree, _ragged_indices
 
 
@@ -116,12 +119,19 @@ _POPCOUNT = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
                           axis=1).sum(axis=1).astype(np.int64)
 
 
-def deserialize_dtc(stream: np.ndarray, n_codes: int, M: int
+def deserialize_dtc(stream: np.ndarray, n_codes: int, M: int,
+                    use_native: bool = True,
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                np.ndarray]:
     """Parse a DTC stream -> (depth [N], bitmap [N], diff_to ragged,
     diff_off [N+1]).  Position 0 is the root (depth 0, all M subspaces
-    set).  Depth nibbles are read with & 15, as written."""
+    set).  Depth nibbles are read with & 15, as written.  With
+    ``use_native`` the C++ parser runs when the library is available
+    (its ``ValueError`` on a malformed stream propagates)."""
+    if use_native:
+        out = dtc_parse_native(stream, n_codes, M)
+        if out is not None:
+            return out
     stream = np.asarray(stream, np.uint8)
     depths = np.zeros(n_codes, np.uint8)
     bitmaps = np.zeros(n_codes, np.uint8)
@@ -157,13 +167,19 @@ def deserialize_dtc(stream: np.ndarray, n_codes: int, M: int
     return depths, bitmaps, np.concatenate(diff_tos), diff_off
 
 
-def decode_dtc_to_codes(stream: np.ndarray, n_codes: int, M: int
-                        ) -> np.ndarray:
+def decode_dtc_to_codes(stream: np.ndarray, n_codes: int, M: int,
+                        use_native: bool = True) -> np.ndarray:
     """Lossless decode of a DTC stream to the [N, M] code array (row
     order = DFS order; the tree's vec_id maps rows to database ids),
     with the depth-stack discipline of the reference decoder: a node's
-    parent state lives at stack[depth-1]."""
-    depths, bitmaps, diff_to, diff_off = deserialize_dtc(stream, n_codes, M)
+    parent state lives at stack[depth-1].  Takes the C++ decoder when
+    ``use_native`` and the library is available."""
+    if use_native:
+        out = dtc_decode_native(stream, n_codes, M)
+        if out is not None:
+            return out
+    depths, bitmaps, diff_to, diff_off = deserialize_dtc(
+        stream, n_codes, M, use_native=False)
     codes = np.zeros((n_codes, M), np.uint8)
     stack = np.zeros((16 + 2, M), np.uint8)
     stack[0] = diff_to[:M]
@@ -259,3 +275,184 @@ def decode_diff_index(stream: np.ndarray, n_codes: int, M: int,
             off += nd
         codes[i] = row
     return codes
+
+
+def block_aware_size(tree: DeltaTree, block_bytes: int = 4096) -> dict:
+    """Block-aware packing size (reference method 4,
+    ``qnodes_to_compressed_codes_opt_block_aware``): DFS node records
+    packed greedily into fixed blocks, each also holding a 10-bit node
+    count and its entry node's full code so blocks decode on their own.
+    Returns the block count and bytes (a measurement; the reference
+    prints it and exits)."""
+    n = tree.n
+    M = tree.M
+    nd = tree.diff_num[1:].astype(np.int64)
+    # per node: ~0.5 B shared depth nibble + 1 B bitmap + diffs
+    rec = 1.5 + 1 + nd
+    header = 2 + M  # 10-bit count (2 B) + entry code
+    blocks = 1
+    used = header + M  # the first block carries the root code
+    for r in rec:
+        if used + r > block_bytes:
+            blocks += 1
+            used = header
+        used += r
+    return {"blocks": blocks, "bytes": blocks * block_bytes,
+            "plain_bytes": n * M}
+
+
+# --------------------------------------------------------------------------
+# Legacy bit-level format -- qnodes_to_compressed_codes (:1498-1596)
+# --------------------------------------------------------------------------
+
+def serialize_bits(tree: DeltaTree) -> Tuple[bytes, int]:
+    """Legacy bit format: per node (root included) 3-bit depth + 8-bit
+    bitmap + 8 bits per diff "to", bits packed LSB-first.  Returns
+    (bytes, n_bits)."""
+    n, M = tree.n, tree.M
+    if M > 8:
+        raise NotImplementedError("bit format bitmap is 8 bits")
+    bm = _bitmaps_from_diffs(tree.diff_num, tree.diff_off, tree.diff_m, n)
+    depth = tree.depth.astype(np.uint8)
+    nd = tree.diff_num.astype(np.int64)
+    total_bits = int(3 * n + 8 * n + 8 * nd.sum())
+    out = np.zeros(total_bits, np.uint8)
+    pos = 0
+    for i in range(n):
+        d = int(depth[i])
+        out[pos:pos + 3] = [(d >> j) & 1 for j in range(3)]
+        pos += 3
+        b = int(bm[i])
+        out[pos:pos + 8] = [(b >> j) & 1 for j in range(8)]
+        pos += 8
+        s, e = tree.diff_off[i], tree.diff_off[i + 1]
+        for v in tree.diff_to[s:e]:
+            v = int(v)
+            out[pos:pos + 8] = [(v >> j) & 1 for j in range(8)]
+            pos += 8
+    packed = np.packbits(out, bitorder="little")
+    return packed.tobytes(), total_bits
+
+
+def deserialize_bits(stream: bytes, n_bits: int, n_codes: int, M: int
+                     ) -> np.ndarray:
+    """Decode the legacy bit format back to [N, M] codes in DFS order."""
+    bits = np.unpackbits(np.frombuffer(stream, np.uint8),
+                         bitorder="little")[:n_bits]
+    codes = np.zeros((n_codes, M), np.uint8)
+    stack = np.zeros((16, M), np.uint8)
+    pos = 0
+
+    def take(k):
+        nonlocal pos
+        v = 0
+        for j in range(k):
+            v |= int(bits[pos + j]) << j
+        pos += k
+        return v
+
+    for i in range(n_codes):
+        d = take(3)
+        bm = take(8)
+        row = stack[d - 1].copy() if i else np.zeros(M, np.uint8)
+        for m in range(8):
+            if bm & (1 << m):
+                row[m] = take(8)
+        stack[d] = row
+        codes[i] = row
+    return codes
+
+
+# --------------------------------------------------------------------------
+# Row-store variant -- row_store_qnodes_to_compressed_codes_opt (:1598-1729)
+# --------------------------------------------------------------------------
+
+def _record_ends(tree: DeltaTree) -> np.ndarray:
+    """Stream offset just past each node's record in ``serialize_dtc``'s
+    layout: [N] (the root's M code bytes, then each node's optional depth
+    byte, bitmap and diffs)."""
+    n, M = tree.n, tree.M
+    j = np.arange(n - 1, dtype=np.int64)
+    depth_byte = (j % 2 == 0).astype(np.int64)
+    sizes = depth_byte + 1 + tree.diff_num[1:].astype(np.int64)
+    return np.concatenate([[M], M + np.cumsum(sizes)])
+
+
+def serialize_dtc_row_store(tree: DeltaTree, raw_vectors: np.ndarray
+                            ) -> bytes:
+    """DTC byte format with each node's raw vector bytes written right
+    after its record (the reference's row-store variant, for systems
+    that keep raw data beside the codes).  raw_vectors: [N_db, D] uint8
+    (bvecs semantics), indexed by database id.  ``serialize_dtc`` may
+    repair ``tree`` first, as it does alone."""
+    raw = np.asarray(raw_vectors, np.uint8)
+    base = np.frombuffer(serialize_dtc(tree), np.uint8)
+    n, d_raw = tree.n, raw.shape[1]
+    ends = _record_ends(tree)                 # after repair, if any
+    # a stream byte at p moves past the raw rows of every record ending
+    # at or before p; node j's raw row lands after j earlier raw rows
+    shift = np.searchsorted(ends, np.arange(len(base)), side="right")
+    out = np.empty(len(base) + n * d_raw, np.uint8)
+    out[np.arange(len(base)) + shift * d_raw] = base
+    at = ends + np.arange(n, dtype=np.int64) * d_raw
+    out[at[:, None] + np.arange(d_raw)] = raw[tree.vec_id.astype(np.int64)]
+    return out.tobytes()
+
+
+def deserialize_dtc_row_store(stream: bytes, n_codes: int, M: int,
+                              d_raw: int):
+    """Decode the row-store stream back to (codes [N, M] u8 DFS order,
+    raw vectors [N, d_raw] u8 DFS order): one walk over the record
+    sizes finds every raw row, which leaves a plain DTC stream for
+    ``decode_dtc_to_codes``."""
+    s = np.frombuffer(stream, np.uint8)
+    b = bytes(stream)
+    pc = _POPCOUNT.tolist()
+    raw_at = np.empty(n_codes, np.int64)
+    raw_at[0] = M
+    off = M + d_raw
+    i = 1
+    while i < n_codes:
+        pair = min(2, n_codes - i)
+        off += 1                                  # depth byte
+        for h in range(pair):
+            off += 1 + pc[b[off]]                 # bitmap + diffs
+            raw_at[i + h] = off
+            off += d_raw
+        i += pair
+    raw_idx = raw_at[:, None] + np.arange(d_raw)
+    keep = np.ones(len(s), bool)
+    keep[raw_idx.reshape(-1)] = False
+    keep[off:] = False
+    codes = decode_dtc_to_codes(s[keep], n_codes, M)
+    return codes, s[raw_idx]
+
+
+def query_row_store(stream: bytes, n_codes: int, M: int, d_raw: int,
+                    codewords: np.ndarray, queries: np.ndarray,
+                    vec_id: np.ndarray, top_k: int = 10, device=None):
+    """Query over the row-store stream: decode (lossless), the plain
+    ADC scan on ``device`` (None: the card), and the winners' raw
+    vectors.  Returns (dists [B, k], db_ids [B, k], raw_rows
+    [B, k, d_raw] u8)."""
+    from ..ops.adc import query_plain
+
+    codes, raw = deserialize_dtc_row_store(stream, n_codes, M, d_raw)
+    d, rows = query_plain(codewords, queries, codes, top_k=top_k,
+                          engine="xla", device=device)
+    ids = np.asarray(vec_id, np.int64)[rows]
+    return d, ids, raw[rows]
+
+
+def query_bits(stream: bytes, n_bits: int, n_codes: int, M: int,
+               codewords: np.ndarray, queries: np.ndarray,
+               vec_id: np.ndarray, top_k: int = 10, device=None):
+    """Query over the legacy bit-format stream: lossless decode, then
+    the plain ADC scan on ``device`` (None: the card).  Returns (dists,
+    db_ids)."""
+    from ..ops.adc import query_plain
+
+    codes = deserialize_bits(stream, n_bits, n_codes, M)
+    d, rows = query_plain(codewords, queries, codes, top_k=top_k,
+                          engine="xla", device=device)
+    return d, np.asarray(vec_id, np.int64)[rows]

@@ -1193,3 +1193,64 @@ def test_cli_on_the_card(cuda, tmp_path):
         for b in range(len(d)):
             assert set(i[b][d[b] < d[b, -1]]) == set(xi[b][xd[b] < xd[b,
                                                                     -1]])
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_sharded_delta_step_d_not_divisible_by_m(cuda, S):
+    """``make_sharded_delta_query_fn`` over a codebook learned on D=108
+    at M=8: ``pq_learn`` pads D to 112, so the last subspace's last 4
+    columns are zero in every centered codeword, and the step takes Ds
+    from its caller.  Every returned row carries its exact f32 distance,
+    the j-th is never below the exact j-th, and certified rows are the
+    exact scan's."""
+    from deltapq_tpu_torch.ops.delta_tiles import build_delta_tiles
+    from deltapq_tpu_torch.ops.encode import pq_encode
+    from deltapq_tpu_torch.ops.fused import _default_n_sub, _pool_for
+    from deltapq_tpu_torch.ops.kmeans import pq_learn
+    from deltapq_tpu_torch.parallel import make_mesh
+    from deltapq_tpu_torch.parallel.fused_sharded import \
+        make_sharded_delta_query_fn
+
+    rng = np.random.default_rng(108)
+    M, K, D, n, B, k = 8, 64, 108, 4096, 64, 10
+    centers = rng.normal(size=(64, D)).astype(np.float32) * 4
+    x = (centers[rng.integers(0, 64, n)]
+         + rng.normal(size=(n, D)).astype(np.float32) * 0.5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cw = pq_learn(gen, x, M=M, K=K, max_iters=10, n_init=1, device=cuda)
+    Ds = cw.shape[2]
+    assert Ds == 14 and not cw[M - 1, :, D - (M - 1) * Ds:].any()
+    codes = pq_encode(cw, x).cpu().numpy()
+    order = np.lexsort(codes.T[::-1])
+    tiles = build_delta_tiles(codes[order])
+    cw_np = cw.cpu().numpy()
+    q = np.zeros((B, M * Ds), np.float32)
+    q[:, :D] = x[rng.integers(0, n, B)] + rng.normal(size=(B, D)) * 0.5
+    mu = fk.codebook_center(cw_np)
+    qc = q - mu[None, :]
+    qk = torch.from_numpy(fk.pack_query_grouped(qc, M, Ds)).to(cuda)
+    table = adc_table(cw, torch.from_numpy(q).to(cuda))
+    ns_total = tiles.n_tiles // S * fk.TILE // fk.SUB
+    pool = _pool_for(ns_total)
+    ns = _default_n_sub(k, -(-ns_total // pool), fk.SUB * pool)
+    fn = make_sharded_delta_query_fn(make_mesh(S, device=cuda), k, ns,
+                                     pool, tiles.S, Ds=Ds)
+    d, rows, ok = fn(qk.to(torch.bfloat16).t().contiguous(),
+                     torch.from_numpy((qc * qc).sum(axis=1)).to(cuda),
+                     table,
+                     fk.build_blockdiag_codebook(cw_np, center=mu).to(cuda),
+                     torch.from_numpy(tiles.row_data).to(cuda),
+                     torch.from_numpy(tiles.ovf).to(cuda), n)
+    d, rows, ok = d.cpu().numpy(), rows.cpu().numpy(), ok.cpu().numpy()
+    tab = table.cpu().numpy()
+    ids = order[rows]
+    own = np.zeros_like(d)
+    for m in range(M):
+        own += tab[np.arange(B)[:, None], m, codes[ids, m]]
+    assert np.array_equal(own, d)
+    ed, _ = adc_query_topk(table, torch.from_numpy(codes).to(cuda), n, k,
+                           1024)
+    ed = ed.cpu().numpy()
+    assert (d >= ed).all()
+    assert ok.mean() >= 0.5
+    assert np.array_equal(d[ok], ed[ok])

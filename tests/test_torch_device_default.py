@@ -9,14 +9,16 @@ import pytest
 import torch
 
 import deltapq_tpu_torch
-from deltapq_tpu_torch import (bench_gist, bigscale, cli, convert, index,
-                               synth)
+from deltapq_tpu_torch import (bench_gist, bigscale, cli, convert, entry,
+                               index, synth)
 from deltapq_tpu_torch.eval import groundtruth
+from deltapq_tpu_torch.legacy import prefix_tree
 from deltapq_tpu_torch.ops import (adc, adc_kernels, decoded, delta, fused,
                                    kmeans)
 from deltapq_tpu_torch.parallel import (dryrun, fused_sharded, mesh,
                                         pipeline, runtime, sharded,
                                         sharded_tree)
+from deltapq_tpu_torch.tree import serialize
 
 ENTRY_POINTS = [
     index.DeltaPQIndex.__init__, index.DeltaPQIndex.build,
@@ -44,6 +46,8 @@ ENTRY_POINTS = [
     sharded.sharded_query_plain, sharded.sharded_query_decoded,
     pipeline.pipelined_query, sharded_tree.sharded_query_compressed,
     dryrun.dryrun_multichip,
+    serialize.query_bits, serialize.query_row_store,
+    prefix_tree.dichotomize_codewords, entry.entry,
 ]
 
 
@@ -102,6 +106,8 @@ def test_default_device_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         index.DeltaPQIndex(cw, codes, build_tree=False).search(
             np.zeros((1, 4), np.float32), 2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        entry.entry()
     # the CLI, before any task (update reads files only)
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(["-dataset", "unused", "-task", "update"])

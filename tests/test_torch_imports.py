@@ -54,7 +54,12 @@ def test_no_jax_in_port_sources():
     "deltapq_tpu_torch.parallel.dryrun",
     "multicard_check", "deltapq_tpu_torch.serving",
     "deltapq_tpu_torch.tree.with_id", "deltapq_tpu_torch.tree.traverse",
-    "deltapq_tpu_torch.tree.serialize", "deltapq_tpu_torch.tree.build"])
+    "deltapq_tpu_torch.tree.serialize", "deltapq_tpu_torch.tree.build",
+    "deltapq_tpu_torch.tree", "deltapq_tpu_torch.tree.exact_mst",
+    "deltapq_tpu_torch.tree.reroot", "deltapq_tpu_torch.native",
+    "deltapq_tpu_torch.native.api", "deltapq_tpu_torch.native.build",
+    "deltapq_tpu_torch.legacy", "deltapq_tpu_torch.legacy.prefix_tree",
+    "deltapq_tpu_torch.entry"])
 def test_module_alone_imports_without_jax(module):
     """Each module of the plain-scan family and of the CLI's layer on its
     own, in a fresh interpreter: it is there, and brings in neither jax

@@ -539,3 +539,121 @@ def test_two_process_gloo():
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
     assert "rank 0: OK" in outs[0] and "rank 1: OK" in outs[1]
+
+
+def _delta_fn_operands(data, S, n_rows):
+    """The operands of the JAX ``make_sharded_delta_query_fn`` step, as
+    its ``ShardedCompressedEngine`` builds them: slot tiles of the
+    lexsorted codes padded to a shard multiple, the centered grouped
+    bf16 queries, q2, the exact tables."""
+    from deltapq_tpu.ops import fused_pallas as jfp
+    from deltapq_tpu_torch.ops import fused_kernels as fk
+    from deltapq_tpu_torch.ops.delta_tiles import (TILE, _full_planes,
+                                                   build_delta_tiles)
+    from deltapq_tpu_torch.ops.fused import _default_n_sub, _pool_for
+
+    codes = data["codes"][:n_rows]
+    order = np.lexsort(codes.T[::-1])
+    tiles = build_delta_tiles(codes[order])
+    rd, ovf = tiles.row_data, tiles.ovf
+    nt = rd.shape[0]
+    nt_pad = -(-nt // S) * S
+    if nt_pad != nt:
+        rd = np.concatenate([rd, np.zeros((nt_pad - nt,) + rd.shape[1:],
+                                          rd.dtype)])
+        rd[nt:, :tiles.n_planes, 0] = _full_planes(M)
+        ovf = np.concatenate([ovf, np.zeros((nt_pad - nt,) + ovf.shape[1:],
+                                            ovf.dtype)])
+    cw, D = data["cw"], M * DS
+    q = np.zeros((128, 128), np.float32)
+    q[:B, :D] = data["q"]
+    mu = np.zeros(128, np.float32)
+    mu[:D] = fk.codebook_center(cw)
+    qc = q - mu[None, :]
+    qk = fk.pack_query_grouped(qc[:, :D], M, DS)
+    table = adc_table(torch.from_numpy(cw), torch.from_numpy(q[:, :D]))
+    ns_total = nt_pad // S * TILE // fk.SUB
+    pool = _pool_for(ns_total)
+    ns = _default_n_sub(TOPK, -(-ns_total // pool), fk.SUB * pool)
+    port = (torch.from_numpy(qk).to(torch.bfloat16).t().contiguous(),
+            torch.from_numpy((qc * qc).sum(axis=1)), table,
+            fk.build_blockdiag_codebook(cw, center=mu[:D]), rd, ovf,
+            tiles.n_valid)
+    jax_ops = (jax.numpy.asarray(qk.astype(jax.numpy.bfloat16).T),
+               jax.numpy.asarray((qc * qc).sum(axis=1)),
+               jax.numpy.asarray(table.numpy()),
+               jax.numpy.asarray(jfp.build_blockdiag_codebook(
+                   cw, center=mu[:D])), rd, ovf, tiles.n_valid)
+    return codes, order, tiles.S, ns, pool, port, jax_ops
+
+
+@pytest.mark.parametrize("S", SHARDS)
+def test_make_sharded_delta_query_fn_matches_jax(data, S):
+    """One fixed rung a shard, no ladder: the distances agree with the
+    JAX step (rtol 1e-5, atol 1e-4) and, certified here, equal the exact
+    scan; the rows agree up to audited ties."""
+    from deltapq_tpu.parallel.fused_sharded import \
+        make_sharded_delta_query_fn as j_make_fn
+    from deltapq_tpu_torch.parallel.fused_sharded import \
+        make_sharded_delta_query_fn
+
+    codes, order, S_slots, ns, pool, port, jops = _delta_fn_operands(
+        data, S, N)
+    fn = make_sharded_delta_query_fn(make_mesh(S, device=CPU), TOPK, ns,
+                                     pool, S_slots, Ds=DS)
+    d, rows, ok = fn(*port)
+    jmesh = jmake_mesh(S)
+    shard = NamedSharding(jmesh, P("shard"))
+    jd, jrows, jok = j_make_fn(jmesh, TOPK, ns, pool, S_slots)(
+        *jops[:4], jax.device_put(jops[4], shard),
+        jax.device_put(jops[5], shard), jax.numpy.int32(jops[6]))
+    d, rows, ok = d[:B].numpy(), rows[:B].numpy(), ok[:B].numpy()
+    jd, jrows, jok = (np.asarray(jd)[:B], np.asarray(jrows)[:B],
+                      np.asarray(jok)[:B])
+    # 6,000 rows are six tiles: at S=4 the last shard holds only padding
+    # tiles.  The JAX step scans it and its certificate there is NaN
+    # (an infinite fence), so no query certifies; the port's skips it.
+    if S == 2:
+        assert ok.all() and jok.all()
+    else:
+        assert ok.all() and not jok.any()
+    np.testing.assert_allclose(d, jd, rtol=1e-5, atol=1e-4)
+    ed, _ = data["exact"]
+    assert np.array_equal(d, ed)
+    assert_ids_up_to_ties(data["table"], data["codes"], order[rows],
+                          order[jrows], TOPK)
+
+
+def test_make_sharded_delta_query_fn_skips_padding_shards(data,
+                                                          monkeypatch):
+    """2,500 rows are three tiles: over four shards the last holds only
+    padding and launches nothing; the merged result agrees with the JAX
+    step, which scans it (no query certifies in either: shard 2's 452
+    rows are fewer units than the rung takes, so its fence is +inf)."""
+    from deltapq_tpu.parallel.fused_sharded import \
+        make_sharded_delta_query_fn as j_make_fn
+    from deltapq_tpu_torch.ops import fused_kernels as fk
+    from deltapq_tpu_torch.parallel.fused_sharded import \
+        make_sharded_delta_query_fn
+
+    codes, order, S_slots, ns, pool, port, jops = _delta_fn_operands(
+        data, 4, 2500)
+    calls = []
+    scan = fk.fused_delta_mins
+    monkeypatch.setattr(fk, "fused_delta_mins",
+                        lambda *a, **k: calls.append(a[4]) or scan(*a, **k))
+    fn = make_sharded_delta_query_fn(make_mesh(4, device=CPU), TOPK, ns,
+                                     pool, S_slots, Ds=DS)
+    d, rows, ok = fn(*port)
+    assert calls == [1024, 1024, 452]
+    jmesh = jmake_mesh(4)
+    shard = NamedSharding(jmesh, P("shard"))
+    jd, jrows, jok = j_make_fn(jmesh, TOPK, ns, pool, S_slots)(
+        *jops[:4], jax.device_put(jops[4], shard),
+        jax.device_put(jops[5], shard), jax.numpy.int32(jops[6]))
+    assert not ok.any() and not np.asarray(jok).any()
+    d, rows = d[:B].numpy(), rows[:B].numpy()
+    np.testing.assert_allclose(d, np.asarray(jd)[:B], rtol=1e-5, atol=1e-4)
+    assert 0 <= rows.min() and rows.max() < 2500
+    assert_ids_up_to_ties(data["table"], codes, order[rows],
+                          order[np.asarray(jrows)[:B]], TOPK)
