@@ -28,7 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import resolve_device, tracing
 
 FUSED_ENGINES = ("fused", "fused_codes", "fused_compressed", "fused_dedup")
 
@@ -83,15 +83,19 @@ class DeltaPQIndex:
         from .tree.layout import build_layout
         from .tree.serialize import serialize_dtc
 
-        res = find_edges_by_diff(self.codes, K=self.K,
-                                 max_height_folds=self.height,
-                                 method=self.tree_method)
-        self.tree = build_layout(self.codes, res.edges, res.root_id,
-                                 K=self.K, codewords=self.codewords)
+        with tracing.span("index.build.edges"):
+            res = find_edges_by_diff(self.codes, K=self.K,
+                                     max_height_folds=self.height,
+                                     method=self.tree_method)
+        with tracing.span("index.build.layout"):
+            self.tree = build_layout(self.codes, res.edges, res.root_id,
+                                     K=self.K, codewords=self.codewords)
         # the DTC byte format caps at M=8 (a one-byte bitmap); for
         # 8 < M <= 16 the tree still gives the compressed tier its scan
         # order and the stream tiles are the compressed form
-        self._stream = serialize_dtc(self.tree) if self.M <= 8 else None
+        with tracing.span("index.build.serialize"):
+            self._stream = (serialize_dtc(self.tree) if self.M <= 8
+                            else None)
 
     # -- queries -----------------------------------------------------------
 
@@ -113,47 +117,49 @@ class DeltaPQIndex:
         call."""
         from .ops.adc import query_plain
 
-        engine = self.engine
-        if engine == "auto":
-            # resolved into a separate field: self.engine stays "auto"
-            # (and save() persists it), so a loaded index resolves anew
-            # on the device it is loaded on
-            if self._engine_resolved is None:
-                self._engine_resolved = self._resolve_auto()
-            engine = self._engine_resolved
-        if engine in FUSED_ENGINES:
-            return self._search_fused(queries, top_k, engine)
-        q = np.asarray(queries, np.float32)
-        fetch = top_k + int(self.deleted.sum())
-        fetch = min(1 << (max(fetch, 1) - 1).bit_length(), self.n)
-        fetch = min(max(fetch, top_k), self.n)  # never exceed rows
-        if self._cached_codes is None:
-            self._cached_codes = torch.from_numpy(
-                np.ascontiguousarray(self._all_codes())).to(self.device)
-        d, i = query_plain(self.codewords, q, self._cached_codes,
-                           top_k=fetch, engine=engine, device=self.device)
-        i = i.astype(np.int64)
-        return self._finish(d, i, top_k)
+        with tracing.span("index.search"):
+            engine = self.engine
+            if engine == "auto":
+                # resolved into a separate field: self.engine stays "auto"
+                # (and save() persists it), so a loaded index resolves anew
+                # on the device it is loaded on
+                if self._engine_resolved is None:
+                    self._engine_resolved = self._resolve_auto()
+                engine = self._engine_resolved
+            if engine in FUSED_ENGINES:
+                return self._search_fused(queries, top_k, engine)
+            q = np.asarray(queries, np.float32)
+            fetch = top_k + int(self.deleted.sum())
+            fetch = min(1 << (max(fetch, 1) - 1).bit_length(), self.n)
+            fetch = min(max(fetch, top_k), self.n)  # never exceed rows
+            if self._cached_codes is None:
+                self._cached_codes = torch.from_numpy(
+                    np.ascontiguousarray(self._all_codes())).to(self.device)
+            d, i = query_plain(self.codewords, q, self._cached_codes,
+                               top_k=fetch, engine=engine, device=self.device)
+            i = i.astype(np.int64)
+            return self._finish(d, i, top_k)
 
     def _finish(self, d: np.ndarray, i: np.ndarray, top_k: int
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """Mask deleted rows, pad to top_k, mark rows that ran out of live
         candidates (mass deletes) -1."""
-        if self.deleted.any():
-            dele = np.flatnonzero(self.deleted)
-            bad = np.isin(i, dele)
-            d = np.where(bad, np.inf, d)
-            order = np.argsort(d, axis=1, kind="stable")
-            d = np.take_along_axis(d, order, axis=1)
-            i = np.take_along_axis(i, order, axis=1)
-        if d.shape[1] < top_k:
-            pad = top_k - d.shape[1]
-            d = np.concatenate(
-                [d, np.full((len(d), pad), np.inf, d.dtype)], axis=1)
-            i = np.concatenate(
-                [i, np.full((len(i), pad), -1, i.dtype)], axis=1)
-        d, i = d[:, :top_k], i[:, :top_k]
-        return d, np.where(np.isinf(d), -1, i)
+        with tracing.span("index.finish"):
+            if self.deleted.any():
+                dele = np.flatnonzero(self.deleted)
+                bad = np.isin(i, dele)
+                d = np.where(bad, np.inf, d)
+                order = np.argsort(d, axis=1, kind="stable")
+                d = np.take_along_axis(d, order, axis=1)
+                i = np.take_along_axis(i, order, axis=1)
+            if d.shape[1] < top_k:
+                pad = top_k - d.shape[1]
+                d = np.concatenate(
+                    [d, np.full((len(d), pad), np.inf, d.dtype)], axis=1)
+                i = np.concatenate(
+                    [i, np.full((len(i), pad), -1, i.dtype)], axis=1)
+            d, i = d[:, :top_k], i[:, :top_k]
+            return d, np.where(np.isinf(d), -1, i)
 
     def _resolve_auto(self, device=None) -> str:
         """Resolve engine="auto" once, at first search.  On a CUDA
@@ -190,23 +196,24 @@ class DeltaPQIndex:
         from .ops.fused import (DedupCompressedEngine, FusedCodesEngine,
                                 FusedCompressedEngine, FusedDecodedEngine)
 
-        codes = self._all_codes()
-        dev = self.device
-        if engine == "fused" or self.K > 256:
-            # wider codes run on the decoded tier only
-            return FusedDecodedEngine(self.codewords, codes, device=dev)
-        if engine == "fused_codes":
-            return FusedCodesEngine(self.codewords, codes, device=dev)
-        if engine == "fused_dedup":
-            return DedupCompressedEngine(self.codewords, codes, device=dev)
-        # the compressed tier at bf16, as the JAX index builds it
-        if self.tree is not None and len(self.tail) == 0:
-            return FusedCompressedEngine.from_tree(
-                self.codewords, self.tree, precision="bf16", device=dev)
-        order = np.lexsort(codes.T[::-1])
-        return FusedCompressedEngine(self.codewords, codes[order],
-                                     row_to_db=order, precision="bf16",
-                                     device=dev)
+        with tracing.span("engine.build"):
+            codes = self._all_codes()
+            dev = self.device
+            if engine == "fused" or self.K > 256:
+                # wider codes run on the decoded tier only
+                return FusedDecodedEngine(self.codewords, codes, device=dev)
+            if engine == "fused_codes":
+                return FusedCodesEngine(self.codewords, codes, device=dev)
+            if engine == "fused_dedup":
+                return DedupCompressedEngine(self.codewords, codes, device=dev)
+            # the compressed tier at bf16, as the JAX index builds it
+            if self.tree is not None and len(self.tail) == 0:
+                return FusedCompressedEngine.from_tree(
+                    self.codewords, self.tree, precision="bf16", device=dev)
+            order = np.lexsort(codes.T[::-1])
+            return FusedCompressedEngine(self.codewords, codes[order],
+                                         row_to_db=order, precision="bf16",
+                                         device=dev)
 
     # -- updates -----------------------------------------------------------
 

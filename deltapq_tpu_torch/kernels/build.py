@@ -12,7 +12,7 @@ freely.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an
 exception, so a refused launch never passes silently.  Each wrapper then
-calls ``count`` with its kernel's name: ``LAUNCHES`` counts the kernel
+calls ``count`` with its kernel's name: ``launch_counts`` gives the kernel
 launches (never the plain versions), so a caller can show which kernels
 a path ran.
 """
@@ -28,6 +28,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
+
+from .. import tracing
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -231,30 +233,35 @@ def check(err: int, what: str) -> None:
                            f"({msg})")
 
 
-#: kernel launches made by the wrappers (not by the plain versions), one
-#: key per kernel and scan mode: stream_mins (int16), codes_mins (bf16),
-#: delta_mins (int16), adc_topk (f32) and adc_topk_packed (f32) carry
-#: their first mode's bare name
-LAUNCHES = {"stream_mins": 0, "stream_mins_bf16": 0, "stream_mins_int8": 0,
-            "stream_mins_pipelined_int8": 0, "stream_mins_pipelined_bf16": 0,
-            "codes_mins": 0, "codes_mins_int16": 0, "codes_mins_int8": 0,
-            "delta_mins": 0, "delta_mins_int8": 0, "delta_mins_bf16": 0,
-            "decoded_mins": 0, "adc_topk": 0, "rerank": 0,
-            "adc_topk_bf16": 0, "adc_topk_bf16x2": 0, "adc_dists": 0,
-            "adc_topk_packed": 0, "adc_topk_packed_bf16": 0,
-            "adc_topk_packed_bf16x2": 0, "adc_topk_tiledict": 0}
+#: the kernels whose launches the wrappers count (not the plain
+#: versions), one key per kernel and scan mode: stream_mins (int16),
+#: codes_mins (bf16), delta_mins (int16), adc_topk (f32) and
+#: adc_topk_packed (f32) carry their first mode's bare name.  The counts
+#: are counters of ``tracing``'s registry, under these keys.
+LAUNCHES = ("stream_mins", "stream_mins_bf16", "stream_mins_int8",
+            "stream_mins_pipelined_int8", "stream_mins_pipelined_bf16",
+            "codes_mins", "codes_mins_int16", "codes_mins_int8",
+            "delta_mins", "delta_mins_int8", "delta_mins_bf16",
+            "decoded_mins", "adc_topk", "rerank",
+            "adc_topk_bf16", "adc_topk_bf16x2", "adc_dists",
+            "adc_topk_packed", "adc_topk_packed_bf16",
+            "adc_topk_packed_bf16x2", "adc_topk_tiledict")
 
 
 def count(kernel: str) -> None:
     """Record one launch of ``kernel``; a wrapper calls it after
     ``check`` passed, and nowhere else."""
-    LAUNCHES[kernel] += 1
+    if kernel not in LAUNCHES:
+        raise KeyError(kernel)
+    tracing.count(kernel)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero the launch counts, with every other counter and span of
+    ``tracing``'s registry."""
+    tracing.reset()
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    counters = tracing.snapshot()["counters"]
+    return {k: counters.get(k, 0) for k in LAUNCHES}

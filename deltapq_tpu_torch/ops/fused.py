@@ -46,7 +46,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from .adc import adc_query_topk, adc_table, adc_tile_dists
 from .decoded import build_decoded_cache
 from .delta_tiles import build_delta_tiles
@@ -95,6 +95,12 @@ def _default_n_sub(top_k: int, n_units: int, unit: int) -> int:
     return int(max(2, min(want, max(n_units - 1, 1))))
 
 
+def _all_ok(ok: torch.Tensor) -> bool:
+    """The host's read of ``ok.all()``: a wait for the device."""
+    with tracing.span("engine.wait"):
+        return bool(ok.all())
+
+
 def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
                      rungs, pool, err_r=None, scale2=None,
                      final_exact=False):
@@ -104,32 +110,37 @@ def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
     ``ok.all()`` per rung).  With ``final_exact`` the queries that fail
     every rung take the terminal full exact scan over the decoded codes,
     so results are exact by construction.  Returns (d, rows, ok, ok1):
-    ``ok`` the final certificate, ``ok1`` the first-shot one."""
+    ``ok`` the final certificate, ``ok1`` the first-shot one.  Counts
+    ``rungs`` run and ``terminal_scans``."""
     mins_bn = fk.pool_mins_nb(mins_nb, pool)
     if scale2 is not None:
         mins_bn = mins_bn * scale2
 
     def rung(ns):
-        return fk.select_rerank(mins_bn, q2, table, codes_dev, n_valid,
-                                top_k, ns, pool, prepooled=True,
-                                err_r=err_r)
+        tracing.count("rungs")
+        with tracing.span("engine.rung", ns=ns):
+            return fk.select_rerank(mins_bn, q2, table, codes_dev, n_valid,
+                                    top_k, ns, pool, prepooled=True,
+                                    err_r=err_r)
 
     d, rows, ok = rung(rungs[0])
     ok1 = ok
     for ns in rungs[1:]:
-        if bool(ok.all()):
+        if _all_ok(ok):
             break
         d, rows, ok = rung(ns)
-    if final_exact and not bool(ok.all()):
-        # biggest scan tile (<= 16384 rows) dividing the padded rows
-        tile_n = TILE
-        while (tile_n * 2 <= 16384
-               and codes_dev.shape[0] % (tile_n * 2) == 0):
-            tile_n *= 2
-        d_s, r_s = adc_query_topk(table, codes_dev, n_valid, top_k,
-                                  tile_n)
-        d = torch.where(ok[:, None], d, d_s)
-        rows = torch.where(ok[:, None], rows, r_s)
+    if final_exact and not _all_ok(ok):
+        tracing.count("terminal_scans")
+        with tracing.span("engine.terminal"):
+            # biggest scan tile (<= 16384 rows) dividing the padded rows
+            tile_n = TILE
+            while (tile_n * 2 <= 16384
+                   and codes_dev.shape[0] % (tile_n * 2) == 0):
+                tile_n *= 2
+            d_s, r_s = adc_query_topk(table, codes_dev, n_valid, top_k,
+                                      tile_n)
+            d = torch.where(ok[:, None], d, d_s)
+            rows = torch.where(ok[:, None], rows, r_s)
     return d, rows, ok, ok1
 
 
@@ -141,14 +152,18 @@ ADAPT_TARGET = 0.6
 
 def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
                             top_k, n_sub=None, err_r=None, scale2=None,
-                            engine=None):
+                            engine=None, b=None):
     """Select + rerank with the full ladder (ns, 2ns, 8ns, cap) and the
     terminal exact scan.  The first rung comes from ``n_sub``, else
     ``engine.ns_hint`` (per-index calibration), else
     ``_default_n_sub``; ``ns_hint`` doubles when the first-shot rate
     collapses.  The cap rung's rows shrink as B grows (its [B, S]
-    intermediates).  Returns (d, rows, ok1): ``ok1`` [B] the first-shot
-    certificate."""
+    intermediates).  The first-shot certificate is read once: its rate
+    over every row, padding included, drives the ``ns_hint`` rule; with
+    ``b``, the caller's real rows, the counters ``real_rows`` and
+    ``first_shot_rows`` (those of them certified at rung 1) grow.
+    Returns (d, rows, ok1, first_frac): ``ok1`` [B] the first-shot
+    certificate, ``first_frac`` its rate."""
     ns_total = mins_nb.shape[0]
     pool = _pool_for(ns_total)
     n_units = -(-ns_total // pool)
@@ -165,11 +180,16 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     d, rows, ok, ok1 = fused_select_esc(
         mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
         err_r=err_r, scale2=scale2, final_exact=True)
-    first_frac = float(ok1.to(torch.float32).mean())
+    with tracing.span("engine.wait"):
+        ok1_host = ok1.cpu()
+    first_frac = float(ok1_host.to(torch.float32).mean())
+    if b is not None:
+        tracing.count("real_rows", b)
+        tracing.count("first_shot_rows", int(ok1_host[:b].sum()))
     if (engine is not None and n_sub is None
             and first_frac < ADAPT_GROW_BELOW and ns < ns_cap):
         engine.ns_hint = min(ns * 2, ns_cap)
-    return d, rows, ok1
+    return d, rows, ok1, first_frac
 
 
 def _int8_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
@@ -224,6 +244,13 @@ def _setup_precision(self, codewords: np.ndarray, precision: str):
                     if self.device.type == "cuda" else None)
 
 
+def _h2d(t: torch.Tensor, device) -> torch.Tensor:
+    """A batch's host tensor on ``device``; its bytes count as
+    ``h2d_bytes``."""
+    tracing.count("h2d_bytes", t.numel() * t.element_size())
+    return t.to(device)
+
+
 def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
     """Centered grouped-layout queries [B, G*Dg_pad] -> (kernel q
     operand, headroom u [1, B] f32 or None, exact query rounding radius
@@ -239,7 +266,7 @@ def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
     to nearest even, as ``ml_dtypes`` does)."""
     if precision == "bf16":
         q = torch.from_numpy(np.ascontiguousarray(qc, np.float32))
-        return q.to(torch.bfloat16).t().contiguous().to(device), None, None
+        return _h2d(q.to(torch.bfloat16).t().contiguous(), device), None, None
     if precision not in ("int8", "int16"):
         raise NotImplementedError(
             f"precision {precision!r}: int8, int16 and bf16 are ported")
@@ -251,9 +278,9 @@ def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
         e_q = np.linalg.norm(
             qc - (scale * u[:, None]) * qq.astype(np.float32),
             axis=1).astype(np.float32)
-        return (torch.from_numpy(np.ascontiguousarray(qq.T)).to(device),
-                torch.from_numpy(u.reshape(1, -1)).to(device),
-                torch.from_numpy(e_q).to(device))
+        return (_h2d(torch.from_numpy(np.ascontiguousarray(qq.T)), device),
+                _h2d(torch.from_numpy(u.reshape(1, -1)), device),
+                _h2d(torch.from_numpy(e_q), device))
     Aq = np.clip(np.rint(qc * (128.0 / (scale * u[:, None]))),
                  -16256, 16256)
     qa = np.clip(np.rint(Aq / 128.0), -127, 127)
@@ -262,9 +289,9 @@ def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
         qc - (scale * u[:, None] / 128.0) * Aq,
         axis=1).astype(np.float32)
     qop = np.concatenate([qa, qb], axis=1).astype(np.int8)
-    return (torch.from_numpy(np.ascontiguousarray(qop.T)).to(device),
-            torch.from_numpy(u.reshape(1, -1)).to(device),
-            torch.from_numpy(e_q).to(device))
+    return (_h2d(torch.from_numpy(np.ascontiguousarray(qop.T)), device),
+            _h2d(torch.from_numpy(u.reshape(1, -1)), device),
+            _h2d(torch.from_numpy(e_q), device))
 
 
 def _quantized_query_stats(self, qop, uq, eq):
@@ -291,7 +318,7 @@ def _quantized_query_stats(self, qop, uq, eq):
 
 def _q2(qc: np.ndarray, device) -> torch.Tensor:
     """||qc_b||^2 in f32 on ``device``: the bf16 certificate's q2."""
-    q = torch.from_numpy(np.ascontiguousarray(qc, np.float32)).to(device)
+    q = _h2d(torch.from_numpy(np.ascontiguousarray(qc, np.float32)), device)
     return torch.sum(q * q, dim=1)
 
 
@@ -318,11 +345,13 @@ class _FusedEngine:
     def prepare(self, queries: np.ndarray):
         """Stage 1: exact tables + query operands.  Returns (table, qop,
         uq, cert, b)."""
-        q, b = _pad_queries(queries, self.d_pad)
-        table = adc_table(self.codewords,
-                          torch.from_numpy(q[:, :self.D]).to(self.device))
-        qop, uq, cert = self._query_operands(q - self.mu[None, :])
-        return table, qop, uq, cert, b
+        with tracing.span("engine.prepare"):
+            q, b = _pad_queries(queries, self.d_pad)
+            table = adc_table(self.codewords,
+                              _h2d(torch.from_numpy(q[:, :self.D]),
+                                   self.device))
+            qop, uq, cert = self._query_operands(q - self.mu[None, :])
+            return table, qop, uq, cert, b
 
     def scan(self, qop, uq):
         """Stage 2: the tier's kernel -> (mins [NS, B], codes for the
@@ -333,25 +362,28 @@ class _FusedEngine:
                top_k: int = 10, n_sub: Optional[int] = None):
         """Stage 3: selection, rerank, ladder, terminal scan and the id
         map.  Returns (dists [b, top_k], ids [b, top_k]) on the device."""
-        q2, err_r, scale2 = cert
-        d, rows, ok1 = _select_with_escalation(
-            mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
-            err_r=err_r, scale2=scale2, engine=self)
-        self.last_exact_frac = float(ok1.to(torch.float32).mean())
-        if self.row_to_db is not None:
-            mapped = self.row_to_db[torch.clamp(rows, 0, self.n_valid - 1)]
-            rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
-        return d[:b], rows[:b]
+        with tracing.span("engine.select"):
+            q2, err_r, scale2 = cert
+            d, rows, _, self.last_exact_frac = _select_with_escalation(
+                mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
+                err_r=err_r, scale2=scale2, engine=self, b=b)
+            if self.row_to_db is not None:
+                mapped = self.row_to_db[
+                    torch.clamp(rows, 0, self.n_valid - 1)]
+                rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
+            return d[:b], rows[:b]
 
     def query(self, queries: np.ndarray, top_k: int = 10,
               n_sub: Optional[int] = None
               ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k: (dists [B, top_k] f32, ids [B, top_k] int64)."""
-        table, qop, uq, cert, b = self.prepare(queries)
-        mins, codes_echo = self.scan(qop, uq)
-        d, rows = self.select(table, cert, mins, codes_echo, b, top_k,
-                              n_sub)
-        return d.cpu().numpy(), rows.cpu().numpy()
+        with tracing.span("engine.query"):
+            table, qop, uq, cert, b = self.prepare(queries)
+            mins, codes_echo = self.scan(qop, uq)
+            d, rows = self.select(table, cert, mins, codes_echo, b, top_k,
+                                  n_sub)
+            with tracing.span("engine.wait"):
+                return d.cpu().numpy(), rows.cpu().numpy()
 
     def _warmup_queries(self, b: int, seed: int = 0) -> np.ndarray:
         """Data-like queries (a decoded row + jitter): degenerate
@@ -456,11 +488,13 @@ class FusedDecodedEngine(_FusedEngine):
 
     def _query_operands(self, qc: np.ndarray):
         q = torch.from_numpy(np.ascontiguousarray(qc, np.float32))
-        qop = q.to(torch.bfloat16).t().contiguous().to(self.device)
+        qop = _h2d(q.to(torch.bfloat16).t().contiguous(), self.device)
         return qop, None, (_q2(qc, self.device), None, None)
 
     def scan(self, qop, uq):
-        return fk.fused_decoded_mins(qop, self.xt, self.n_valid), self.codes
+        with tracing.span("engine.scan"):
+            return (fk.fused_decoded_mins(qop, self.xt, self.n_valid),
+                    self.codes)
 
 
 class FusedCodesEngine(_FusedEngine):
@@ -488,9 +522,11 @@ class FusedCodesEngine(_FusedEngine):
         _setup_precision(self, codewords, precision)
 
     def scan(self, qop, uq):
-        return fk.fused_codes_mins(qop, self.cwbd, self.codes, self.n_valid,
-                                   u=uq, compact=self.compact,
-                                   mode=self.precision)
+        with tracing.span("engine.scan"):
+            return fk.fused_codes_mins(qop, self.cwbd, self.codes,
+                                       self.n_valid, u=uq,
+                                       compact=self.compact,
+                                       mode=self.precision)
 
 
 class FusedCompressedEngine(_FusedEngine):
@@ -588,15 +624,16 @@ class FusedCompressedEngine(_FusedEngine):
     def scan(self, qop, uq):
         """Stage 2: the tile format's kernel -> (mins [NS, B], codes
         echo)."""
-        if self.fmt == "slots":
-            return fk.fused_delta_mins(
-                qop, self.cwbd, self.row_data, self.ovf, self.n_valid,
-                self.tiles.S, u=uq, compact=self.compact,
-                mode=self.precision)
-        return fk.fused_stream_mins(
-            qop, self.cwbd, self.row_data, self.vals, self.meta,
-            self.n_valid, self.M, u=uq, compact=self.compact,
-            mode=self.precision, pipelined=self.pipelined)
+        with tracing.span("engine.scan"):
+            if self.fmt == "slots":
+                return fk.fused_delta_mins(
+                    qop, self.cwbd, self.row_data, self.ovf, self.n_valid,
+                    self.tiles.S, u=uq, compact=self.compact,
+                    mode=self.precision)
+            return fk.fused_stream_mins(
+                qop, self.cwbd, self.row_data, self.vals, self.meta,
+                self.n_valid, self.M, u=uq, compact=self.compact,
+                mode=self.precision, pipelined=self.pipelined)
 
     def save(self, path: str) -> None:
         """Persist the tiles, mapping and precision (the JAX package's

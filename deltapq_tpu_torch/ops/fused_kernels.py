@@ -4,7 +4,7 @@ Counterpart of ``deltapq_tpu/ops/fused_pallas.py`` (the module of the
 port whose name differs: its kernels are CUDA C++, not Pallas).
 
 Hand-written Hopper kernels, each with a plain PyTorch version in this
-module and a launch count in ``kernels.build.LAUNCHES``:
+module and a launch count in ``kernels.build.launch_counts()``:
 
 * ``fused_stream_mins`` -> ``csrc/stream_mins.cu`` (replaces
   ``_stream_mins_kernel``): decode stream tiles, the scan, 32-row
@@ -456,7 +456,7 @@ def _compact_operands(q, cwbd, M, compact, u, mode):
 
 
 def _launch_name(kernel: str, mode: str) -> str:
-    """LAUNCHES key of a scan kernel in a mode (the names the earlier
+    """Launch-count key of a scan kernel in a mode (the names the earlier
     modes were counted under stay)."""
     first = {"stream_mins": "int16", "codes_mins": "bf16",
              "delta_mins": "int16", "stream_mins_pipelined": None}[kernel]

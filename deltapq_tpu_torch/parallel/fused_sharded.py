@@ -25,7 +25,8 @@ fails: every shard here ends exact (ladder + terminal scan), so the
 merged results are exact at every shard count, and the engine runs at
 ``precision`` ("bf16" by default, the JAX engine's only mode; "int8"
 and "int16" too).  ``last_exact_frac`` is the fraction of queries whose
-first shot certified on every shard.  A shard holding no valid row (the
+first shot certified on every shard; ``tracing``'s counters
+``real_rows`` and ``first_shot_rows`` count the same queries.  A shard holding no valid row (the
 padding tiles at the end) launches nothing and contributes +inf rows.
 """
 
@@ -37,6 +38,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import fused_kernels as fk
 from ..ops.delta_tiles import DeltaTiles, TILE, _full_planes, build_delta_tiles
 from ..ops.fused import FusedCompressedEngine, _np_f32, _select_with_escalation
@@ -192,15 +194,17 @@ class ShardedCompressedEngine:
                 continue
             with _current(dev):
                 mins, echo = eng.scan(qo, u)
-                d, r, ok1 = _select_with_escalation(
+                d, r, ok1, _ = _select_with_escalation(
                     mins, q2, t, echo, eng.n_valid, top_k, err_r=err_r,
                     scale2=scale2, engine=eng)
             ds.append(d)
             rows.append(torch.where(r >= 0, r.to(torch.int64) + base, -1))
             oks.append(ok1)
         d, r = gather_topk(self.mesh, ds, rows, top_k)
-        ok = all_gather(self.mesh, oks).all(dim=0)
-        self.last_exact_frac = float(ok[:b].to(torch.float32).mean())
+        ok = all_gather(self.mesh, oks).all(dim=0)[:b].cpu()
+        self.last_exact_frac = float(ok.to(torch.float32).mean())
+        tracing.count("real_rows", b)
+        tracing.count("first_shot_rows", int(ok.sum()))
         d = d[:b].cpu().numpy()
         r = np.where(np.isfinite(d), r[:b].cpu().numpy(), -1)
         if self.row_to_db is not None:

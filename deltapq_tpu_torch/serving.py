@@ -12,7 +12,12 @@ served throughput: clients ``submit()`` query waves of any size; the
 server concatenates queued waves until ``wave_rows`` rows are pending
 (or ``max_wait_ms`` passes), runs ONE engine dispatch, and fans results
 back out per wave, never splitting a wave.  Cost: at most one extra wave
-of queueing latency.  Its dispatches run one at a time.
+of queueing latency.  Its dispatches run one at a time.  Each wave takes
+an id at ``submit``; with ``tracing`` on, its wait from ``submit`` to its
+dispatch is the span ``index.serve.wait`` (in ``tracing``'s registry
+only: no profiler range) and each dispatch the span
+``index.serve.dispatch`` (with the ids of its waves); ``dispatches`` and
+``rows_served`` are counters of ``tracing``'s registry besides.
 
 ``query_coalesced`` is the synchronous offline variant (a list of
 batches, grouped into big dispatches).
@@ -20,12 +25,15 @@ batches, grouped into big dispatches).
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from concurrent.futures import Future
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from . import tracing
 
 __all__ = ["query_coalesced", "CoalescingServer"]
 
@@ -92,7 +100,9 @@ class CoalescingServer:
             # the first wave finds the engine calibrated
             engine.warmup(batch_sizes=(self.wave_rows,), top_k=top_k)
         self._lock = threading.Condition()
-        self._queue: List[Tuple[np.ndarray, Future]] = []
+        #: (queries, future, wave id, submit time in perf_counter_ns)
+        self._queue: List[Tuple[np.ndarray, Future, int, int]] = []
+        self._wave_ids = itertools.count(1)
         self._rows = 0
         self._closed = False
         self.dispatches = 0
@@ -118,7 +128,8 @@ class CoalescingServer:
                 fut.set_result((np.zeros((0, self.top_k), np.float32),
                                 np.zeros((0, self.top_k), np.int64)))
                 return fut
-            self._queue.append((queries, fut))
+            self._queue.append((queries, fut, next(self._wave_ids),
+                                time.perf_counter_ns()))
             self._rows += len(queries)
             self._lock.notify()
         return fut
@@ -143,7 +154,7 @@ class CoalescingServer:
         self.close()
 
     # -- internal ------------------------------------------------------
-    def _take_wave(self) -> List[Tuple[np.ndarray, Future]]:
+    def _take_wave(self) -> List[Tuple[np.ndarray, Future, int, int]]:
         """Wait until a full wave, the max-wait deadline of the oldest
         entry, or close; pop at most ``wave_rows`` rows (never
         splitting a submitted wave across dispatches)."""
@@ -169,9 +180,9 @@ class CoalescingServer:
             while self._queue and (not taken
                                    or rows + len(self._queue[0][0])
                                    <= self.wave_rows):
-                q, f = self._queue.pop(0)
-                taken.append((q, f))
-                rows += len(q)
+                entry = self._queue.pop(0)
+                taken.append(entry)
+                rows += len(entry[0])
             self._rows -= rows
             return taken
 
@@ -188,15 +199,20 @@ class CoalescingServer:
             # InvalidStateError — which would kill this thread and hang
             # every later submit().  Cancelled entries are skipped (the
             # rows still run if they share a dispatch; harmless).
-            live = [(q, f) for q, f in wave
-                    if f.set_running_or_notify_cancel()]
+            live = [w for w in wave if w[1].set_running_or_notify_cancel()]
             if not live:
                 continue
-            qs = np.concatenate([q for q, _ in live], axis=0)
+            for _, _, wave_id, t_submit in live:
+                with tracing.span("index.serve.wait", start_ns=t_submit,
+                                  wave=wave_id):
+                    pass
+            qs = np.concatenate([w[0] for w in live], axis=0)
             try:
-                d, ids = self.engine.query(qs, top_k=self.top_k)
+                with tracing.span("index.serve.dispatch",
+                                  waves=":".join(str(w[2]) for w in live)):
+                    d, ids = self.engine.query(qs, top_k=self.top_k)
             except Exception as e:  # pragma: no cover - engine fault
-                for _, f in live:
+                for _, f, _, _ in live:
                     try:
                         f.set_exception(e)
                     except Exception:
@@ -204,8 +220,10 @@ class CoalescingServer:
                 continue
             self.dispatches += 1
             self.rows_served += len(qs)
+            tracing.count("dispatches")
+            tracing.count("rows_served", len(qs))
             o = 0
-            for q, f in live:
+            for q, f, _, _ in live:
                 try:
                     f.set_result((d[o:o + len(q)], ids[o:o + len(q)]))
                 except Exception:  # pragma: no cover - racing cancel

@@ -3,15 +3,19 @@ the JAX package's and against the port's own Python loops, on the
 fixture of ``tests/test_native.py``: the same source, byte-equal
 outputs, its own build directory, concurrent builds."""
 
+import fcntl
+import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 
 from deltapq_tpu import native as jnative
+from deltapq_tpu.native import build as jbuild
 from deltapq_tpu.tree import build_layout as j_build_layout
 from deltapq_tpu.tree import find_edges_by_diff as j_find
 from deltapq_tpu.tree import serialize_dtc as j_serialize_dtc
@@ -26,6 +30,28 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="g++ unavailable")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_loaded():
+    """Load the JAX package's library before the parity tests, under a
+    lock shared by the test processes of this host.  Every process
+    builds it to the same ``libdtc_native.so.tmp`` and renames that in,
+    so pytest-xdist workers that collect ``tests/test_native.py`` at once
+    (its ``have_native()`` builds at import) race: a worker whose rename
+    finds the file already moved marks the library failed for good.  By
+    the time tests run every collection has ended and the library is
+    built, so a worker that lost the race loads it here."""
+    lock = os.path.join(tempfile.gettempdir(),
+                        "deltapq_tpu_native_build.lock")
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            if jbuild._lib is None:
+                jbuild._failed = False
+            jbuild.get_lib()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 @pytest.fixture(scope="module")
