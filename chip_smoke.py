@@ -25,11 +25,15 @@ Phases, each timed:
 5. engine: ``FusedCompressedEngine(precision="int16")``, warmup, then
    timed batches of 512 top-10 queries, each held to the plain exact
    scan ``adc_query_topk`` over the same table: distances bit-equal, ids
-   equal up to f64-audited ties.  The launch counts of both kernels in
-   this phase must be > 0.  Then one batch whose rungs are forced to 1,
-   2 and 4 units, so the later rungs and the terminal exact scan run
-   (the timed batches certify on the first rung); it is timed and held
-   to the same checks;
+   equal up to f64-audited ties.  B1 and the per-query ladder's two
+   kernels (``ladder_mins``, ``ladder``) must have launched in this
+   phase, B2 not.  Then one batch through the batch ladder with B2
+   (``fused_select_esc``), its rungs forced to 1, 2 and 4 units, so the
+   later rungs and the terminal exact scan run; it is timed and held to
+   the same checks.  Then, on that batch's minima, the ladder's kernels
+   against their plain versions (minima bit-equal; distances and status
+   equal to ``fused_ladder_ref``, rows up to ties), each timed beside its
+   plain version and its bound (``ladder``, ``ladder_mins``);
 6. kernels of the index tiers, on the same data at B=512: the bf16 mode
    of the stream kernel on the stream tiles, the codes kernel (bf16 and
    int16) on the scan-ordered codes, the decoded kernel on the bf16
@@ -53,7 +57,7 @@ Phases, each timed:
    dup_heavy index whose ``auto`` resolves to ``fused_dedup``.  Every
    batch is held to ``adc_query_topk`` as in phase 5.  The launch counts
    are set to 0 before each path and read after it: each path must have
-   launched its own scan kernel, and every fused tier the rerank kernel;
+   launched its own scan kernel, and every fused tier the ladder kernel;
 8. int8 and slot-tile kernels on phase 3's codes at B=512: B1 and B3 in
    int8 mode against their plain versions (mins bit-equal, echo exact)
    and against each other (bit for bit),
@@ -143,16 +147,16 @@ Phases, each timed:
    ``adc_query_topk`` as in phase 5; xla is that scan; decoded by its
    recall@10 against it), recall (equal to ``recall_at_k`` of the
    groundtruth file), approx_tree (its DTC decoded losslessly to the
-   code file), query_compressed auto (B1 bf16 + B2: distances bit-equal
-   to xla) and xla (the level-wise query: rtol 1e-5, atol 1e-4),
+   code file), query_compressed auto (B1 bf16 + the ladder: distances
+   bit-equal to xla) and xla (the level-wise query: rtol 1e-5, atol 1e-4),
    diff_index, diff_scan -engine pallas (its decode checked by the task,
    distances bit-equal to xla), mAP and update, query -shards 4 (the
    plain scan sharded over 4 shards of the card: distances bit-equal to
    xla, ids up to audited ties); query_compressed once
    more as ``python3 -m deltapq_tpu_torch.cli`` in a fresh interpreter.
    Each path must launch its kernels (B6 for pallas, B4 for fused, B3 for
-   fused_codes, B1 bf16 and B2 for fused_compressed and query_compressed
-   auto).  The ContinuousBatcher behind query past ``-batch`` runs the
+   fused_codes, B1 bf16 and the ladder for fused_compressed and
+   query_compressed auto).  The ContinuousBatcher behind query past ``-batch`` runs the
    whole query file at depth 1 and 2 in turns, equal results, wall times
    logged.  Then each kernel the CLI launched, against its plain version
    on engines built as the CLI builds them from its files, B=512 of its
@@ -164,9 +168,10 @@ Phases, each timed:
    of 1, 2 and 4 shards of ``cuda:0`` at bf16 and of 4 at int16, warmup
    and five timed batches each (host wall, QPS, first-shot fraction),
    every batch held to ``adc_query_topk`` (distances bit-equal, ids up
-   to audited ties), B5 launched once a shard a batch and B2 at least as
-   often; B5 bf16 and B2 on shard 0 of 4 against their plain versions
-   (``delta_mins_bf16@sharded``, ``rerank@sharded``, bound on the shard's
+   to audited ties), B5 and the ladder's two kernels launched once a
+   shard a batch; B5 bf16 and the ladder's kernels on shard 0 of 4
+   against their plain versions (``delta_mins_bf16@sharded``,
+   ``ladder@sharded``, ``ladder_mins@sharded``, bound on the shard's
    valid rows); then at S=4 ``sharded_query_plain`` (equal to
    ``query_plain(engine="xla")``), ``pipelined_query`` over four batches
    (each equal to ``sharded_query_plain``), ``sharded_query_decoded``
@@ -203,7 +208,7 @@ Phases, each timed:
    would take most of the phase at N): spanning, no more diffs than the
    approximate tree, lossless through ``serialize_dtc``'s repair, its
    B/vec, and an int16 engine over its DFS order for 2 checked batches
-   (B1 and B2 launched); ``tree_height`` / ``rotate_tree`` and the bit
+   (B1 and the ladder launched); ``tree_height`` / ``rotate_tree`` and the bit
    format on 65,536 rows (cut: Python loops), ``query_bits`` at B=512;
    ``block_aware_size`` of phase 3's tree; the row store at N with 128
    raw bytes a row, lossless, ``query_row_store`` at B=512 (raw rows =
@@ -278,7 +283,7 @@ from deltapq_tpu_torch.ops.fused import (DedupCompressedEngine,
                                          FusedCompressedEngine,
                                          FusedDecodedEngine,
                                          _default_n_sub, _pool_for,
-                                         fused_select_esc)
+                                         _rung_sizes, fused_select_esc)
 from deltapq_tpu_torch.ops.kmeans import pq_learn
 from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
                                                 decode_stream_tiles)
@@ -341,6 +346,8 @@ REPLACES = {
     "adc_topk_tiledict": "deltapq_tpu/ops/adc_pallas.py:382",
     "stream_mins_pipelined_int8": "deltapq_tpu/ops/fused_pallas.py:663",
     "stream_mins_pipelined_bf16": "deltapq_tpu/ops/fused_pallas.py:663",
+    "ladder": "deltapq_tpu/ops/fused.py:115",
+    "ladder_mins": "deltapq_tpu/ops/fused_pallas.py:1198",
 }
 SOURCES = {
     "stream_mins": "deltapq_tpu_torch/csrc/stream_mins.cu",
@@ -366,6 +373,8 @@ SOURCES = {
         "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
     "stream_mins_pipelined_bf16":
         "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
+    "ladder": "deltapq_tpu_torch/csrc/ladder.cu",
+    "ladder_mins": "deltapq_tpu_torch/csrc/ladder.cu",
 }
 #: published peaks of one H100 SXM at its full power limit (NVIDIA's data
 #: sheet): device memory bytes/s; operations/s by type
@@ -392,8 +401,8 @@ CLI_ENGINES = ("xla", "auto", "pallas", "decoded", "fused", "fused_codes",
 CLI_MUST = {("query", "pallas"): ("adc_topk",),
             ("query", "fused"): ("decoded_mins",),
             ("query", "fused_codes"): ("codes_mins",),
-            ("query", "fused_compressed"): ("stream_mins_bf16", "rerank"),
-            ("query_compressed", "auto"): ("stream_mins_bf16", "rerank")}
+            ("query", "fused_compressed"): ("stream_mins_bf16", "ladder"),
+            ("query_compressed", "auto"): ("stream_mins_bf16", "ladder")}
 MST_N = 262_144        # phase 18: rows of the exact-MST tree (cut)
 ROTATE_N = 65_536      # phase 18: rows of the rotation and the bit format (cut)
 LEGACY_N = 16_384      # phase 18: rows of the prefix-tree store (cut)
@@ -638,7 +647,6 @@ def main() -> int:
         dq, _ = eng.query(q, top_k=TOP_K)
         check(np.array_equal(dq, d.cpu().numpy()), "query() != stages")
         counts = build.launch_counts()
-        launches = {k: counts[k] for k in ("stream_mins", "rerank")}
         split /= N_BATCHES
         wall = float(np.mean(walls))
         log(f"{tag} ms/batch (B={B}, top-{TOP_K}, N={N}): "
@@ -648,8 +656,9 @@ def main() -> int:
         log(f"{tag} certified first-shot fraction "
             f"{float(np.mean(fracs)):.4f} over {N_BATCHES} batches")
         log(f"{tag} kernel launches in this phase: {counts}")
-        check(counts["stream_mins"] > 0 and counts["rerank"] > 0,
-              "a kernel of the main path was never launched")
+        check(counts["stream_mins"] > 0 and counts["ladder_mins"] > 0
+              and counts["ladder"] > 0 and counts["rerank"] == 0,
+              f"the main path launched {counts}")
         log(f"all {N_BATCHES} batches: distances bit-equal to "
             f"adc_query_topk, ids equal up to audited ties")
 
@@ -673,9 +682,17 @@ def main() -> int:
             f"exact scan for {n_term} of {B} queries: epilogue "
             f"{forced_ms:.4f} ms (host wall); distances bit-equal to "
             f"adc_query_topk, ids equal up to audited ties")
+        # B1 and both ladders' kernels, as this phase's paths launched them
+        counts = build.launch_counts()
+        launches = {k: counts[k] for k in ("stream_mins", "rerank",
+                                           "ladder", "ladder_mins")}
+        ladder_vs_plain(tag, "B2' ladder", "", kernels, eng, table, mins,
+                        echo, (q2, err_r, scale2))
+        del mins, echo
 
     phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels)
-    # stream_mins and rerank keep their counts from phase 5's path
+    # stream_mins, rerank and the ladder's kernels keep their counts from
+    # phase 5's paths
     counts7, dup = phase7_index(dev, tag, cw, codes, codes_db, codes_db64,
                                 rng)
     launches.update(counts7)
@@ -751,6 +768,84 @@ def rerank_vs_plain(tag, label, key, kernels, table, mins, echo):
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
         **{**bound(nbytes(tab, cand, out), b * S_RERANK * m_, "f32"),
            "library_ms": library_ms})
+
+
+def ladder_vs_plain(tag, label, suffix, kernels, e, table, mins, echo,
+                    cert):
+    """The per-query ladder's two kernels on a scan's own minima, at the
+    rungs ``_select_with_escalation`` gives engine ``e``: ``ladder_mins``
+    bit-equal to ``pool_mins_nb`` (times scale2); the ladder's distances
+    and status bytes equal to ``fused_ladder_ref``'s, its scan rows equal
+    up to ties at equal distance, each carrying its distance.  Each timed
+    beside its plain version and bound by the bytes it must move (the
+    ladder: minima, tables, q2, err_r, the codes of the units of each
+    row's deepest rung, its outputs; ``ladder_mins``: minima in and out).
+    Entries ``ladder<suffix>`` and ``ladder_mins<suffix>``."""
+    q2, err_r, scale2 = cert
+    b_, m_, _ = table.shape
+    pool = _pool_for(mins.shape[0])
+    n_units, unit = -(-mins.shape[0] // pool), fk.SUB * pool
+    ns = (getattr(e, "ns_hint", None)
+          or _default_n_sub(TOP_K, n_units, unit))
+    rungs = _rung_sizes(ns, n_units, unit, b_)
+
+    def plain_mins():
+        out = fk.pool_mins_nb(mins, pool)
+        return out * scale2 if scale2 is not None else out
+
+    mins_bn = fk.ladder_mins(mins, pool, scale2)
+    check(torch.equal(mins_bn, plain_mins()),
+          f"{label}: ladder_mins not bit-equal")
+
+    def ladder():
+        return fk.fused_ladder(mins_bn, q2, table, echo, e.n_valid, TOP_K,
+                               rungs, pool, err_r=err_r)
+
+    def plain():
+        return fk.fused_ladder_ref(mins_bn, q2, table, echo, e.n_valid,
+                                   TOP_K, rungs, pool, err_r=err_r)
+
+    buf = ladder()
+    d, rows, st = fk.ladder_views(buf, b_, TOP_K)
+    rd, rrows, rst = plain()
+    check(torch.equal(d, rd) and torch.equal(st, rst),
+          f"{label}: distances or status differ from fused_ladder_ref")
+    strict = d < d[:, -1:]
+    fin = torch.isfinite(d)
+    c = echo[rows.clamp_min(0)].to(torch.int64)              # [B, k, M]
+    bi = torch.arange(b_, device=d.device)[:, None]
+    own = torch.zeros_like(d)
+    for m in range(m_):
+        own = own + table[bi, m, c[:, :, m]]
+    check(torch.equal(torch.sort(torch.where(strict, rows, -2), 1).values,
+                      torch.sort(torch.where(strict, rrows, -2), 1).values)
+          and torch.equal(rows < 0, ~fin)
+          and torch.equal(torch.where(fin, own, d), d),
+          f"{label}: rows differ from fused_ladder_ref beyond ties")
+    reached = torch.where(st == fk.LADDER_FAILED, len(rungs) - 1,
+                          st.to(torch.int64))
+    reranked = int(torch.tensor(rungs, device=d.device)[reached].sum()) \
+        * unit
+    status = dict(zip(*(x.tolist() for x in torch.unique(
+        st, return_counts=True))))
+    ms = cuda_ms(ladder, 20)
+    plain_ms = cuda_ms(plain, 2)
+    kernels["ladder" + suffix] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        **bound(nbytes(mins_bn, table, q2, err_r, buf) + reranked * m_,
+                reranked * m_, "f32"))
+    mins_ms = cuda_ms(lambda: fk.ladder_mins(mins, pool, scale2), 20)
+    plain_mins_ms = cuda_ms(plain_mins, 20)
+    kernels["ladder_mins" + suffix] = dict(
+        max_abs_err=0.0, ms=mins_ms, plain_ms=plain_mins_ms,
+        **bound(nbytes(mins, mins_bn), 0, "f32"))
+    log(f"{label}: rungs {rungs} units of {unit} rows, status a row "
+        f"{status}; minima bit-equal, distances and status equal to the "
+        f"plain ladder, rows up to ties (B={b_}, top-{TOP_K})")
+    log(f"{tag} {label} {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call "
+        f"(bound {kernels['ladder' + suffix]['bound_ms']:.4f}); "
+        f"ladder_mins {mins_ms:.4f} ms/call, plain {plain_mins_ms:.4f} "
+        f"(bound {kernels['ladder_mins' + suffix]['bound_ms']:.4f})")
 
 
 def mins_against_b1(mins, b1, prec, what):
@@ -935,13 +1030,13 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         log(f"DeltaPQIndex(cw, codes): tree, table-driven layout, DTC "
             f"stream: {time.perf_counter() - t:.1f} s")
         counts = search_batches(idx, "auto", tag, cw, codes_db, codes_db64,
-                                rng, N, ("stream_mins_bf16", "rerank"))
+                                rng, N, ("stream_mins_bf16", "ladder"))
         check(idx._engine_resolved == "fused_compressed"
               and idx._fused_engine.precision == "bf16",
               "auto did not resolve to fused_compressed at bf16")
         launches["stream_mins_bf16"] = counts["stream_mins_bf16"]
-        for name, own in (("fused", ("decoded_mins", "rerank")),
-                          ("fused_codes", ("codes_mins", "rerank")),
+        for name, own in (("fused", ("decoded_mins", "ladder")),
+                          ("fused_codes", ("codes_mins", "ladder")),
                           ("pallas", ("adc_topk",))):
             other = DeltaPQIndex(cw, codes, engine=name, build_tree=False)
             counts = search_batches(other, name, tag, cw, codes_db,
@@ -959,7 +1054,7 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
                         torch.from_numpy(d).to(dev),
                         torch.from_numpy(ids).to(dev))
         counts = build.launch_counts()
-        for k in ("codes_mins_int16", "rerank"):
+        for k in ("codes_mins_int16", "ladder"):
             check(counts[k] > 0, f"kernel {k} never launched by "
                                  f"FusedCodesEngine(precision='int16')")
         launches["codes_mins_int16"] = counts["codes_mins_int16"]
@@ -1113,7 +1208,7 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                         torch.from_numpy(d).to(dev),
                         torch.from_numpy(ids).to(dev))
         counts = build.launch_counts()
-        check(counts["codes_mins_int8"] > 0 and counts["rerank"] > 0,
+        check(counts["codes_mins_int8"] > 0 and counts["ladder"] > 0,
               "FusedCodesEngine(precision='int8') launched no scan")
         launches["codes_mins_int8"] = counts["codes_mins_int8"]
         log(f"FusedCodesEngine(precision='int8'): 2 batches exact, "
@@ -1175,7 +1270,7 @@ def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
             timed_batches(tag, f"slot engine {prec}", e, B, n_batches, rng,
                           codes_db, codes_db64, N)
             counts = build.launch_counts()
-            check(counts[key] > 0 and counts["rerank"] > 0,
+            check(counts[key] > 0 and counts["ladder"] > 0,
                   f"slot engine {prec} never launched {key}")
             launches[key] = counts[key]
             log(f"  launches on the slots {prec} path: "
@@ -1264,7 +1359,7 @@ def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
                           N_BATCHES, rng, codes_db, codes_db64, N)
             counts = build.launch_counts()
             serial = fk._launch_name("stream_mins", prec)
-            check(counts[key] > 0 and counts["rerank"] > 0
+            check(counts[key] > 0 and counts["ladder"] > 0
                   and counts[serial] == 0,
                   f"the pipelined {prec} path launched {counts}")
             launches[key] = counts[key]
@@ -1398,7 +1493,7 @@ def phase14_gist(dev, tag, kernels, launches):
                         f"{GIST_B / ms_batch * 1e3:.1f} QPS (host wall, "
                         f"B={GIST_B}, top-{top_k})")
             counts = build.launch_counts()
-            check(counts[key] > 0 and counts["rerank"] > 0,
+            check(counts[key] > 0 and counts["ladder"] > 0,
                   f"GIST {label} {prec}: the engine launched {counts}")
             launches[name] = counts[key]
             log(f"{tag} GIST engine {type(e).__name__} "
@@ -1456,7 +1551,7 @@ def phase14_gist(dev, tag, kernels, launches):
         e = idx._fused_engine
         check(idx._engine_resolved == "fused_compressed"
               and e.precision == "bf16" and e.row_data.shape[1] == 2
-              and counts["stream_mins_bf16"] > 0 and counts["rerank"] > 0,
+              and counts["stream_mins_bf16"] > 0 and counts["ladder"] > 0,
               f"auto at M=16 resolved to {idx._engine_resolved}, launches "
               f"{counts}")
         wall = float(np.mean(walls))
@@ -1729,9 +1824,9 @@ def cli_kernels(dev, tag, cw, codes, order, q, kernels, counts):
             library=(lambda qop, uq: bench_stream.mm_yardstick(e.xt, qop))
             if key == "decoded_mins@cli" else None)
         if key == "stream_mins_bf16@cli":
-            table = e.prepare(qb)[0]
-            rerank_vs_plain(tag, "CLI B2 rerank", "rerank@cli", kernels,
-                            table, mins, echo)
+            table, _, _, cert, _ = e.prepare(qb)
+            ladder_vs_plain(tag, "CLI B2' ladder", "@cli", kernels, e,
+                            table, mins, echo, cert)
         del e, mins, echo
     if counts.get("adc_topk@cli"):
         codes_p = torch.from_numpy(pad_codes(codes, ADC_TILE)).to(dev)
@@ -1801,7 +1896,7 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
             fracs.append(eng.last_exact_fracs)
             big_check(cw, q, cdb, cdb64, d, ids, n_big)
         counts = build.launch_counts()
-        check(counts["stream_mins_int8"] > 0 and counts["rerank"] > 0,
+        check(counts["stream_mins_int8"] > 0 and counts["ladder"] > 0,
               "the big-N int8 path never launched stream_mins_int8")
         launches["stream_mins_int8"] = counts["stream_mins_int8"]
         wall = float(np.mean(walls))
@@ -2206,8 +2301,8 @@ def sharded_batches(tag, label, e, rng, codes_db, codes_db64, n, key):
     engine, the launch counts set to 0 just before the first and read
     after the last; each batch then held to ``adc_query_topk`` (the
     checks launch no kernel).  The scan kernel ``key`` must have run
-    once a non-empty shard a batch, B2 at least as often.  Returns the
-    counts."""
+    once a non-empty shard a batch, and so must the ladder's two kernels.
+    Returns the counts."""
     t = time.perf_counter()
     e.warmup(batch_sizes=(B,), top_k=TOP_K)
     torch.cuda.synchronize()
@@ -2230,14 +2325,14 @@ def sharded_batches(tag, label, e, rng, codes_db, codes_db64, n, key):
     check(counts[key] == live * N_BATCHES,
           f"{label}: {key} launched {counts[key]} times, not "
           f"{live * N_BATCHES}")
-    check(counts["rerank"] >= live * N_BATCHES,
-          f"{label}: rerank launched {counts['rerank']} times")
+    check(counts["ladder"] == counts["ladder_mins"] == live * N_BATCHES,
+          f"{label}: the ladder launched {counts['ladder']} times")
     wall = float(np.mean(walls))
     log(f"{tag} {label}: warmup {warm:.2f} s; {N_BATCHES} batches of "
         f"B={B}, top-{TOP_K}: host wall {wall * 1e3:.4f} ms/batch -> "
         f"{B / wall:.1f} QPS; certified first-shot (every shard) "
-        f"{float(np.mean(fracs)):.4f}; launches {key} {counts[key]}, rerank "
-        f"{counts['rerank']}; distances bit-equal to adc_query_topk, ids "
+        f"{float(np.mean(fracs)):.4f}; launches {key} {counts[key]}, ladder "
+        f"{counts['ladder']}; distances bit-equal to adc_query_topk, ids "
         f"equal up to audited ties")
     return counts
 
@@ -2265,7 +2360,8 @@ def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                                      rng, codes_db, codes_db64, N, key)
             if (S, prec) == (4, "bf16"):
                 launches["delta_mins_bf16@sharded"] = counts[key]
-                launches["rerank@sharded"] = counts["rerank"]
+                launches["ladder@sharded"] = counts["ladder"]
+                launches["ladder_mins@sharded"] = counts["ladder_mins"]
                 es = e.shards[0][0]
                 q = rng.normal(size=(B, D)).astype(np.float32)
                 mins, echo = scan_vs_plain(
@@ -2274,9 +2370,10 @@ def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                         qop, es.cwbd, es.row_data, es.ovf, es.n_valid,
                         es.tiles.S, u=uq, mode="bf16"),
                     kernels, "delta_mins_bf16@sharded", bf16_tol)
-                rerank_vs_plain(tag, "sharded B2 rerank (shard 0 of 4)",
-                                "rerank@sharded", kernels, es.prepare(q)[0],
-                                mins, echo)
+                table, _, _, cert, _ = es.prepare(q)
+                ladder_vs_plain(tag, "sharded B2' ladder (shard 0 of 4)",
+                                "@sharded", kernels, es, table, mins, echo,
+                                cert)
                 del mins, echo
             del e
 
@@ -2571,7 +2668,9 @@ def check_batch(table, codes_db, codes_db64, d, ids, n=N, ref=None):
     """Engine results against the plain exact scan over the same table
     (or ``ref``, its (dists, ids) computed before): distances bit-equal;
     each id carries its reported distance; id sets differ only at
-    f64-audited ties of the top-k boundary."""
+    f64-audited ties of the top-k boundary.  ``d`` and ``ids`` may be on
+    the host (``select`` returns them there)."""
+    d, ids = d.to(table.device), ids.to(table.device)
     dr, ir = (ref if ref is not None
               else adc_query_topk(table, codes_db, n, TOP_K, 16384))
     check(torch.equal(d, dr), "distances differ from adc_query_topk")
@@ -2810,11 +2909,11 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
             check_batch(table[:b], codes_db, codes_db64[:MST_N], d, ids,
                         n=MST_N)
         counts = build.launch_counts()
-        check(counts["stream_mins"] > 0 and counts["rerank"] > 0,
+        check(counts["stream_mins"] > 0 and counts["ladder"] > 0,
               f"the exact-MST engine's kernels: {counts}")
         log(f"int16 engine over its DFS order: 2 batches of {B} bit-equal "
-            f"to adc_query_topk; launches B1 {counts['stream_mins']}, B2 "
-            f"{counts['rerank']}")
+            f"to adc_query_topk; launches B1 {counts['stream_mins']}, B2' "
+            f"{counts['ladder']}")
         del em, mins, echo, tm, ta, mst, ra
 
         # -- rotation, block-aware size, bit format (cut) --------------

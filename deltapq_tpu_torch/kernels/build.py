@@ -78,6 +78,12 @@ SIGNATURES = {
                                  _I, _I, _P],
     # tab, cand, out, B, M, K, S, code_bytes, stream
     "rerank_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # mins, scale2, out, ns, B, pool, stream
+    "ladder_mins_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # mins, q2, err_r, tab, codes, row_to_db, out_d, out_id, status,
+    # B, nu, M, K, unit, n_valid, top_k, r0, r1, r2, r3, n_rungs, stream
+    "ladder_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -236,8 +242,11 @@ def check(err: int, what: str) -> None:
 #: the kernels whose launches the wrappers count (not the plain
 #: versions), one key per kernel and scan mode: stream_mins (int16),
 #: codes_mins (bf16), delta_mins (int16), adc_topk (f32) and
-#: adc_topk_packed (f32) carry their first mode's bare name.  The counts
-#: are counters of ``tracing``'s registry, under these keys.
+#: adc_topk_packed (f32) carry their first mode's bare name; ``rerank``
+#: counts ``csrc/rerank.cu`` (the batch ladder, one a rung), ``ladder`` and
+#: ``ladder_mins`` the two kernels of ``csrc/ladder.cu`` (the per-query
+#: ladder, one each a batch).  The counts are counters of ``tracing``'s
+#: registry, under these keys.
 LAUNCHES = ("stream_mins", "stream_mins_bf16", "stream_mins_int8",
             "stream_mins_pipelined_int8", "stream_mins_pipelined_bf16",
             "codes_mins", "codes_mins_int16", "codes_mins_int8",
@@ -245,7 +254,8 @@ LAUNCHES = ("stream_mins", "stream_mins_bf16", "stream_mins_int8",
             "decoded_mins", "adc_topk", "rerank",
             "adc_topk_bf16", "adc_topk_bf16x2", "adc_dists",
             "adc_topk_packed", "adc_topk_packed_bf16",
-            "adc_topk_packed_bf16x2", "adc_topk_tiledict")
+            "adc_topk_packed_bf16x2", "adc_topk_tiledict", "ladder",
+            "ladder_mins")
 
 
 def count(kernel: str) -> None:

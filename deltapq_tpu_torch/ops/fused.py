@@ -27,10 +27,16 @@ Each batch of the fused tiers:
    scale2);
 2. ``scan``: the tier's kernel -> 32-row subtile minima (and the codes
    the rerank reads);
-3. ``select``: ``fused_select_esc`` -- unit selection, exact rerank
-   (CUDA rerank kernel), the certificate, the ladder (ns, 2ns, 8ns, cap)
-   and the terminal exact scan; the JAX package's ``lax.cond`` rungs
-   become host checks of ``ok.all()`` -- then scan rows -> database ids.
+3. ``select``: unit selection, exact rerank, the certificate, the ladder
+   (ns, 2ns, 8ns, cap) and the terminal exact scan, then scan rows ->
+   database ids and the one read of the results.  On a card, for u8 codes,
+   M <= 16 and top_k <= 128, the ladder runs per query in one kernel a
+   batch (``fk.fused_ladder``, ``csrc/ladder.cu``): each query selects its
+   units exactly, reranks, certifies and climbs the rungs alone, and one
+   copy brings the results and a status byte a row to the host.  Any other
+   shape, and every CPU tensor, takes the batch ladder ``fused_select_esc``
+   (the JAX package's ``lax.cond`` rungs as host checks of ``ok.all()``,
+   the rerank kernel B2 once a rung for the whole batch).
 
 Every precision of the JAX package (int8, int16, bf16) is ported, for
 M <= 16 (the GIST shape M=16, Ds=60 runs with two mask planes and the
@@ -130,18 +136,60 @@ def fused_select_esc(mins_nb, q2, table, codes_dev, n_valid, top_k,
             break
         d, rows, ok = rung(ns)
     if final_exact and not _all_ok(ok):
-        tracing.count("terminal_scans")
-        with tracing.span("engine.terminal"):
-            # biggest scan tile (<= 16384 rows) dividing the padded rows
-            tile_n = TILE
-            while (tile_n * 2 <= 16384
-                   and codes_dev.shape[0] % (tile_n * 2) == 0):
-                tile_n *= 2
-            d_s, r_s = adc_query_topk(table, codes_dev, n_valid, top_k,
-                                      tile_n)
-            d = torch.where(ok[:, None], d, d_s)
-            rows = torch.where(ok[:, None], rows, r_s)
+        d, rows = _terminal_scan(d, rows, ok, table, codes_dev, n_valid,
+                                 top_k)
     return d, rows, ok, ok1
+
+
+def _terminal_scan(d, rows, ok, table, codes_dev, n_valid, top_k,
+                   row_to_db=None):
+    """The rows where ``ok`` fails take the full exact scan
+    (``adc_query_topk`` over every row, ids through ``row_to_db`` where
+    given); counts ``terminal_scans``."""
+    tracing.count("terminal_scans")
+    with tracing.span("engine.terminal"):
+        # biggest scan tile (<= 16384 rows) dividing the padded rows
+        tile_n = TILE
+        while (tile_n * 2 <= 16384
+               and codes_dev.shape[0] % (tile_n * 2) == 0):
+            tile_n *= 2
+        d_s, r_s = adc_query_topk(table, codes_dev, n_valid, top_k, tile_n)
+        r_s = fk.map_row_ids(r_s, row_to_db, n_valid)
+        return (torch.where(ok[:, None], d, d_s),
+                torch.where(ok[:, None], rows, r_s.to(rows.dtype)))
+
+
+def _per_query_ladder(mins_nb, q2, table, codes_dev, n_valid, top_k, rungs,
+                      pool, err_r=None, scale2=None, row_to_db=None, b=None):
+    """The ladder run per query (``fk.ladder_mins`` and ``fk.fused_ladder``:
+    the kernels on a card, their plain versions on the CPU), read to the
+    host in one copy; rows where every rung fails take the terminal exact
+    scan, whose results are read after it.  Counts ``rungs`` (the deepest
+    rung a row of the first ``b`` reached) and ``rung_rows`` (the rungs
+    those rows ran).  Returns (d, ids, ok1) on the host: ids through
+    ``row_to_db``, ``ok1`` [B] the first-shot certificate, a NumPy
+    array."""
+    B = table.shape[0]
+    with tracing.span("engine.ladder"):
+        buf = fk.fused_ladder(fk.ladder_mins(mins_nb, pool, scale2), q2,
+                              table, codes_dev, n_valid, top_k, rungs, pool,
+                              err_r=err_r, row_to_db=row_to_db)
+    with tracing.span("engine.wait"):
+        host = buf.cpu().numpy()
+    d, ids, st = fk.ladder_views(host, B, top_k)
+    reached = np.where(st == fk.LADDER_FAILED, len(rungs) - 1, st)[:b]
+    if len(reached):
+        tracing.count("rungs", int(reached.max()) + 1)
+        tracing.count("rung_rows", int(reached.sum()) + len(reached))
+    failed = st == fk.LADDER_FAILED
+    if not failed.any():
+        return torch.from_numpy(d), torch.from_numpy(ids), st == 0
+    d, ids, _ = fk.ladder_views(buf, B, top_k)
+    ok = torch.from_numpy(~failed).to(d.device)
+    d, ids = _terminal_scan(d, ids, ok, table, codes_dev, n_valid, top_k,
+                            row_to_db)
+    with tracing.span("engine.wait"):
+        return d.cpu(), ids.cpu(), st == 0
 
 
 #: adaptive certificate calibration: grow the first rung when the
@@ -150,20 +198,56 @@ ADAPT_GROW_BELOW = 0.35
 ADAPT_TARGET = 0.6
 
 
+def _rung_sizes(ns: int, n_units: int, unit: int, b_cols: int
+                ) -> Tuple[int, ...]:
+    """The ladder's rungs in units, ascending and distinct: (ns, 2ns, 8ns,
+    cap), each within the units; the cap rung's rows shrink as the batch
+    (``b_cols`` columns) grows."""
+    ns = min(ns, max(n_units - 1, 1))
+    cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
+    ns_cap = min(max(n_units - 1, 1), max(ns, cap_rows // unit))
+    return tuple(dict.fromkeys(
+        [ns, min(ns * 2, ns_cap), min(ns * 8, ns_cap), ns_cap]))
+
+
+def _per_query_route(mins_nb, table, codes_dev, top_k, n_units, rungs
+                     ) -> bool:
+    """The per-query ladder's route: CUDA tensors of a shape the ladder
+    kernel takes."""
+    return (mins_nb.device.type == "cuda"
+            and fk.ladder_takes(table, codes_dev, top_k, n_units, rungs))
+
+
 def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
                             top_k, n_sub=None, err_r=None, scale2=None,
-                            engine=None, b=None):
+                            engine=None, b=None, row_to_db=None,
+                            count_rows=True):
     """Select + rerank with the full ladder (ns, 2ns, 8ns, cap) and the
     terminal exact scan.  The first rung comes from ``n_sub``, else
     ``engine.ns_hint`` (per-index calibration), else
     ``_default_n_sub``; ``ns_hint`` doubles when the first-shot rate
     collapses.  The cap rung's rows shrink as B grows (its [B, S]
-    intermediates).  The first-shot certificate is read once: its rate
-    over every row, padding included, drives the ``ns_hint`` rule; with
-    ``b``, the caller's real rows, the counters ``real_rows`` and
-    ``first_shot_rows`` (those of them certified at rung 1) grow.
-    Returns (d, rows, ok1, first_frac): ``ok1`` [B] the first-shot
-    certificate, ``first_frac`` its rate."""
+    intermediates).
+
+    The route follows the input.  CUDA tensors of a shape the ladder
+    kernel takes (``fk.ladder_takes``: u8 codes, M <= 16, top_k <= 128)
+    run the per-query ladder (``_per_query_ladder``): each row climbs the
+    rungs alone on the card, in one launch a batch, and one copy brings
+    results and status to the host.  Any other shape, and CPU tensors,
+    run the batch ladder (``fused_select_esc``: every row reruns each
+    rung that some row needs).  The rows that fail every rung take the
+    terminal exact scan either way.
+
+    The first-shot certificate is read once: its rate over every row,
+    padding included, drives the ``ns_hint`` rule.  ``b`` is the caller's
+    real rows (the first ``b``): the per-query ladder's ``rungs`` and
+    ``rung_rows`` count them alone, and ``real_rows`` and
+    ``first_shot_rows`` (those of them certified at rung 1) grow by them
+    unless ``count_rows`` is false (a shard of a sharded engine, which
+    counts its merged certificate itself).  Returns (d, rows, ok1,
+    first_frac), each on the host: rows as database ids through
+    ``row_to_db`` where given, ``ok1`` [B] the first-shot certificate,
+    ``first_frac`` its rate."""
     ns_total = mins_nb.shape[0]
     pool = _pool_for(ns_total)
     n_units = -(-ns_total // pool)
@@ -171,25 +255,29 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     hint = getattr(engine, "ns_hint", None) if engine is not None \
         else None
     ns = n_sub or hint or _default_n_sub(top_k, n_units, unit)
-    ns = min(ns, max(n_units - 1, 1))
-    b_cols = int(mins_nb.shape[1])
-    cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
-    ns_cap = min(max(n_units - 1, 1), max(ns, cap_rows // unit))
-    rungs = tuple(dict.fromkeys(
-        [ns, min(ns * 2, ns_cap), min(ns * 8, ns_cap), ns_cap]))
-    d, rows, ok, ok1 = fused_select_esc(
-        mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
-        err_r=err_r, scale2=scale2, final_exact=True)
-    with tracing.span("engine.wait"):
-        ok1_host = ok1.cpu()
-    first_frac = float(ok1_host.to(torch.float32).mean())
-    if b is not None:
+    rungs = _rung_sizes(ns, n_units, unit, int(mins_nb.shape[1]))
+    ns, ns_cap = rungs[0], rungs[-1]
+    if _per_query_route(mins_nb, table, codes_dev, top_k, n_units, rungs):
+        d, rows, ok1 = _per_query_ladder(
+            mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
+            err_r=err_r, scale2=scale2, row_to_db=row_to_db, b=b)
+    else:
+        d, rows, _, ok1 = fused_select_esc(
+            mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
+            err_r=err_r, scale2=scale2, final_exact=True)
+        rows = fk.map_row_ids(rows, row_to_db, n_valid)
+        with tracing.span("engine.wait"):
+            d, rows, ok1 = d.cpu(), rows.cpu(), ok1.cpu().numpy()
+    # the f32 mean of the certificate, as torch takes it
+    first_frac = float(np.float32(np.count_nonzero(ok1))
+                       / np.float32(len(ok1)))
+    if b is not None and count_rows:
         tracing.count("real_rows", b)
-        tracing.count("first_shot_rows", int(ok1_host[:b].sum()))
+        tracing.count("first_shot_rows", int(np.count_nonzero(ok1[:b])))
     if (engine is not None and n_sub is None
             and first_frac < ADAPT_GROW_BELOW and ns < ns_cap):
         engine.ns_hint = min(ns * 2, ns_cap)
-    return d, rows, ok1, first_frac
+    return d, rows, torch.from_numpy(ok1), first_frac
 
 
 def _int8_codeword_radius(codewords: np.ndarray, mu: np.ndarray,
@@ -360,17 +448,15 @@ class _FusedEngine:
 
     def select(self, table, cert, mins, codes_echo, b: int,
                top_k: int = 10, n_sub: Optional[int] = None):
-        """Stage 3: selection, rerank, ladder, terminal scan and the id
-        map.  Returns (dists [b, top_k], ids [b, top_k]) on the device."""
+        """Stage 3: selection, rerank, ladder, terminal scan, the id map
+        and the copy back.  Returns (dists [b, top_k] f32, ids [b, top_k]
+        int64) on the host."""
         with tracing.span("engine.select"):
             q2, err_r, scale2 = cert
             d, rows, _, self.last_exact_frac = _select_with_escalation(
                 mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
-                err_r=err_r, scale2=scale2, engine=self, b=b)
-            if self.row_to_db is not None:
-                mapped = self.row_to_db[
-                    torch.clamp(rows, 0, self.n_valid - 1)]
-                rows = torch.where(rows >= 0, mapped.to(rows.dtype), rows)
+                err_r=err_r, scale2=scale2, engine=self, b=b,
+                row_to_db=self.row_to_db)
             return d[:b], rows[:b]
 
     def query(self, queries: np.ndarray, top_k: int = 10,
@@ -382,8 +468,7 @@ class _FusedEngine:
             mins, codes_echo = self.scan(qop, uq)
             d, rows = self.select(table, cert, mins, codes_echo, b, top_k,
                                   n_sub)
-            with tracing.span("engine.wait"):
-                return d.cpu().numpy(), rows.cpu().numpy()
+            return d.numpy(), rows.numpy()
 
     def _warmup_queries(self, b: int, seed: int = 0) -> np.ndarray:
         """Data-like queries (a decoded row + jitter): degenerate

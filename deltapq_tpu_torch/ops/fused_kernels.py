@@ -28,7 +28,13 @@ module and a launch count in ``kernels.build.launch_counts()``:
   ``_decoded_mins_kernel``): bf16 x^ . q with f32 sums over resident
   decoded rows, on the tensor cores (``wgmma``);
 * ``rerank_table_sums`` -> ``csrc/rerank.cu`` (replaces
-  ``_rerank_kernel``): exact ascending-m f32 table sums.
+  ``_rerank_kernel``): exact ascending-m f32 table sums, the rerank of the
+  batch ladder (``select_rerank``);
+* ``fused_ladder`` -> ``csrc/ladder.cu`` (B2's main-path form, launch key
+  ``ladder``; no TPU kernel of its own): per query, exact unit selection,
+  the rerank's table sums, the certificate and the escalation through the
+  rungs, one launch a batch, on the minima ``ladder_mins`` lays out (the
+  same source: pooled, a query a row, scale2 folded in).
 
 Each wrapper takes the plain version for a tensor on the CPU and, for a
 CUDA tensor, launches its kernel or raises: there is no fallback.
@@ -928,6 +934,20 @@ def _fence_margin(fence: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     return 0.02 * (torch.abs(fence) + q2 + 1.0)
 
 
+def _certified(d_k: torch.Tensor, fence: torch.Tensor, q2: torch.Tensor,
+               err_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The exactness certificate of a rung: its k-th exact distance
+    ``d_k`` against the fence (every unselected unit's minimum is >=
+    ``fence``).  With ``err_r``, the quantized-domain form: every row of
+    an unselected unit has true distance >= (sqrt(fence + q2) - err_r)^2;
+    else the bf16 form with ``_fence_margin``."""
+    if err_r is not None:
+        ft = torch.clamp_min(fence + q2, 0.0)
+        root = torch.clamp_min(torch.sqrt(ft) - err_r, 0.0)
+        return d_k <= root * root
+    return (d_k - q2) <= fence - _fence_margin(fence, q2)
+
+
 def pool_mins_nb(mins_nb: torch.Tensor, pool: int) -> torch.Tensor:
     """Min-pool kernel-layout mins [NS, B] by ``pool`` along NS, then
     transpose -> [B, NS/pool]."""
@@ -1025,12 +1045,195 @@ def select_rerank(mins: torch.Tensor, q2: torch.Tensor,
                                      dtype=d.dtype, device=dev)], dim=1)
         out_rows = torch.cat([out_rows, torch.full(
             (B, pad), -1, dtype=out_rows.dtype, device=dev)], dim=1)
+    return d, out_rows, _certified(d[:, k_eff - 1], fence, q2, err_r)
+
+
+# --------------------------------------------------------------------------
+# The per-query ladder
+# --------------------------------------------------------------------------
+
+#: status byte of a row that no rung certified
+LADDER_FAILED = 255
+#: the ladder kernel's limits: top_k, subspaces, codes a subspace (u8
+#: codes), and units one selection holds (the last rung + 1)
+LADDER_MAX_TOP_K = 128
+LADDER_MAX_M = 16
+LADDER_MAX_K = 256
+LADDER_MAX_UNITS = 4096
+
+
+def ladder_takes(table: torch.Tensor, codes: torch.Tensor, top_k: int,
+                 n_units: int, rungs) -> bool:
+    """Whether ``fused_ladder`` takes this shape: u8 codes, M <= 16,
+    K <= 256, top_k <= 128, and a last rung + 1 within the units and the
+    kernel's selection buffer."""
+    return (codes.dtype == torch.uint8 and table.shape[1] <= LADDER_MAX_M
+            and table.shape[2] <= LADDER_MAX_K
+            and 1 <= top_k <= LADDER_MAX_TOP_K
+            and 1 <= len(rungs) <= 4
+            and rungs[-1] + 1 <= min(n_units, LADDER_MAX_UNITS))
+
+
+def map_row_ids(rows: torch.Tensor, row_to_db: Optional[torch.Tensor],
+             n_valid: int) -> torch.Tensor:
+    """Scan rows -> database ids through ``row_to_db`` (-1 stays -1)."""
+    if row_to_db is None:
+        return rows
+    mapped = row_to_db[torch.clamp(rows, 0, max(n_valid - 1, 0))]
+    return torch.where(rows >= 0, mapped.to(rows.dtype), rows)
+
+
+def fused_ladder_ref(mins: torch.Tensor, q2: torch.Tensor,
+                     table: torch.Tensor, codes: torch.Tensor, n_valid: int,
+                     top_k: int, rungs, pool: int = 1,
+                     err_r: Optional[torch.Tensor] = None,
+                     row_to_db: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the per-query ladder.  Each row runs the rungs
+    (ascending unit counts) in turn until its certificate holds: the
+    ``ns`` units of smallest minimum by (minimum, unit) -- a stable sort,
+    the kernel's exact selection -- their rows' exact distances
+    (``rerank_table_sums_ref``, rows >= n_valid at +inf), the top-k, and
+    ``_certified`` against the fence, the (ns+1)-th smallest minimum; a
+    later rung runs on the failing rows only.
+
+    mins [B, NU] pooled unit minima (scale2 folded in); q2, err_r [B];
+    table [B, M, K]; codes [N_pad, M] u8 in scan order.  Returns (d
+    [B, top_k] f32 ascending, ids [B, top_k] int64 -- scan rows, or
+    database ids through ``row_to_db``; -1 where d is +inf -- and status
+    [B] u8: the 0-based rung that certified the row, or
+    ``LADDER_FAILED``, whose d and ids are the last rung's)."""
+    B, NU = mins.shape
+    M, K = table.shape[1], table.shape[2]
+    dev = mins.device
+    unit = SUB * pool
+    srt_v, srt_i = torch.sort(mins, dim=1, stable=True)
+    tab_flat = table.reshape(B, M * K)
+    n_units_total = codes.shape[0] // unit
+    units = codes.reshape(n_units_total, unit * M)
+    d_out = torch.full((B, top_k), float("inf"), device=dev)
+    id_out = torch.full((B, top_k), -1, dtype=torch.int64, device=dev)
+    status = torch.full((B,), LADDER_FAILED, dtype=torch.uint8, device=dev)
+    active = torch.arange(B, device=dev)
+    for j, ns in enumerate(rungs):
+        if not len(active):
+            break
+        A, S = len(active), ns * unit
+        sub = srt_i[active, :ns]
+        rows = (sub[:, :, None] * unit
+                + torch.arange(unit, device=dev)[None, None, :]).reshape(A, S)
+        cand = units[torch.clamp(sub, 0, n_units_total - 1)]
+        cand = cand.reshape(A, S, M).transpose(1, 2).contiguous()
+        exact = rerank_table_sums_ref(tab_flat[active], cand)
+        exact = torch.where(rows < n_valid, exact,
+                            torch.full_like(exact, float("inf")))
+        k_eff = min(top_k, S)
+        d, pos = _smallest(exact, k_eff)
+        r = torch.where(torch.isinf(d), -1, torch.gather(rows, 1, pos))
+        ok = _certified(d[:, k_eff - 1], srt_v[active, ns], q2[active],
+                        None if err_r is None else err_r[active])
+        keep = ok | (j == len(rungs) - 1)
+        rows_k = active[keep]
+        d_out[rows_k, :k_eff] = d[keep]
+        id_out[rows_k, :k_eff] = map_row_ids(r[keep], row_to_db, n_valid)
+        status[active[ok]] = j
+        active = active[~ok]
+    return d_out, id_out, status
+
+
+def ladder_views(buf, B: int, top_k: int):
+    """(d [B, top_k] f32, ids [B, top_k] int64, status [B] u8): views of
+    ``fused_ladder``'s one output buffer, a tensor on its device or its
+    host copy as a NumPy array."""
+    n = B * top_k
+    if isinstance(buf, np.ndarray):
+        return (buf[8 * n:12 * n].view(np.float32).reshape(B, top_k),
+                buf[:8 * n].view(np.int64).reshape(B, top_k),
+                buf[12 * n:12 * n + B])
+    return (buf[8 * n:12 * n].view(torch.float32).view(B, top_k),
+            buf[:8 * n].view(torch.int64).view(B, top_k),
+            buf[12 * n:12 * n + B])
+
+
+def ladder_mins(mins_nb: torch.Tensor, pool: int,
+                scale2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ladder's minima: kernel-layout mins [NS, B] min-pooled by
+    ``pool`` and laid out [B, NS/pool] (``pool_mins_nb``), times ``scale2``
+    where given.  Bit-equal to the plain version."""
+    if mins_nb.device.type == "cpu":
+        out = pool_mins_nb(mins_nb, pool)
+        return out * scale2 if scale2 is not None else out
+    NS, B = mins_nb.shape
+    if mins_nb.dtype != torch.float32 or not mins_nb.is_contiguous() \
+            or pool < 1 or (scale2 is not None and (
+                scale2.dtype != torch.float32 or scale2.numel() != 1
+                or scale2.device != mins_nb.device)):
+        raise ValueError("ladder_mins: contiguous f32 mins [NS, B], pool "
+                         ">= 1, scale2 one f32 value on the same device")
+    out = torch.empty((B, -(-NS // pool)), dtype=torch.float32,
+                      device=mins_nb.device)
+    stream = torch.cuda.current_stream(mins_nb.device).cuda_stream
+    err = build.library().ladder_mins_launch(
+        mins_nb.data_ptr(),
+        scale2.data_ptr() if scale2 is not None else None, out.data_ptr(),
+        NS, B, pool, stream)
+    build.check(err, "ladder_mins")
+    build.count("ladder_mins")
+    return out
+
+
+def fused_ladder(mins: torch.Tensor, q2: torch.Tensor, table: torch.Tensor,
+                 codes: torch.Tensor, n_valid: int, top_k: int, rungs,
+                 pool: int = 1, err_r: Optional[torch.Tensor] = None,
+                 row_to_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-query ladder (``fused_ladder_ref``'s function) in one
+    buffer [12 * B * top_k + B] u8, read by ``ladder_views``: the ids, the
+    distances and the status bytes, so one copy brings them all to the
+    host.  Distances are bit-equal to the plain version's; ids equal up to
+    ties at equal distance.  Raises on a shape ``ladder_takes`` refuses."""
+    B, NU = mins.shape
+    M, K = table.shape[1], table.shape[2]
+    rungs = tuple(int(r) for r in rungs)
+    if table.shape[0] != B or codes.shape[1] != M \
+            or not ladder_takes(table, codes, top_k, NU, rungs) \
+            or any(a >= b for a, b in zip(rungs, rungs[1:])) \
+            or rungs[0] < 1 or pool not in (1, 2, 4, 8):
+        raise ValueError("fused_ladder: mins [B, NU], table [B, M<=16, "
+                         "K<=256], codes [N_pad, M] u8, top_k <= 128, 1-4 "
+                         "ascending rungs, the last + 1 <= min(NU, 4096)")
+    if mins.device.type == "cpu":
+        d, ids, status = fused_ladder_ref(mins, q2, table, codes, n_valid,
+                                          top_k, rungs, pool, err_r,
+                                          row_to_db)
+        return torch.cat([ids.view(torch.uint8).reshape(-1),
+                          d.view(torch.uint8).reshape(-1), status])
+    dev = mins.device
+    args = {"mins": (mins, torch.float32), "q2": (q2, torch.float32),
+            "table": (table, torch.float32), "codes": (codes, torch.uint8)}
     if err_r is not None:
-        # quantized-domain certificate: every row of an unselected unit
-        # has true distance >= (sqrt(fence + q2) - err_r)^2
-        ft = torch.clamp_min(fence + q2, 0.0)
-        root = torch.clamp_min(torch.sqrt(ft) - err_r, 0.0)
-        ok = d[:, k_eff - 1] <= root * root
-    else:
-        ok = (d[:, k_eff - 1] - q2) <= fence - _fence_margin(fence, q2)
-    return d, out_rows, ok
+        args["err_r"] = (err_r, torch.float32)
+    if row_to_db is not None:
+        args["row_to_db"] = (row_to_db, torch.int32)
+    for name, (t, dt) in args.items():
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"fused_ladder: {name} must be a contiguous "
+                             f"{dt} tensor on {dev}")
+    if q2.shape != (B,) or (err_r is not None and err_r.shape != (B,)) \
+            or codes.shape[0] < NU * SUB * pool or n_valid > codes.shape[0]:
+        raise ValueError("fused_ladder: q2 and err_r [B]; codes cover every "
+                         "unit's rows")
+    n = B * top_k
+    buf = torch.empty(12 * n + B, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()                 # ladder_views' layout
+    r = rungs + (rungs[-1],) * (4 - len(rungs))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.library().ladder_launch(
+        mins.data_ptr(), q2.data_ptr(),
+        err_r.data_ptr() if err_r is not None else None, table.data_ptr(),
+        codes.data_ptr(),
+        row_to_db.data_ptr() if row_to_db is not None else None,
+        base + 8 * n, base, base + 12 * n, B, NU, M, K, SUB * pool, n_valid,
+        top_k, *r, len(rungs), stream)
+    build.check(err, "ladder")
+    build.count("ladder")
+    return buf

@@ -11,13 +11,16 @@ device), then on each shard:
 
 1. ``fused_delta_mins`` scans the shard's tiles (kernel B5,
    ``csrc/delta_mins.cu``, on a card);
-2. ``ops.fused._select_with_escalation`` selects and reranks (kernel B2,
-   ``csrc/rerank.cu``) over the shard's codes echo, with the port's
-   ladder and terminal exact scan, and the shard's own first-rung hint;
+2. ``ops.fused._select_with_escalation`` selects and reranks over the
+   shard's codes echo, with the port's ladder and terminal exact scan,
+   and the shard's own first-rung hint (on a card the per-query ladder
+   kernel, ``csrc/ladder.cu``; the batch ladder with B2,
+   ``csrc/rerank.cu``, otherwise), its results on the host;
 3. the shard's row base is added to its rows;
 
 and ``mesh.gather_topk`` merges the shards, after which ``row_to_db``
-maps scan rows to database ids (-1 stays -1).
+maps scan rows to database ids (-1 stays -1).  ``tracing``'s ``rungs``
+and ``rung_rows`` add up each shard's ladder over the real rows.
 
 Where this differs from the JAX engine, whose per-shard selection runs
 one fixed rung and returns uncertified rows where a shard's certificate
@@ -26,8 +29,9 @@ merged results are exact at every shard count, and the engine runs at
 ``precision`` ("bf16" by default, the JAX engine's only mode; "int8"
 and "int16" too).  ``last_exact_frac`` is the fraction of queries whose
 first shot certified on every shard; ``tracing``'s counters
-``real_rows`` and ``first_shot_rows`` count the same queries.  A shard holding no valid row (the
-padding tiles at the end) launches nothing and contributes +inf rows.
+``real_rows`` and ``first_shot_rows`` count the same queries.  A shard
+holding no valid row (the padding tiles at the end) launches nothing and
+contributes +inf rows.
 """
 
 from __future__ import annotations
@@ -185,18 +189,16 @@ class ShardedCompressedEngine:
                                  tuple(_to(c, dev) for c in cert))
             t, qo, u, (q2, err_r, scale2) = operands[dev]
             if eng.n_valid == 0:
-                ds.append(torch.full((t.shape[0], top_k), float("inf"),
-                                     device=dev))
+                ds.append(torch.full((t.shape[0], top_k), float("inf")))
                 rows.append(torch.full((t.shape[0], top_k), -1,
-                                       dtype=torch.int64, device=dev))
-                oks.append(torch.ones(t.shape[0], dtype=torch.bool,
-                                      device=dev))
+                                       dtype=torch.int64))
+                oks.append(torch.ones(t.shape[0], dtype=torch.bool))
                 continue
             with _current(dev):
                 mins, echo = eng.scan(qo, u)
                 d, r, ok1, _ = _select_with_escalation(
                     mins, q2, t, echo, eng.n_valid, top_k, err_r=err_r,
-                    scale2=scale2, engine=eng)
+                    scale2=scale2, engine=eng, b=b, count_rows=False)
             ds.append(d)
             rows.append(torch.where(r >= 0, r.to(torch.int64) + base, -1))
             oks.append(ok1)

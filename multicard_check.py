@@ -87,13 +87,13 @@ def one_process(cards: int) -> None:
         check(np.array_equal(d, ref), "the sharded engine is not exact")
     c = build.launch_counts()
     check(c["delta_mins_bf16"] == cards * N_BATCHES
-          and c["rerank"] >= cards * N_BATCHES, f"launches {c}")
+          and c["ladder"] == cards * N_BATCHES, f"launches {c}")
     wall = float(np.mean(walls))
     print(f"one process, {cards} cards: ShardedCompressedEngine bf16, "
           f"{N_BATCHES} batches of B={B}: host wall {wall * 1e3:.4f} "
           f"ms/batch -> {B / wall:.1f} QPS, first-shot "
           f"{e.last_exact_frac:.4f}, launches B5 {c['delta_mins_bf16']} / "
-          f"B2 {c['rerank']}; distances bit-equal to adc_query_topk",
+          f"ladder {c['ladder']}; distances bit-equal to adc_query_topk",
           flush=True)
     d, _ = sharded_query_plain(cw, q[:B], codes, mesh=mesh)
     check(np.array_equal(d, ref), "sharded_query_plain")

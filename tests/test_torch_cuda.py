@@ -87,7 +87,7 @@ def test_engine_exact_on_card(cuda):
     build.reset_launch_counts()
     d, i = eng.query(q, top_k=10)
     counts = build.launch_counts()
-    assert counts["stream_mins"] == 1 and counts["rerank"] >= 1
+    assert counts["stream_mins"] == 1 and counts["ladder"] == 1
     table = eng.prepare(q)[0][:len(q)]     # the engine's own table
     codes = torch.from_numpy(pad_codes(decode_stream_tiles(eng.tiles),
                                        1024))
@@ -130,6 +130,131 @@ def test_ladder_and_terminal_scan_on_card(cuda):
     de, _ = eng.query(q, top_k=10)
     assert eng.last_exact_frac < 1.0         # the first rung failed
     assert np.array_equal(de, dr[:b].cpu().numpy())
+
+
+# ---- the per-query ladder (csrc/ladder.cu) ------------------------------
+
+#: shape -> (N, M, K, Ds, B, top_k): SIFT1M's (pool 1), GIST1M's at the
+#: benchmark's 250,000 rows (M=16, top-100; B=500 carries 12 padding
+#: rows), and enough rows for pool 2
+LADDER_SHAPES = {"sift": (1_000_000, 8, 256, 16, 512, 10),
+                 "gist": (250_000, 16, 256, 60, 500, 100),
+                 "pool2": (1_500_000, 8, 256, 16, 500, 10)}
+_LADDER_DATA = {}
+
+
+def _ladder_data(shape):
+    """(codebook, codes, queries near the data) of a shape, made once."""
+    if shape not in _LADDER_DATA:
+        n, M, K, Ds, B, _ = LADDER_SHAPES[shape]
+        rng = np.random.default_rng(n + M)
+        cw = rng.normal(size=(M, K, Ds)).astype(np.float32) * 3
+        codes = _codes(rng, n, M, K)
+        rows = codes[rng.integers(0, n, B)]
+        q = (np.concatenate([cw[m][rows[:, m]] for m in range(M)], 1)
+             + rng.normal(size=(B, M * Ds)).astype(np.float32) * 2)
+        _LADDER_DATA[shape] = cw, codes, q
+    return _LADDER_DATA[shape]
+
+
+def _assert_ids_up_to_ties(table, codes_db, d, ids, ids_ref):
+    """-1 exactly at +inf; each id carries its distance; below each
+    row's k-th distance the id sets are equal."""
+    fin = torch.isfinite(d)
+    assert torch.equal(ids < 0, ~fin)
+    own = _own_dists(table, codes_db, ids)
+    assert torch.equal(torch.where(fin, own, d), d)
+    strict = d < d[:, -1:]
+    a = torch.sort(torch.where(strict, ids, -2), dim=1).values
+    b = torch.sort(torch.where(strict, ids_ref, -2), dim=1).values
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("NS,B,pool,scaled", [(1000, 100, 1, False),
+                                               (4096, 512, 2, True),
+                                               (33, 7, 4, True),
+                                               (31264, 512, 1, True)])
+def test_ladder_mins_kernel_bit_equal(cuda, NS, B, pool, scaled):
+    """Pooled, laid out a query a row, scale2 folded in; ragged edges
+    (NS not a multiple of the pool, B and units not of 32) pad with
+    +inf as the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(NS + B)
+    mins = torch.randn((NS, B), generator=g, device=cuda) * 1e4
+    mins[-3:] = float("inf")
+    scale2 = (torch.tensor(0.37, device=cuda) if scaled else None)
+    want = fk.pool_mins_nb(mins, pool)
+    if scaled:
+        want = want * scale2
+    got = fk.ladder_mins(mins, pool, scale2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,precision,forced", [
+    (shape, precision, forced)
+    for shape in ("sift", "gist") for precision in ("bf16", "int8", "int16")
+    for forced in (False, True)] + [("pool2", "bf16", False),
+                                    ("pool2", "int8", True)])
+def test_ladder_kernel_matches_plain(cuda, shape, precision, forced):
+    """The ladder kernel against its plain version on a scan's own
+    minima: distances bit-equal, status bytes equal, ids equal up to ties
+    at equal distance (mapped through ``row_to_db``), one ``ladder``
+    launch; certified rows equal the plain exact scan.  ``forced`` takes a
+    one-unit first rung, so rows climb to 2, 8 and the cap's units (the
+    cap selects again).  The engine's own query then runs the kernel once
+    a batch, and B2 not at all, exactly."""
+    n, M, K, Ds, B, top_k = LADDER_SHAPES[shape]
+    cw, codes, q = _ladder_data(shape)
+    order = np.lexsort(codes.T[::-1])
+    eng = pfused.FusedCodesEngine(cw, codes, order=order,
+                                  precision=precision, device=cuda)
+    table, qop, uq, (q2, err_r, scale2), b = eng.prepare(q)
+    assert b == B
+    mins, echo = eng.scan(qop, uq)
+    ns_total = mins.shape[0]
+    pool = pfused._pool_for(ns_total)
+    assert pool == (2 if shape == "pool2" else 1)
+    n_units, unit = -(-ns_total // pool), fk.SUB * pool
+    ns = 1 if forced else pfused._default_n_sub(top_k, n_units, unit)
+    rungs = pfused._rung_sizes(ns, n_units, unit, table.shape[0])
+    assert fk.ladder_takes(table, echo, top_k, n_units, rungs)
+    mins_bn = fk.pool_mins_nb(mins, pool)
+    if scale2 is not None:
+        mins_bn = mins_bn * scale2
+    build.reset_launch_counts()
+    assert torch.equal(fk.ladder_mins(mins, pool, scale2), mins_bn)
+    assert build.launch_counts()["ladder_mins"] == 1
+    buf = fk.fused_ladder(mins_bn, q2, table, echo, n, top_k, rungs, pool,
+                          err_r=err_r, row_to_db=eng.row_to_db)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["ladder"] == 1
+    d, ids, status = fk.ladder_views(buf, table.shape[0], top_k)
+    rd, rids, rstatus = fk.fused_ladder_ref(
+        mins_bn, q2, table, echo, n, top_k, rungs, pool, err_r=err_r,
+        row_to_db=eng.row_to_db)
+    assert torch.equal(status, rstatus)
+    assert torch.equal(d, rd)
+    codes_db = torch.from_numpy(codes).to(cuda).to(torch.int64)
+    _assert_ids_up_to_ties(table, codes_db, d, ids, rids)
+    if forced:          # some rows climbed through every rung to the cap
+        assert bool(((status == 3) | (status == fk.LADDER_FAILED)).any())
+    dr, ir = adc_query_topk(table, eng.codes, n, top_k, 1024)
+    ir = eng.row_to_db[ir].to(torch.int64)
+    ok = status != fk.LADDER_FAILED
+    assert forced or bool(ok[:b].any())
+    assert torch.equal(d[ok], dr[ok])
+    _assert_ids_up_to_ties(table[ok], codes_db, d[ok], ids[ok], ir[ok])
+
+    if not forced:
+        build.reset_launch_counts()
+        de, ie = eng.query(q, top_k=top_k)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert counts["ladder"] == 1 and counts["rerank"] == 0
+        assert np.array_equal(de, dr[:b].cpu().numpy())
+        _assert_ids_up_to_ties(table[:b], codes_db,
+                               torch.from_numpy(de).to(cuda),
+                               torch.from_numpy(ie).to(cuda), ir[:b])
 
 
 # ---- the index tiers' kernels ------------------------------------------
@@ -1185,7 +1310,7 @@ def test_cli_on_the_card(cuda, tmp_path):
     xd, xi = out["query", "xla"]
     assert out["query", "pallas", "launches"]["adc_topk"] > 0
     counts = out["query_compressed", "auto", "launches"]
-    assert counts["stream_mins_bf16"] > 0 and counts["rerank"] > 0
+    assert counts["stream_mins_bf16"] > 0 and counts["ladder"] > 0
     for key in (("query", "pallas"), ("query_compressed", "auto")):
         d, i = out[key]
         assert np.array_equal(d, xd), key

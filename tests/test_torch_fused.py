@@ -194,6 +194,45 @@ def test_ladder_and_terminal_scan_match_jax(case):
                           TOPK)
 
 
+@pytest.mark.parametrize("rungs", [(1, 2, 4), (3, 24), (40,)])
+def test_per_query_ladder_matches_batch_ladder(case, rungs):
+    """The per-query ladder's plain version against the batch ladder on
+    the same certificate inputs: the same rows certify at rung 1 and at
+    the end (the fixtures' unit counts take ``_select_units``'s exact
+    branch, so both fences are exact), and every row that either
+    certifies has the same distances; the wrapper's buffer holds the same
+    results, and a CPU call launches nothing."""
+    q2, err_r, scale2, table = _cert_inputs(case)
+    n_valid = case["peng"].n_valid
+    mins = torch.from_numpy(case["jmins"])
+    echo = torch.from_numpy(case["jecho"])
+    table = torch.from_numpy(table)
+    mins_bn = fk.pool_mins_nb(mins, 1) * scale2
+    d, ids, status = fk.fused_ladder_ref(mins_bn, q2, table, echo, n_valid,
+                                         TOPK, rungs, 1, err_r=err_r)
+    bd, br, bok, bok1 = pfused.fused_select_esc(
+        mins, q2, table, echo, n_valid, TOPK, rungs, 1, err_r=err_r,
+        scale2=scale2, final_exact=False)
+    ok = status != fk.LADDER_FAILED
+    assert torch.equal(status == 0, bok1)
+    assert torch.equal(ok, bok)
+    both = ok | bok
+    assert bool(both.any())
+    assert torch.equal(d[both], bd[both])
+    scan_codes = case["jecho"][:n_valid]
+    assert_ids_carry_dists(table[ok].numpy(), scan_codes, d[ok].numpy(),
+                           ids[ok].numpy())
+    assert_ids_up_to_ties(table[ok].numpy(), scan_codes, ids[ok].numpy(),
+                          br[ok].numpy(), TOPK)
+    before = build.launch_counts()
+    buf = fk.fused_ladder(mins_bn, q2, table, echo, n_valid, TOPK, rungs,
+                          1, err_r=err_r)
+    assert build.launch_counts() == before
+    for got, want in zip(fk.ladder_views(buf, len(d), TOPK),
+                         (d, ids, status)):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("NU,n_sub", [(20000, 16), (33000, 40), (900, 7)])
 def test_select_units_matches_jax(NU, n_sub):
     """Both branches: flat top-k (NU <= 16384) and two-level."""

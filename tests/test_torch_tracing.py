@@ -19,6 +19,7 @@ from deltapq_tpu_torch.index import DeltaPQIndex
 from deltapq_tpu_torch.kernels import build
 from deltapq_tpu_torch.ops import fused as pfused
 from deltapq_tpu_torch.ops import fused_kernels as fk
+from deltapq_tpu_torch.ops.adc import adc_query_topk
 from deltapq_tpu_torch.ops.fused import (FusedCodesEngine,
                                          FusedCompressedEngine)
 from deltapq_tpu_torch.parallel import ShardedCompressedEngine, make_mesh
@@ -242,7 +243,7 @@ def test_back_dated_span_is_in_the_registry_only():
 def test_launch_counts_as_before():
     build.reset_launch_counts()
     counts = build.launch_counts()
-    assert set(counts) == set(build.LAUNCHES) and len(counts) == 21
+    assert set(counts) == set(build.LAUNCHES) and len(counts) == 23
     assert not any(counts.values())
     build.count("rerank")
     build.count("rerank")
@@ -288,6 +289,53 @@ def test_rungs_and_terminal_scans_on_a_forced_ladder(data, rungs):
     assert counts["terminal_scans"] == int(not bool(ok_r.all())) == 1
 
 
+@pytest.mark.parametrize("precision", ["int16", "bf16"])
+def test_per_query_ladder_counters_on_a_forced_ladder(data, monkeypatch,
+                                                      precision):
+    """The per-query route (taken here by CPU tensors, through the
+    ladder's plain version) on a one-unit first rung: rows climb to 2, 8
+    and the cap units alone; ``rungs`` is the deepest rung a real row
+    reached, ``rung_rows`` the rungs the real rows ran, ``first_shot_rows``
+    and ``real_rows`` leave the 28 padding rows out, and the answers equal
+    the plain exact scan."""
+    cw, codes, queries = data
+    eng = FusedCompressedEngine(cw, codes, precision=precision, device=CPU)
+    monkeypatch.setattr(pfused, "_per_query_route",
+                        lambda mins, *a: fk.ladder_takes(*a))
+    tracing.enable()
+    d, ids = eng.query(queries, top_k=10, n_sub=1)
+    snap = tracing.snapshot()
+    counts = snap["counters"]
+    # the same ladder replayed on the plain version
+    table, qop, uq, (q2, err_r, scale2), b = eng.prepare(queries)
+    mins, echo = eng.scan(qop, uq)
+    mins_bn = fk.pool_mins_nb(mins, 1)
+    if scale2 is not None:
+        mins_bn = mins_bn * scale2
+    rungs = (1, 2, 8, 127)                      # 128 units of 32 rows
+    _, _, st = fk.fused_ladder_ref(mins_bn, q2, table, echo, eng.n_valid,
+                                   10, rungs, 1, err_r=err_r)
+    reached = torch.where(st == fk.LADDER_FAILED, 3, st.to(torch.int64))[:b]
+    assert len(set(reached.tolist())) > 1      # rows climbed apart
+    assert counts["rungs"] == int(reached.max()) + 1
+    assert counts["rung_rows"] == int(reached.sum()) + b
+    assert counts["real_rows"] == b == 100
+    assert counts["first_shot_rows"] == int((st[:b] == 0).sum())
+    assert counts.get("terminal_scans", 0) == int(
+        bool((st == fk.LADDER_FAILED).any()))
+    # the plain version ran: no kernel launched
+    assert counts.get("ladder", 0) == counts.get("rerank", 0) == 0
+    assert snap["spans"]["engine.ladder"][0] == 1
+    assert "engine.rung" not in snap["spans"]
+    assert eng.last_exact_frac == float((st == 0).to(torch.float32).mean())
+    dr, _ = adc_query_topk(table[:b], echo, eng.n_valid, 10, 1024)
+    assert np.array_equal(d, dr.numpy())
+    cand = torch.from_numpy(np.ascontiguousarray(
+        codes[ids].transpose(0, 2, 1)))         # each id's own code
+    own = fk.rerank_table_sums_ref(table[:b].reshape(b, -1), cand)
+    assert torch.equal(own, torch.from_numpy(d))
+
+
 def test_first_shot_rows_leave_out_padding(data):
     cw, codes, queries = data
     eng = FusedCompressedEngine(cw, codes, precision="bf16", device=CPU)
@@ -321,6 +369,56 @@ def test_sharded_engine_counts_each_query_once(data):
     assert counts["first_shot_rows"] == round(100 * eng.last_exact_frac)
     # the shards' own engines keep no rate of their own
     assert all(not hasattr(e, "last_exact_frac") for e, _ in eng.shards)
+
+
+def test_sharded_per_query_ladder_counts_real_rows(data, monkeypatch):
+    """The sharded engine on the per-query route (taken here by CPU
+    tensors, through the ladder's plain version) with one-unit first
+    rungs: ``rungs`` and ``rung_rows`` add up each shard's ladder over the
+    100 real rows, the 28 padding rows left out; ``real_rows`` and
+    ``first_shot_rows`` count each query once; the answers are exact."""
+    cw, codes, queries = data
+    order = np.lexsort(codes.T[::-1])
+    eng = ShardedCompressedEngine(cw, codes[order], make_mesh(2, device=CPU),
+                                  row_to_db=order)
+    table, qop, uq, (q2, err_r, scale2), b = eng.shards[0][0].prepare(
+        queries)
+    assert (b, table.shape[0]) == (100, 128)
+    # each shard's ladder replayed on the plain version
+    want_rungs = want_rung_rows = 0
+    first = torch.ones(b, dtype=torch.bool)
+    for s, _ in eng.shards:
+        s.ns_hint = 1
+        mins, echo = s.scan(qop, uq)
+        mins_bn = fk.pool_mins_nb(mins, 1)
+        if scale2 is not None:
+            mins_bn = mins_bn * scale2
+        rungs = pfused._rung_sizes(1, mins.shape[0], fk.SUB, 128)
+        assert rungs == (1, 2, 8, 63)               # 64 units of 32 rows
+        _, _, st = fk.fused_ladder_ref(mins_bn, q2, table, echo, s.n_valid,
+                                       10, rungs, 1, err_r=err_r)
+        reached = torch.where(st == fk.LADDER_FAILED, 3, st.to(torch.int64))
+        assert len(set(reached[:b].tolist())) > 1  # rows climbed apart
+        assert int(reached[b:].sum()) > 0           # padding climbs too
+        want_rungs += int(reached[:b].max()) + 1
+        want_rung_rows += int(reached[:b].sum()) + b
+        first &= st[:b] == 0
+    monkeypatch.setattr(pfused, "_per_query_route",
+                        lambda mins, *a: fk.ladder_takes(*a))
+    tracing.enable()
+    d, ids = eng.query(queries, top_k=10)
+    counts = tracing.snapshot()["counters"]
+    assert counts["rungs"] == want_rungs
+    assert counts["rung_rows"] == want_rung_rows
+    assert counts["real_rows"] == b
+    assert counts["first_shot_rows"] == int(first.sum())
+    assert eng.last_exact_frac == float(first.to(torch.float32).mean())
+    dr, _ = adc_query_topk(table[:b], torch.from_numpy(codes), N, 10, 1024)
+    assert np.array_equal(d, dr.numpy())
+    cand = torch.from_numpy(np.ascontiguousarray(
+        codes[ids].transpose(0, 2, 1)))         # each id's own code
+    own = fk.rerank_table_sums_ref(table[:b].reshape(b, -1), cand)
+    assert torch.equal(own, torch.from_numpy(d))
 
 
 def test_engine_query_counts_real_rows(data):

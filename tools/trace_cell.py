@@ -22,7 +22,8 @@ the program's ranges alone).  Standard output: the result line as
 - ``window``: calls, seconds, queries a second, the mean call wall, and
   per batch ``facade_ms`` (``index.search``'s self time and
   ``index.finish``), ``prepare_ms``, ``scan_ms``, ``select_host_ms``
-  (the ``engine.select`` subtree less its waits), ``device_wait_ms``
+  (the ``engine.select`` subtree less its waits: ``engine.ladder`` on the
+  per-query ladder, ``engine.rung`` on the batch ladder), ``device_wait_ms``
   (every ``engine.wait``), ``query_self_ms``, ``sum_self_ms`` (every
   span's self time), the counters a batch and ``first_shot_share``;
 - ``profile``: its calls, seconds, queries a second and labelled gaps;
@@ -51,7 +52,8 @@ from deltapq_tpu_torch import tracing  # noqa: E402
 
 PROGRAM_SPANS = ("index.search", "index.finish", "engine.query",
                  "engine.prepare", "engine.scan", "engine.select",
-                 "engine.rung", "engine.terminal", "engine.wait")
+                 "engine.ladder", "engine.rung", "engine.terminal",
+                 "engine.wait")
 
 
 def per_batch(snap: dict, calls: int) -> dict:
@@ -69,14 +71,15 @@ def per_batch(snap: dict, calls: int) -> dict:
     out = {"facade_ms": (own("index.search") + total("index.finish")) * ms,
            "prepare_ms": total("engine.prepare") * ms,
            "scan_ms": total("engine.scan") * ms,
-           "select_host_ms": (own("engine.select") + own("engine.rung")
+           "select_host_ms": (own("engine.select") + own("engine.ladder")
+                              + own("engine.rung")
                               + own("engine.terminal")) * ms,
            "device_wait_ms": total("engine.wait") * ms,
            "query_self_ms": own("engine.query") * ms,
            "sum_self_ms": sum(own(n) for n in PROGRAM_SPANS) * ms}
     c = snap["counters"]
-    for k in ("h2d_bytes", "rungs", "terminal_scans", "real_rows",
-              "first_shot_rows"):
+    for k in ("h2d_bytes", "rungs", "rung_rows", "terminal_scans",
+              "real_rows", "first_shot_rows"):
         out[f"{k}_per_batch"] = c.get(k, 0) / max(calls, 1)
     if c.get("real_rows"):
         out["first_shot_share"] = 100.0 * c.get("first_shot_rows", 0) \
