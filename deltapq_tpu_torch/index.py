@@ -80,13 +80,20 @@ class DeltaPQIndex:
 
     def _build_tree(self):
         from .tree.build import find_edges_by_diff
+        from .tree.build_device import find_edges_by_diff_device
         from .tree.layout import build_layout
         from .tree.serialize import serialize_dtc
 
-        with tracing.span("index.build.edges"):
-            res = find_edges_by_diff(self.codes, K=self.K,
-                                     max_height_folds=self.height,
-                                     method=self.tree_method)
+        kw = dict(K=self.K, max_height_folds=self.height,
+                  method=self.tree_method)
+        # the same result on both routes; method 3 runs on the host only
+        if self.device.type == "cuda" and self.tree_method != 3:
+            with tracing.span("index.build.edges", device=str(self.device)):
+                res = find_edges_by_diff_device(self.codes,
+                                                device=self.device, **kw)
+        else:
+            with tracing.span("index.build.edges", device="host"):
+                res = find_edges_by_diff(self.codes, **kw)
         with tracing.span("index.build.layout"):
             self.tree = build_layout(self.codes, res.edges, res.root_id,
                                      K=self.K, codewords=self.codewords)

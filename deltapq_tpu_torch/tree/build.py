@@ -26,11 +26,31 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
+
 
 def nchoosek(n: int, k: int) -> List[Tuple[int, ...]]:
     """Combination enumeration in the reference's order
     (``create_tree.h:75-90``, prev_permutation == lexicographic)."""
     return list(itertools.combinations(range(n), k))
+
+
+def round_combos(M: int, diff: int, rng: np.random.Generator,
+                 sample_rate: Optional[float], max_combos_per_round: int
+                 ) -> List[Tuple[int, ...]]:
+    """The kept-subspace combinations that round ``diff`` sorts: all
+    C(M, M-diff) of them, or at M > 8 a sample drawn from ``rng`` (see
+    ``find_edges_by_diff``)."""
+    combos = nchoosek(M, M - diff)
+    if M > 8 and len(combos) > 1:
+        if sample_rate is not None:
+            keep = max(1, int(round(len(combos) * sample_rate)))
+        else:
+            keep = max_combos_per_round
+        if keep < len(combos):
+            idx = rng.permutation(len(combos))[:keep]
+            combos = [combos[i] for i in sorted(idx)]
+    return combos
 
 
 def pack_keys(codes: np.ndarray, kept: Tuple[int, ...], log_k: int
@@ -189,21 +209,16 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
     edge_children: List[np.ndarray] = []
     root_id = 0 if n else -1
     rounds_log = []
+    n_combos = 0                                 # combinations drawn
 
     rng = np.random.default_rng(seed)
     for diff in range(diff_argument + 1):
         if len(active) <= 1:
             break
         merged = np.zeros(len(active), bool)   # per-position in `active`
-        combos = nchoosek(M, M - diff)
-        if M > 8 and len(combos) > 1:
-            if sample_rate is not None:
-                keep = max(1, int(round(len(combos) * sample_rate)))
-            else:
-                keep = max_combos_per_round
-            if keep < len(combos):
-                idx = rng.permutation(len(combos))[:keep]
-                combos = [combos[i] for i in sorted(idx)]
+        combos = round_combos(M, diff, rng, sample_rate,
+                              max_combos_per_round)
+        n_combos += len(combos)
         for kept in combos:
             act_pos = np.flatnonzero(~merged)
             if len(act_pos) <= 1:
@@ -289,6 +304,7 @@ def find_edges_by_diff(codes: np.ndarray, K: int,
         rounds_log.append({"diff": diff, "active_after": len(active)})
         if len(active) <= 1:
             break
+    tracing.count("edge_combos", n_combos)
 
     if len(active) > 0:
         finalists.append(int(active[0]))

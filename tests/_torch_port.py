@@ -128,3 +128,55 @@ def adc_topk_tiles_model(table, codes, n_valid, top_k, tile, tables):
             out_d[ti, :len(order), b] = v[keep][order]
             out_i[ti, :len(order), b] = rows[keep][order]
     return out_d, out_i
+
+
+def _mix(x):
+    """splitmix64's finaliser on a uint64 array (wrapping arithmetic)."""
+    x = x ^ (x >> np.uint64(30))
+    x = x * np.uint64(0xBF58476D1CE4E5B9)
+    x = x ^ (x >> np.uint64(27))
+    x = x * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def hashed_codes(n, M, K=256, seed=0):
+    """Codes [n, M] u8 made from an integer hash alone, so a shape gives
+    the same codes on every host and NumPy version.  Row r joins cluster
+    mix(r) % (n // 8) and takes its cluster's sub-codes, each redrawn with
+    probability 0.35 from a distribution skewed to low ids: members differ
+    in 0 to M subspaces, so every round of the edge search merges rows."""
+    r = np.arange(n, dtype=np.uint64)[:, None]
+    m = np.arange(M, dtype=np.uint64)[None, :]
+    salt = np.uint64(seed) * np.uint64(0x9E3779B97F4A7C15)
+    c = _mix(r[:, 0] ^ salt) % np.uint64(max(1, n // 8))
+    own = _mix((c[:, None] * np.uint64(M) + m) ^ ~salt) % np.uint64(K)
+    h = _mix((r * np.uint64(M) + m) ^ salt)
+    skew = ((h >> np.uint64(8)) % np.uint64(K)) * (
+        (h >> np.uint64(24)) % np.uint64(K)) // np.uint64(K)
+    redraw = h % np.uint64(100) < np.uint64(35)
+    return np.where(redraw, skew, own).astype(np.uint8)
+
+
+def edge_fingerprint(res):
+    """sha256 of every field of an ``EdgeFindResult``, in fixed dtypes."""
+    import hashlib
+    import json
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(res.edges, "<u4").tobytes())
+    h.update(np.ascontiguousarray(res.heights, "<i4").tobytes())
+    h.update(np.ascontiguousarray(res.finalists, "<u4").tobytes())
+    h.update(json.dumps([int(res.root_id), int(res.n_diffs),
+                         res.rounds_log]).encode())
+    return h.hexdigest()
+
+
+#: shape -> (n, M, fingerprint of the reference's
+#: ``deltapq_tpu.tree.build.find_edges_by_diff(hashed_codes(n, M), K=256)``):
+#: the card test holds the card's edge search to these, and
+#: test_torch_tree_device.py holds the reference to them on the CPU
+EDGE_REFERENCE = {
+    "sift1m": (1_000_000, 8, "95b5e3c5da499cdc55f41ce259db1f23"
+                             "700577d41c29914bc415a32add847727"),
+    "gist250k": (250_000, 16, "705cea969e03bc3b3d07853d095011b3"
+                              "bd38ce0177036da1fefe32517dce4a8f"),
+}

@@ -1379,3 +1379,89 @@ def test_sharded_delta_step_d_not_divisible_by_m(cuda, S):
     assert (d >= ed).all()
     assert ok.mean() >= 0.5
     assert np.array_equal(d[ok], ed[ok])
+
+
+@pytest.mark.parametrize("shape", ["sift1m", "gist250k"])
+def test_edge_search_on_card_equals_host(cuda, shape):
+    """The device edge search at the benchmark's shapes: 1M SIFT-shaped
+    codes (M=8, one key word) and 250k near-distinct GIST-shaped codes
+    (M=16, sampled combinations, two key words), every field equal to
+    the NumPy search's, and so the layout and the DTC bytes."""
+    from deltapq_tpu_torch.ops.encode import pq_encode
+    from deltapq_tpu_torch.ops.kmeans import pq_learn
+    from deltapq_tpu_torch.synth import (WORKLOADS, gist_vectors,
+                                         workload_vectors)
+    from deltapq_tpu_torch.tree.build import find_edges_by_diff
+    from deltapq_tpu_torch.tree.build_device import (
+        find_edges_by_diff_device)
+    from deltapq_tpu_torch.tree.layout import build_layout
+    from deltapq_tpu_torch.tree.serialize import serialize_dtc
+
+    if shape == "sift1m":
+        M, x = 8, workload_vectors(1_000_000, seed=0,
+                                   **WORKLOADS["sift_like"])
+    else:
+        M, x = 16, gist_vectors(250_000, 960, n_clusters=125_000, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cw = pq_learn(gen, x[:100_000], M=M, K=256, max_iters=10, n_init=1,
+                  device=cuda)
+    codes = pq_encode(cw, x).cpu().numpy()
+    del x
+    mem0 = torch.cuda.memory_allocated(cuda)
+    b = find_edges_by_diff_device(codes, K=256, device=cuda)
+    assert torch.cuda.memory_allocated(cuda) == mem0
+    a = find_edges_by_diff(codes, K=256)
+    assert np.array_equal(a.edges, b.edges)
+    assert a.root_id == b.root_id and a.n_diffs == b.n_diffs
+    assert np.array_equal(a.heights, b.heights)
+    assert np.array_equal(a.finalists, b.finalists)
+    assert a.rounds_log == b.rounds_log
+    ta = build_layout(codes, a.edges, a.root_id, K=256, tables="skip")
+    tb = build_layout(codes, b.edges, b.root_id, K=256, tables="skip")
+    assert np.array_equal(ta.vec_id, tb.vec_id)
+    assert np.array_equal(ta.diff_to, tb.diff_to)
+    if M <= 8:
+        assert serialize_dtc(ta) == serialize_dtc(tb)
+
+
+@pytest.mark.parametrize("shape", ["sift1m", "gist250k"])
+def test_edge_search_on_card_equals_reference(cuda, shape):
+    """The card's edge search on hashed codes of the benchmark's shapes
+    (1M x 8, one key word; 250k x 16, sampled combinations, two key
+    words) gives the reference's result: its fingerprint, computed from
+    ``deltapq_tpu.tree.build.find_edges_by_diff`` on the CPU, is checked
+    there by test_torch_tree_device.py ``test_reference_at_the_card_shapes``
+    (the JAX package does not run here)."""
+    from deltapq_tpu_torch.tree.build_device import (
+        find_edges_by_diff_device)
+
+    from _torch_port import EDGE_REFERENCE, edge_fingerprint, hashed_codes
+
+    n, M, fp = EDGE_REFERENCE[shape]
+    res = find_edges_by_diff_device(hashed_codes(n, M), K=256, device=cuda)
+    assert len(res.edges) == n - 1
+    assert edge_fingerprint(res) == fp
+
+
+@pytest.mark.parametrize("method", [1, 2, 3])
+def test_index_edge_search_route(cuda, method, monkeypatch):
+    """On a card the index builds its edges with the device search for
+    methods 1 and 2, and with the NumPy search for method 3."""
+    from deltapq_tpu_torch.index import DeltaPQIndex
+    from deltapq_tpu_torch.tree import build as pbuild
+    from deltapq_tpu_torch.tree import build_device
+
+    routes = []
+    for mod, name in ((pbuild, "find_edges_by_diff"),
+                      (build_device, "find_edges_by_diff_device")):
+        def spy(*a, _real=getattr(mod, name), _name=name, **kw):
+            routes.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    rng = np.random.default_rng(method)
+    cw = rng.normal(size=(8, 32, 4)).astype(np.float32)
+    codes = rng.integers(0, 32, (2000, 8)).astype(np.uint8)
+    DeltaPQIndex(cw, codes, engine="fused_compressed", tree_method=method,
+                 device=cuda)
+    assert routes == (["find_edges_by_diff_device"] if method != 3
+                      else ["find_edges_by_diff"])

@@ -18,7 +18,7 @@ from deltapq_tpu_torch.ops import (adc, adc_kernels, decoded, delta, fused,
 from deltapq_tpu_torch.parallel import (dryrun, fused_sharded, mesh,
                                         pipeline, runtime, sharded,
                                         sharded_tree)
-from deltapq_tpu_torch.tree import serialize
+from deltapq_tpu_torch.tree import build_device, serialize
 
 ENTRY_POINTS = [
     index.DeltaPQIndex.__init__, index.DeltaPQIndex.build,
@@ -48,6 +48,7 @@ ENTRY_POINTS = [
     dryrun.dryrun_multichip,
     serialize.query_bits, serialize.query_row_store,
     prefix_tree.dichotomize_codewords, entry.entry,
+    build_device.find_edges_by_diff_device,
 ]
 
 

@@ -59,7 +59,7 @@ def test_no_jax_in_port_sources():
     "deltapq_tpu_torch.tree.reroot", "deltapq_tpu_torch.native",
     "deltapq_tpu_torch.native.api", "deltapq_tpu_torch.native.build",
     "deltapq_tpu_torch.legacy", "deltapq_tpu_torch.legacy.prefix_tree",
-    "deltapq_tpu_torch.entry"])
+    "deltapq_tpu_torch.entry", "deltapq_tpu_torch.tree.build_device"])
 def test_module_alone_imports_without_jax(module):
     """Each module of the plain-scan family and of the CLI's layer on its
     own, in a fresh interpreter: it is there, and brings in neither jax

@@ -18,6 +18,7 @@ the program's ranges alone).  Standard output: the result line as
 
 - ``setup``: ``tree_edges_s``, ``tree_layout_s``, ``tree_serialize_s``
   (the ``index.build.*`` spans), ``engine_tiles_s`` (``engine.build``),
+  ``edge_combos`` (the counter: combinations the edge search drew),
   and the harness's ``index_build_s`` and ``setup_s``;
 - ``window``: calls, seconds, queries a second, the mean call wall, and
   per batch ``facade_ms`` (``index.search``'s self time and
@@ -136,7 +137,9 @@ def main(argv=None, device=None, spec=None) -> int:
 
     def warmup_w(s):
         warmup(s)
-        st["setup"] = tracing.snapshot()["spans"]
+        snap = tracing.snapshot()
+        st["setup"], st["edge_combos"] = (
+            snap["spans"], snap["counters"].get("edge_combos"))
 
     def run_w(s):
         run(s)
@@ -168,6 +171,7 @@ def main(argv=None, device=None, spec=None) -> int:
                      "tree_layout_s": setup_s("index.build.layout"),
                      "tree_serialize_s": setup_s("index.build.serialize"),
                      "engine_tiles_s": setup_s("engine.build"),
+                     "edge_combos": st["edge_combos"],
                      "index_build_s": s.index_build_s,
                      "setup_s": s.setup_s},
            "window": dict(calls=s.calls, seconds=s.window_s,
