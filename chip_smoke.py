@@ -348,6 +348,8 @@ REPLACES = {
     "stream_mins_pipelined_bf16": "deltapq_tpu/ops/fused_pallas.py:663",
     "ladder": "deltapq_tpu/ops/fused.py:115",
     "ladder_mins": "deltapq_tpu/ops/fused_pallas.py:1198",
+    # none: the JAX engines' prepare is XLA and NumPy
+    "prepare": "deltapq_tpu/ops/fused.py:464",
 }
 SOURCES = {
     "stream_mins": "deltapq_tpu_torch/csrc/stream_mins.cu",
@@ -375,6 +377,7 @@ SOURCES = {
         "deltapq_tpu_torch/csrc/stream_mins_pipelined.cu",
     "ladder": "deltapq_tpu_torch/csrc/ladder.cu",
     "ladder_mins": "deltapq_tpu_torch/csrc/ladder.cu",
+    "prepare": "deltapq_tpu_torch/csrc/prepare.cu",
 }
 #: published peaks of one H100 SXM at its full power limit (NVIDIA's data
 #: sheet): device memory bytes/s; operations/s by type
@@ -908,7 +911,9 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **scan_bound("bf16", e.n_valid, B, D,
                          engine_operands(e, qop, uq), (mins, echo)))
-        del e, mins, echo, ref_m, ref_c
+        del mins, echo, ref_m, ref_c
+        prepare_vs_plain(tag, "", kernels, e, q)
+        del e
 
         for prec, name in (("bf16", "codes_mins"),
                            ("int16", "codes_mins_int16")):
@@ -975,35 +980,115 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
         b6_modes(tag, "index tier codes", tab, codes_p, kernels, ("f32",))
 
 
+def host_ms(fn, reps):
+    """Mean host-wall ms of ``fn`` with the card synchronised after each
+    call: the latency a serial caller sees."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def device_ms(fn, reps):
+    """Mean device ms per call of a launcher whose host side outlasts
+    its kernels: the stream is held busy (``torch.cuda._sleep``, about
+    0.1 s) while the host queues ``reps`` calls, so the events time the
+    kernels back to back and not the host between them."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def prepare_vs_plain(tag, suffix, kernels, e, q):
+    """The bf16 prepare kernel (``csrc/prepare.cu``) of engine ``e`` at
+    the batch ``q``: qop bit-equal to the plain version and to the host
+    path; the table and q2 within 2e-6 of their terms' magnitude (the
+    order of f32 sums, as tests/test_torch_cuda.py holds them); the
+    kernel timed beside its plain version, and the whole stage (pinned
+    copy + kernel) beside the host route it replaced, on the host's
+    clock."""
+    b = len(q)
+    b_pad = -(-b // 128) * 128
+    M_, K_, Ds_ = e.codewords.shape
+    qd = torch.from_numpy(q).to(e.device)
+    args = (qd, e.codewords, e.mu_dev, b_pad, e._operand_layout())
+    t, qop, q2 = fk.fused_prepare(*args)
+    tr, qopr, q2r = fk.fused_prepare_ref(*args)
+    host = e._prepare_on_host(q)
+    check(torch.equal(qop.view(torch.int16), qopr.view(torch.int16))
+          and torch.equal(qop.view(torch.int16), host[1].view(torch.int16)),
+          f"prepare{suffix}: qop != the plain version / the host path")
+    qs = torch.zeros((b_pad, M_ * Ds_), dtype=torch.float64, device=e.device)
+    qs[:b] = qd[:, :M_ * Ds_].to(torch.float64)
+    scale = ((qs.view(b_pad, M_, Ds_) ** 2).sum(-1)[:, :, None]
+             + (e.codewords.to(torch.float64) ** 2).sum(-1)[None])
+    rel = float(((t.double() - tr.double()).abs() / scale).max())
+    rel_q2 = float(((q2 - q2r).abs() / q2r.abs()).max())
+    check(rel <= 2e-6 and rel_q2 <= 2e-6,
+          f"prepare{suffix}: table {rel:.3g}, q2 {rel_q2:.3g} of scale")
+    n_diff = int((t != tr).sum())
+    ms = device_ms(lambda: fk.fused_prepare(*args), 50)
+    plain_ms = device_ms(lambda: fk.fused_prepare_ref(*args), 20)
+    stage_ms = host_ms(lambda: e._prepare_on_card(q), 50)
+    host_route_ms = host_ms(lambda: e._prepare_on_host(q), 20)
+    kernels["prepare" + suffix] = dict(
+        max_abs_err=float((t - tr).abs().max()), ms=ms, plain_ms=plain_ms,
+        **bound(nbytes(qd, e.codewords, e.mu_dev, t, qop, q2),
+                2 * b_pad * M_ * K_ * Ds_, "f32"))
+    log(f"{tag} prepare{suffix} (B={b}, M={M_}, K={K_}, Ds={Ds_}): kernel "
+        f"{ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+        f"{kernels['prepare' + suffix]['bound_ms']:.4f} ms "
+        f"({kernels['prepare' + suffix]['bound_by']}); qop bit-equal to "
+        f"the plain version and the host path; table entries != "
+        f"adc_table's {n_diff} of {t.numel()} (max {rel:.3g} of q2 + c2), "
+        f"q2 max rel {rel_q2:.3g}; the stage, host wall synchronised: "
+        f"pinned copy + kernel {stage_ms:.4f} ms, the host route "
+        f"{host_route_ms:.4f} ms")
+
+
 def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
                    kernels=()):
     """One untimed search (it builds the engine), then N_BATCHES timed
     B=512 top-10 searches, each held to the plain exact scan over the
-    table the engine built (the checks launch no kernel).  The launch
-    counts are set to 0 just before the first search and read after the
-    last; each kernel in ``kernels`` must have been launched.  Returns
-    this path's launch counts."""
+    table the engine builds.  The launch counts are set to 0 just before
+    the first search and read after the last, before the checks (whose
+    tables launch ``prepare`` again); each kernel in ``kernels`` must have
+    been launched, and ``prepare``, where it was, once a search: as often
+    as the path's scan, ``kernels[0]``.  Returns this path's launch
+    counts."""
     q = rng.normal(size=(B, D)).astype(np.float32)
     build.reset_launch_counts()
     t = time.perf_counter()
     index.search(q, TOP_K)
     first = time.perf_counter() - t
-    walls, fracs = [], []
+    walls, fracs, batches = [], [], []
+    eng = index._fused_engine
     for _ in range(N_BATCHES):
         q = rng.normal(size=(B, D)).astype(np.float32)
         torch.cuda.synchronize()
         t = time.perf_counter()
         d, ids = index.search(q, TOP_K)
         walls.append(time.perf_counter() - t)
-        eng = index._fused_engine
+        batches.append((q, d, ids))
         if hasattr(eng, "prepare"):
-            table = eng.prepare(q)[0][:B]
             fracs.append(eng.last_exact_frac)
-        else:
-            table = adc_table(cw, torch.from_numpy(q).to(cw.device))
+    counts = build.launch_counts()
+    for q, d, ids in batches:
+        table = (eng.prepare(q)[0][:B] if hasattr(eng, "prepare") else
+                 adc_table(cw, torch.from_numpy(q).to(cw.device)))
         check_batch(table, codes_db, codes_db64, torch.from_numpy(d).to(
             cw.device), torch.from_numpy(ids).to(cw.device), n)
-    counts = build.launch_counts()
     wall = float(np.mean(walls))
     resolved = index._engine_resolved or index.engine
     frac = (f", certified first-shot {float(np.mean(fracs)):.4f}"
@@ -1017,6 +1102,9 @@ def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
     for k in kernels:
         check(counts[k] > 0, f"kernel {k} never launched on the index's "
                              f"{label} path")
+    check(not counts["prepare"] or counts["prepare"] == counts[kernels[0]],
+          f"prepare launched {counts['prepare']} times on the {label} path, "
+          f"its scan {counts[kernels[0]] if kernels else 0}")
     return counts
 
 
@@ -1030,11 +1118,13 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         log(f"DeltaPQIndex(cw, codes): tree, table-driven layout, DTC "
             f"stream: {time.perf_counter() - t:.1f} s")
         counts = search_batches(idx, "auto", tag, cw, codes_db, codes_db64,
-                                rng, N, ("stream_mins_bf16", "ladder"))
+                                rng, N, ("stream_mins_bf16", "ladder",
+                                         "prepare"))
         check(idx._engine_resolved == "fused_compressed"
               and idx._fused_engine.precision == "bf16",
               "auto did not resolve to fused_compressed at bf16")
         launches["stream_mins_bf16"] = counts["stream_mins_bf16"]
+        launches["prepare"] = counts["prepare"]
         for name, own in (("fused", ("decoded_mins", "ladder")),
                           ("fused_codes", ("codes_mins", "ladder")),
                           ("pallas", ("adc_topk",))):
@@ -1474,6 +1564,8 @@ def phase14_gist(dev, tag, kernels, launches):
                   f"GIST {label} {prec}: echo != the codes")
             if kernel == "stream_mins":
                 b1_mins[prec] = mins
+                if prec == "bf16":
+                    prepare_vs_plain(tag, "@gist", kernels, e, queries)
             elif kernel != "decoded_mins":
                 b1 = kernels[fk._launch_name("stream_mins", prec) + "@gist"]
                 same = mins_against_b1(mins, b1_mins[prec], prec,
@@ -1496,6 +1588,15 @@ def phase14_gist(dev, tag, kernels, launches):
             check(counts[key] > 0 and counts["ladder"] > 0,
                   f"GIST {label} {prec}: the engine launched {counts}")
             launches[name] = counts[key]
+            # prepare on one batch of the engine's own path, without the
+            # check's and the timing's own prepares: once at bf16
+            build.reset_launch_counts()
+            e.query(queries, top_k=top_k)
+            one = build.launch_counts()["prepare"]
+            check(one == (prec == "bf16"),
+                  f"GIST {label} {prec}: {one} prepare launches a batch")
+            if "prepare@gist" in kernels and "prepare@gist" not in launches:
+                launches["prepare@gist"] = one
             log(f"{tag} GIST engine {type(e).__name__} "
                 f"{getattr(e, 'fmt', '')} {prec}: id agreement "
                 f"{res['id_agree']:.4f}, {res['flips']} tie flips, 0 real "
@@ -1533,12 +1634,15 @@ def phase14_gist(dev, tag, kernels, launches):
         idx = DeltaPQIndex(cw, codes2)
         log(f"DeltaPQIndex(cw, codes) at M={Mg}: "
             f"{time.perf_counter() - t:.1f} s")
-        tab2, dr2, ir2 = bench_gist.exact_reference(cw, codes2, q2, dev)
-        dr2, ir2 = dr2.cpu().numpy(), ir2.cpu().numpy()
         build.reset_launch_counts()
         t = time.perf_counter()
         d, ids = idx.search(q2, top_k)
         first = time.perf_counter() - t
+        # the bf16 engine's own table (csrc/prepare.cu)
+        own = idx._fused_engine.prepare(q2)[0][:GIST_B]
+        tab2, dr2, ir2 = bench_gist.exact_reference(cw, codes2, q2, dev,
+                                                    table=own)
+        dr2, ir2 = dr2.cpu().numpy(), ir2.cpu().numpy()
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1682,7 +1786,8 @@ def phase15_cli(dev, tag, kernels, launches):
                 check(r > DECODED_RECALL, "decoded recall against the "
                                           "exact scan")
             else:
-                big_check(cw_t, q, codes_db, codes_db64, d, i, CLI_N)
+                big_check(cw_t, q, codes_db, codes_db64, d, i, CLI_N,
+                          card=counts.get("prepare", 0) > 0)
                 log(f"query -engine {e}: distances bit-equal to "
                     f"adc_query_topk, ids equal up to audited ties")
         (d, i), _, _ = run("query", "-shards", "4")
@@ -1714,10 +1819,15 @@ def phase15_cli(dev, tag, kernels, launches):
         del stream
         (d, i), _, counts = run("query_compressed", "-engine", "auto")
         must(("query_compressed", "auto"), counts)
-        check(np.array_equal(d, res["xla"][0]),
-              "query_compressed auto distances != query xla")
-        big_check(cw_t, q, codes_db, codes_db64, d, i, CLI_N)
-        log("query_compressed auto: distances bit-equal to query xla")
+        check(np.array_equal(d, res["fused_compressed"][0]),
+              "query_compressed auto distances != query fused_compressed")
+        check(np.allclose(d, res["xla"][0], rtol=1e-5, atol=1e-4),
+              "query_compressed auto distances out of tolerance of xla")
+        big_check(cw_t, q, codes_db, codes_db64, d, i, CLI_N, card=True)
+        log("query_compressed auto: distances bit-equal to query "
+            "fused_compressed and to adc_query_topk over the card's table "
+            f"(csrc/prepare.cu); max |d - xla| "
+            f"{float(np.abs(d - res['xla'][0]).max()):.3g}")
         (d, i), _, _ = run("query_compressed", "-engine", "xla")
         check(np.allclose(d, res["xla"][0], rtol=1e-5, atol=1e-4),
               "level-wise distances out of tolerance")
@@ -1827,6 +1937,9 @@ def cli_kernels(dev, tag, cw, codes, order, q, kernels, counts):
             table, _, _, cert, _ = e.prepare(qb)
             ladder_vs_plain(tag, "CLI B2' ladder", "@cli", kernels, e,
                             table, mins, echo, cert)
+        if counts.get("prepare@cli") and e.precision == "bf16" \
+                and "prepare@cli" not in kernels:
+            prepare_vs_plain(tag, "@cli", kernels, e, qb)
         del e, mins, echo
     if counts.get("adc_topk@cli"):
         codes_p = torch.from_numpy(pad_codes(codes, ADC_TILE)).to(dev)
@@ -2320,7 +2433,7 @@ def sharded_batches(tag, label, e, rng, codes_db, codes_db64, n, key):
     counts = build.launch_counts()
     for q, d, ids in got:
         big_check(e.shards[0][0].codewords, q, codes_db, codes_db64, d,
-                  ids, n)
+                  ids, n, card=counts["prepare"] > 0)
     live = sum(1 for s, _ in e.shards if s.n_valid)
     check(counts[key] == live * N_BATCHES,
           f"{label}: {key} launched {counts[key]} times, not "
@@ -2477,7 +2590,7 @@ def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                   "the group's gather changed the S=2 results")
         finally:
             torch.distributed.destroy_process_group()
-        big_check(cw, q, codes_db, codes_db64, *res[0], N)
+        big_check(cw, q, codes_db, codes_db64, *res[0], N, card=True)
         log(f"init_distributed(tcp://127.0.0.1:{port}, world 1, NCCL): the "
             f"S=2 sharded engine through the group's all_gather gives the "
             f"same arrays as without the group; group destroyed")
@@ -2653,15 +2766,33 @@ def phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64):
             f"adc_query_topk, ids up to audited ties")
 
 
-def big_check(cw, q, codes_db, codes_db64, d, ids, n):
+def big_check(cw, q, codes_db, codes_db64, d, ids, n, card=False):
     """Results of an engine without ``prepare`` against the plain exact
-    scan over the table of the same queries."""
+    scan over the table of the same queries: ``adc_table``'s, or with
+    ``card`` the one the bf16 engines make on the card."""
     dev = codes_db.device
     if codes_db64 is None:
         codes_db64 = codes_db[:n].to(torch.int64)
-    table = adc_table(cw, torch.from_numpy(q).to(dev))
+    table = (card_table(cw, q) if card
+             else adc_table(cw, torch.from_numpy(q).to(dev)))
     check_batch(table, codes_db, codes_db64, torch.from_numpy(d).to(dev),
                 torch.from_numpy(ids).to(dev), n)
+
+
+def card_table(cw, q):
+    """The table a bf16 fused engine makes on the card for queries ``q``
+    (``csrc/prepare.cu``; a query's table does not depend on its batch):
+    adc_table's up to the order of its f32 sums."""
+    M_, K_, Ds_ = cw.shape
+    d_pad = -(-M_ * Ds_ // 128) * 128
+    mu = np.zeros(d_pad, np.float32)
+    mu[:M_ * Ds_] = fk.codebook_center(cw.cpu().numpy())
+    b = len(q)
+    return fk.fused_prepare(
+        torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(cw.device),
+        cw.to(torch.float32).contiguous(), torch.from_numpy(mu).to(cw.device),
+        -(-b // fk.PREPARE_QB) * fk.PREPARE_QB,
+        fk.grouped_layout(M_, Ds_))[0][:b]
 
 
 def check_batch(table, codes_db, codes_db64, d, ids, n=N, ref=None):
@@ -2730,7 +2861,8 @@ def sharded_step_case(dev, tag, label, cw, codes_scan, order, q, codes_db,
     """``make_sharded_delta_query_fn`` at the engine's first rung on 1, 2
     and 4 shards of ``dev`` over the slot tiles of ``codes_scan`` (row i
     is database row ``order[i]``), queries q [B, D] (D <= M*Ds; the rest
-    zero).  B5 launches once a shard.  Certified rows equal the exact
+    zero), both over the bf16 engine's table (``card_table``).  B5
+    launches once a shard.  Certified rows equal the exact
     ``ShardedCompressedEngine`` (itself held to ``adc_query_topk``);
     every row carries its own exact f32 distance, and the j-th distance
     is never below the exact j-th; at least ``SHARDED_MIN_OK[D][S]`` of
@@ -2746,7 +2878,7 @@ def sharded_step_case(dev, tag, label, cw, codes_scan, order, q, codes_db,
     if tiles is None:
         tiles = ref.tiles
     del ref
-    table = adc_table(cw, torch.from_numpy(qp).to(dev))
+    table = card_table(cw, qp)
     d_ref = torch.from_numpy(d_ref).to(dev)
     i_ref = torch.from_numpy(i_ref).to(dev)
     check_batch(table, codes_db, codes_db64, d_ref, i_ref, n=n)

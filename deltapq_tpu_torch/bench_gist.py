@@ -81,12 +81,15 @@ def tree_order(codes: np.ndarray) -> Tuple[np.ndarray, int, float]:
 
 
 def exact_reference(cw: np.ndarray, codes_scan: np.ndarray,
-                    queries: np.ndarray, device, top_k: int = TOP_K):
+                    queries: np.ndarray, device, top_k: int = TOP_K,
+                    table: Optional[torch.Tensor] = None):
     """(table, exact distances, exact scan rows) of ``adc_query_topk``
-    over the scan-ordered codes, all on ``device``."""
+    over the scan-ordered codes, all on ``device``: over ``table`` where
+    given, else ``adc_table``'s."""
     dev = resolve_device(device)
-    table = adc_table(torch.from_numpy(cw).to(dev),
-                      torch.from_numpy(queries).to(dev))
+    if table is None:
+        table = adc_table(torch.from_numpy(cw).to(dev),
+                          torch.from_numpy(queries).to(dev))
     cp = torch.from_numpy(pad_codes(codes_scan, 16384)).to(dev)
     d_ref, i_ref = adc_query_topk(table, cp, len(codes_scan), top_k, 16384)
     return table, d_ref, i_ref
@@ -120,9 +123,17 @@ def verify(eng, name: str, queries: np.ndarray, table: torch.Tensor,
            top_k: int = TOP_K) -> Dict[str, float]:
     """One batch of ``eng.query`` against the exact scan; raises on
     distances out of tolerance or a real id divergence.  The engine has
-    no row map, so its ids and ``ids_ref`` are both scan rows."""
+    no row map, so its ids and ``ids_ref`` are both scan rows.  A bf16
+    engine on a card makes its own table (``csrc/prepare.cu``), equal to
+    ``table`` up to the order of its f32 sums: its ids are audited against
+    the exact scan over that table."""
     d, ids = eng.query(queries, top_k=top_k)
     dists_ok = bool(np.allclose(d, d_ref, rtol=1e-5, atol=1e-3))
+    own = eng.prepare(queries)[0][:len(queries)]
+    if not torch.equal(own, table):
+        table, _, i_own = exact_reference(None, codes_scan, queries,
+                                          own.device, top_k, table=own)
+        ids_ref = i_own.cpu().numpy()
     agree, flips, real = tie_audit(table, codes_scan, ids, ids_ref)
     out = dict(dists_match=dists_ok, id_agree=agree, flips=flips,
                real_divergences=real, first_shot=eng.last_exact_frac)

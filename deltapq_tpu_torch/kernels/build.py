@@ -84,6 +84,10 @@ SIGNATURES = {
     # B, nu, M, K, unit, n_valid, top_k, r0, r1, r2, r3, n_rungs, stream
     "ladder_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, cw, mu, table, qop, q2, B, Dq, B_pad, M, K, Ds, d_pad, G, W, Dg,
+    # n_src, stream
+    "prepare_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _P],
 }
 
 
@@ -245,8 +249,9 @@ def check(err: int, what: str) -> None:
 #: adc_topk_packed (f32) carry their first mode's bare name; ``rerank``
 #: counts ``csrc/rerank.cu`` (the batch ladder, one a rung), ``ladder`` and
 #: ``ladder_mins`` the two kernels of ``csrc/ladder.cu`` (the per-query
-#: ladder, one each a batch).  The counts are counters of ``tracing``'s
-#: registry, under these keys.
+#: ladder, one each a batch), ``prepare`` ``csrc/prepare.cu`` (the bf16
+#: prepare on a card, one a batch).  The counts are counters of
+#: ``tracing``'s registry, under these keys.
 LAUNCHES = ("stream_mins", "stream_mins_bf16", "stream_mins_int8",
             "stream_mins_pipelined_int8", "stream_mins_pipelined_bf16",
             "codes_mins", "codes_mins_int16", "codes_mins_int8",
@@ -255,7 +260,7 @@ LAUNCHES = ("stream_mins", "stream_mins_bf16", "stream_mins_int8",
             "adc_topk_bf16", "adc_topk_bf16x2", "adc_dists",
             "adc_topk_packed", "adc_topk_packed_bf16",
             "adc_topk_packed_bf16x2", "adc_topk_tiledict", "ladder",
-            "ladder_mins")
+            "ladder_mins", "prepare")
 
 
 def count(kernel: str) -> None:

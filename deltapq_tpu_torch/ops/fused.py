@@ -24,7 +24,9 @@ Each batch of the fused tiers:
    operands -- bf16, or the int8 values / int16 digits quantized on the
    host in NumPy as in the JAX package, so the operand is bit-identical
    between the packages -- plus the certificate inputs (q2, err_r,
-   scale2);
+   scale2).  On a card at bf16 the raw batch goes over in one pinned copy
+   and one kernel (``fk.fused_prepare``, ``csrc/prepare.cu``) writes the
+   table, the operand (bit-equal to the host's) and q2;
 2. ``scan``: the tier's kernel -> 32-row subtile minima (and the codes
    the rerank reads);
 3. ``select``: unit selection, exact rerank, the certificate, the ladder
@@ -330,13 +332,29 @@ def _setup_precision(self, codewords: np.ndarray, precision: str):
     self.compact = (fk.compact_codebook(self.cwbd, self.M, self.Ds,
                                         precision)
                     if self.device.type == "cuda" else None)
+    _card_centre(self)
 
 
-def _h2d(t: torch.Tensor, device) -> torch.Tensor:
+def _h2d(t: torch.Tensor, device, non_blocking: bool = False
+         ) -> torch.Tensor:
     """A batch's host tensor on ``device``; its bytes count as
-    ``h2d_bytes``."""
+    ``h2d_bytes``.  ``non_blocking`` for a pinned tensor: the copy is
+    queued on the stream and the host goes on."""
     tracing.count("h2d_bytes", t.numel() * t.element_size())
-    return t.to(device)
+    return t.to(device, non_blocking=non_blocking)
+
+
+def _pinned_batch(queries) -> torch.Tensor:
+    """The raw batch as f32 [B, D] in pinned host memory, in one copy
+    (a cast where the batch is of another dtype).  Torch's caching host
+    allocator reuses the block only after the copy queued from it has
+    run, so the next batch cannot overwrite it early."""
+    a = np.asarray(queries)
+    if a.ndim != 2:
+        raise ValueError(f"queries must be [B, D], got shape {a.shape}")
+    t = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+    t.numpy()[...] = a
+    return t
 
 
 def _mins_query_args(qc: np.ndarray, precision: str, scale, device):
@@ -430,16 +448,36 @@ class _FusedEngine:
             return qop, uq, _quantized_query_stats(self, qop, uq, eq)
         return qop, uq, (_q2(qc, self.device), None, None)
 
+    def _operand_layout(self):
+        """The bf16 q operand's layout for ``fk.fused_prepare``: the
+        grouped one of ``fk.pack_query_grouped``."""
+        return fk.grouped_layout(self.M, self.Ds)
+
     def prepare(self, queries: np.ndarray):
         """Stage 1: exact tables + query operands.  Returns (table, qop,
-        uq, cert, b)."""
+        uq, cert, b).  On a card at bf16 one pinned copy of the raw batch
+        and one kernel (``fk.fused_prepare``) make them; elsewhere (int8,
+        int16, the CPU) the host pads, centres and quantizes in NumPy."""
         with tracing.span("engine.prepare"):
-            q, b = _pad_queries(queries, self.d_pad)
-            table = adc_table(self.codewords,
-                              _h2d(torch.from_numpy(q[:, :self.D]),
-                                   self.device))
-            qop, uq, cert = self._query_operands(q - self.mu[None, :])
-            return table, qop, uq, cert, b
+            if self.device.type == "cuda" and self.precision == "bf16":
+                return self._prepare_on_card(queries)
+            return self._prepare_on_host(queries)
+
+    def _prepare_on_card(self, queries):
+        q = _h2d(_pinned_batch(queries), self.device, non_blocking=True)
+        b = q.shape[0]
+        table, qop, q2 = fk.fused_prepare(
+            q, self.codewords, self.mu_dev, -(-b // 128) * 128,
+            self._operand_layout())
+        return table, qop, None, (q2, None, None), b
+
+    def _prepare_on_host(self, queries):
+        q, b = _pad_queries(queries, self.d_pad)
+        table = adc_table(self.codewords,
+                          _h2d(torch.from_numpy(q[:, :self.D]),
+                               self.device))
+        qop, uq, cert = self._query_operands(q - self.mu[None, :])
+        return table, qop, uq, cert, b
 
     def scan(self, qop, uq):
         """Stage 2: the tier's kernel -> (mins [NS, B], codes for the
@@ -532,6 +570,14 @@ def _common_init(self, codewords, device):
     return codewords
 
 
+def _card_centre(self):
+    """``mu`` on the card (d_pad f32) for the bf16 prepare kernel, where
+    ``prepare`` takes it; None elsewhere."""
+    self.mu_dev = (torch.from_numpy(self.mu).to(self.device)
+                   if self.device.type == "cuda" and self.precision == "bf16"
+                   else None)
+
+
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device``.  A read-only array (a memory-mapped
     chunk) is copied once into pageable host memory first: torch takes
@@ -557,6 +603,8 @@ class FusedDecodedEngine(_FusedEngine):
     ``tile`` rows at a time), the padded codes resident for the rerank
     (M B/vec).  Also the index's tier for K > 256."""
 
+    precision = "bf16"      # its scan operand's
+
     def __init__(self, codewords, codes: np.ndarray, tile: int = 8192,
                  device=None):
         codewords = _common_init(self, codewords, device)
@@ -570,11 +618,16 @@ class FusedDecodedEngine(_FusedEngine):
         self.xt = fk.pack_xhat_tiles(hi, tile=tile).to(self.device)
         self.codes = _codes_tensor(codes, self.xt.shape[0] * tile,
                                    self.K).to(self.device)
+        _card_centre(self)
 
     def _query_operands(self, qc: np.ndarray):
         q = torch.from_numpy(np.ascontiguousarray(qc, np.float32))
         qop = _h2d(q.to(torch.bfloat16).t().contiguous(), self.device)
         return qop, None, (_q2(qc, self.device), None, None)
+
+    def _operand_layout(self):
+        """The plain layout: every d_pad column, one group."""
+        return 1, self.d_pad, self.d_pad, self.d_pad
 
     def scan(self, qop, uq):
         with tracing.span("engine.scan"):

@@ -34,7 +34,11 @@ module and a launch count in ``kernels.build.launch_counts()``:
   ``ladder``; no TPU kernel of its own): per query, exact unit selection,
   the rerank's table sums, the certificate and the escalation through the
   rungs, one launch a batch, on the minima ``ladder_mins`` lays out (the
-  same source: pooled, a query a row, scale2 folded in).
+  same source: pooled, a query a row, scale2 folded in);
+* ``fused_prepare`` -> ``csrc/prepare.cu`` (launch key ``prepare``; no TPU
+  kernel of its own: the JAX engines' prepare is XLA and NumPy): the bf16
+  engines' table, centred query operand and q2 from the raw batch, one
+  launch a batch.
 
 Each wrapper takes the plain version for a tensor on the CPU and, for a
 CUDA tensor, launches its kernel or raises: there is no fallback.
@@ -1237,3 +1241,81 @@ def fused_ladder(mins: torch.Tensor, q2: torch.Tensor, table: torch.Tensor,
     build.check(err, "ladder")
     build.count("ladder")
     return buf
+
+
+# --------------------------------------------------------------------------
+# The bf16 prepare (csrc/prepare.cu)
+# --------------------------------------------------------------------------
+
+#: queries a block of the prepare kernel: B_pad must be a multiple
+PREPARE_QB = 32
+
+
+def grouped_layout(M: int, Ds: int) -> Tuple[int, int, int, int]:
+    """The bf16 q operand's layout as ``fused_prepare`` takes it: (G
+    groups, W source columns a group, Dg operand rows a group, n_src
+    source columns), here ``pack_query_grouped``'s."""
+    G, Mg, Dg_pad = group_geometry(M, Ds)
+    return G, Mg * Ds, Dg_pad, M * Ds
+
+
+def fused_prepare_ref(queries: torch.Tensor, codewords: torch.Tensor,
+                      mu: torch.Tensor, b_pad: int, layout
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 prepare in plain PyTorch: the raw batch ``queries`` [B, Dq]
+    f32 zero-padded to [b_pad, d_pad] (d_pad = len(mu)) -> (``adc_table``
+    on its first M*Ds columns [b_pad, M, K] f32, the centred query q - mu
+    in ``layout`` cast to bf16 and transposed [G*Dg, b_pad], ||q - mu||^2
+    over d_pad [b_pad] f32).  Bit-equal to the engines' host path."""
+    from .adc import adc_table
+
+    B, Dq = queries.shape
+    M, K, Ds = codewords.shape
+    q = torch.zeros((b_pad, mu.shape[0]), dtype=torch.float32,
+                    device=queries.device)
+    q[:B, :Dq] = queries
+    table = adc_table(codewords, q[:, :M * Ds])
+    qc = q - mu
+    G, W, Dg, n_src = layout
+    op = torch.zeros((b_pad, G * Dg), dtype=torch.float32,
+                     device=queries.device)
+    for g in range(G):
+        lo, hi = g * W, min((g + 1) * W, n_src)
+        op[:, g * Dg:g * Dg + hi - lo] = qc[:, lo:hi]
+    return (table, op.to(torch.bfloat16).t().contiguous(),
+            torch.sum(qc * qc, dim=1))
+
+
+def fused_prepare(queries: torch.Tensor, codewords: torch.Tensor,
+                  mu: torch.Tensor, b_pad: int, layout
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``fused_prepare_ref``'s (table, qop, q2) in one launch of
+    ``csrc/prepare.cu`` (launch key ``prepare``).  ``qop`` is bit-equal to
+    the plain version's; the table and q2 differ from it only by the
+    order of their f32 sums."""
+    if queries.device.type == "cpu":
+        return fused_prepare_ref(queries, codewords, mu, b_pad, layout)
+    B, Dq = queries.shape
+    M, K, Ds = codewords.shape
+    d_pad = mu.shape[0]
+    G, W, Dg, n_src = (int(v) for v in layout)
+    _check_operands({"queries": queries, "codewords": codewords, "mu": mu},
+                    {"queries": torch.float32, "codewords": torch.float32,
+                     "mu": torch.float32}, queries.device)
+    if b_pad < B or b_pad % PREPARE_QB or Dq > d_pad or M * Ds > d_pad \
+            or n_src > d_pad or W < 1 or Dg < W:
+        raise ValueError(
+            f"fused_prepare: queries [B, Dq <= d_pad], b_pad >= B a multiple "
+            f"of {PREPARE_QB}, a layout inside d_pad")
+    dev = queries.device
+    table = torch.empty((b_pad, M, K), dtype=torch.float32, device=dev)
+    qop = torch.empty((G * Dg, b_pad), dtype=torch.bfloat16, device=dev)
+    q2 = torch.empty(b_pad, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.library().prepare_launch(
+        queries.data_ptr(), codewords.data_ptr(), mu.data_ptr(),
+        table.data_ptr(), qop.data_ptr(), q2.data_ptr(), B, Dq, b_pad, M, K,
+        Ds, d_pad, G, W, Dg, n_src, stream)
+    build.check(err, "prepare")
+    build.count("prepare")
+    return table, qop, q2

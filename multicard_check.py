@@ -57,11 +57,19 @@ def workload():
     return cw, codes, np.lexsort(codes.T[::-1]), q
 
 
-def exact_dists(cw, codes, q, dev) -> np.ndarray:
-    table = adc_table(torch.from_numpy(cw).to(dev),
-                      torch.from_numpy(q).to(dev))
+def exact_dists(cw, codes, q, dev, table=None) -> np.ndarray:
+    """adc_query_topk's distances over ``table``, else adc_table's."""
+    if table is None:
+        table = adc_table(torch.from_numpy(cw).to(dev),
+                          torch.from_numpy(q).to(dev))
     c = torch.from_numpy(pad_codes(codes, 16384)).to(dev)
     return adc_query_topk(table, c, len(codes), TOP_K, 16384)[0].cpu().numpy()
+
+
+def engine_table(e, q):
+    """The table the sharded bf16 engine scans: its first shard's prepare
+    (csrc/prepare.cu), adc_table's up to the order of its f32 sums."""
+    return e.shards[0][0].prepare(q)[0][:len(q)]
 
 
 def lloyd_input():
@@ -77,6 +85,7 @@ def one_process(cards: int) -> None:
     ref = exact_dists(cw, codes, q[:B], dev0)
     e = ShardedCompressedEngine(cw, codes[order], mesh, row_to_db=order)
     e.warmup(batch_sizes=(B,), top_k=TOP_K)
+    ref_e = exact_dists(cw, codes, q[:B], dev0, engine_table(e, q[:B]))
     build.reset_launch_counts()
     walls = []
     for _ in range(N_BATCHES):
@@ -84,7 +93,7 @@ def one_process(cards: int) -> None:
         t = time.perf_counter()
         d, _ = e.query(q[:B], top_k=TOP_K)
         walls.append(time.perf_counter() - t)
-        check(np.array_equal(d, ref), "the sharded engine is not exact")
+        check(np.array_equal(d, ref_e), "the sharded engine is not exact")
     c = build.launch_counts()
     check(c["delta_mins_bf16"] == cards * N_BATCHES
           and c["ladder"] == cards * N_BATCHES, f"launches {c}")
@@ -93,7 +102,8 @@ def one_process(cards: int) -> None:
           f"{N_BATCHES} batches of B={B}: host wall {wall * 1e3:.4f} "
           f"ms/batch -> {B / wall:.1f} QPS, first-shot "
           f"{e.last_exact_frac:.4f}, launches B5 {c['delta_mins_bf16']} / "
-          f"ladder {c['ladder']}; distances bit-equal to adc_query_topk",
+          f"ladder {c['ladder']}; distances bit-equal to adc_query_topk "
+          f"over the engine's own table",
           flush=True)
     d, _ = sharded_query_plain(cw, q[:B], codes, mesh=mesh)
     check(np.array_equal(d, ref), "sharded_query_plain")
@@ -134,16 +144,17 @@ def worker(rank: int, world: int, port: int) -> None:
         def results(m):
             c, dist = make_dp_lloyd_step(m)(
                 shard_rows(m, lloyd_input(), dim=1), torch.from_numpy(cw))
+            e = ShardedCompressedEngine(cw, codes[order], m,
+                                        row_to_db=order)
             return (*sharded_query_plain(cw, q[:B], codes, mesh=m),
-                    *ShardedCompressedEngine(cw, codes[order], m,
-                                             row_to_db=order).query(q[:B]),
-                    c.cpu().numpy(), dist.cpu().numpy())
+                    *e.query(q[:B]), c.cpu().numpy(),
+                    dist.cpu().numpy()), e
 
-        got, one_card = results(mesh), results(alone)
+        (got, e), (one_card, _) = results(mesh), results(alone)
         check(all(np.array_equal(a, b) for a, b in zip(got, one_card)),
               "a world result differs from the one-card result")
-        check(np.array_equal(got[2], exact_dists(cw, codes, q[:B], dev)),
-              "the sharded engine is not exact")
+        ref = exact_dists(cw, codes, q[:B], dev, engine_table(e, q[:B]))
+        check(np.array_equal(got[2], ref), "the sharded engine is not exact")
     finally:
         torch.distributed.destroy_process_group()
     print(f"rank {rank} of {world} (NCCL): sharded plain query, sharded "

@@ -367,7 +367,7 @@ def test_adc_topk_kernel_bit_equal(cuda, B, M, K, n, tile, k):
                                     "pallas", "auto"])
 def test_index_search_on_card(cuda, engine):
     """One index search per engine on the card: distances bit-equal to
-    the plain exact scan over the same table."""
+    the plain exact scan over the table the engine made."""
     from deltapq_tpu_torch.index import DeltaPQIndex
     from deltapq_tpu_torch.ops.adc import adc_table
 
@@ -385,8 +385,11 @@ def test_index_search_on_card(cuda, engine):
            "pallas": "adc_topk"}.get(engine)     # auto: fused_dedup here
     if key:
         assert counts[key] >= 1, counts
-    table = adc_table(torch.from_numpy(cw).to(cuda),
-                      torch.from_numpy(q).to(cuda))
+    eng = idx._fused_engine
+    # the fused tiers' own table (csrc/prepare.cu), else adc_table's
+    table = (eng.prepare(q)[0][:len(q)] if hasattr(eng, "prepare") else
+             adc_table(torch.from_numpy(cw).to(cuda),
+                       torch.from_numpy(q).to(cuda)))
     dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024)
                                                    ).to(cuda), n, 10, 1024)
     assert np.array_equal(d, dr.cpu().numpy())
@@ -1465,3 +1468,144 @@ def test_index_edge_search_route(cuda, method, monkeypatch):
                  device=cuda)
     assert routes == (["find_edges_by_diff_device"] if method != 3
                       else ["find_edges_by_diff"])
+
+
+# ---- the bf16 prepare (csrc/prepare.cu) ------------------------------------
+
+#: (M, K, Ds): SIFT1M's shape, and GIST1M's (two groups, d_pad 1024)
+PREPARE_SHAPES = {"sift": (8, 256, 16), "gist": (16, 256, 60)}
+#: a subspace wider than the kernel stages at once (two column chunks) and
+#: more codewords than it stages at once (two codeword chunks)
+PREPARE_WIDE = (2, 300, 200)
+
+
+def _prepare_case(cuda, shape, n=4000):
+    M, K, Ds = PREPARE_SHAPES.get(shape) or PREPARE_WIDE
+    rng = np.random.default_rng(M * Ds)
+    cw = (rng.normal(size=(M, K, Ds)) * 3 + 1).astype(np.float32)
+    return cw, _codes(rng, n, M, K), rng
+
+
+def _prepare_engine(cuda, shape, kind, precision="bf16"):
+    from deltapq_tpu_torch.ops.fused import (FusedCodesEngine,
+                                             FusedDecodedEngine)
+
+    cw, codes, rng = _prepare_case(cuda, shape)
+    if kind == "decoded":
+        return FusedDecodedEngine(cw, codes, tile=1024, device=cuda), rng
+    return FusedCodesEngine(cw, codes, precision=precision,
+                            device=cuda), rng
+
+
+@pytest.mark.parametrize("kind", ["codes", "decoded"])
+@pytest.mark.parametrize("b", [1, 100, 300, 500, 512])
+@pytest.mark.parametrize("shape", sorted(PREPARE_SHAPES))
+def test_prepare_kernel_matches_plain(cuda, shape, b, kind):
+    """The kernel against its plain version on the card.  qop bit-equal
+    (to the host path's operand too).  The table and q2 differ only by the
+    order of their f32 sums: q2_bm, c2_mk and the cross term each sum Ds
+    (q2: d_pad) products, and a reordered sum moves by a few units in the
+    last place of its terms' magnitude; |cross| <= (q2_bm + c2_mk) / 2, so
+    every entry stays within 2e-6 (about 17 f32 epsilons) of q2_bm +
+    c2_mk."""
+    eng, rng = _prepare_engine(cuda, shape, kind)
+    _check_prepare_kernel(cuda, eng, rng, b)
+
+
+@pytest.mark.parametrize("b", [1, 300])
+def test_prepare_kernel_wide_subspace(cuda, b):
+    """The kernel at Ds 200 and K 300 (the decoded tier, which takes K >
+    256): its sums carried over two column chunks and its codewords in two
+    chunks, held as in ``test_prepare_kernel_matches_plain``.  A sum's
+    reordering error grows with its terms: the table's bound is GIST's
+    2e-6 scaled by 200 / 60 terms a sum."""
+    eng, rng = _prepare_engine(cuda, "wide", "decoded")
+    _check_prepare_kernel(cuda, eng, rng, b, rtol=7e-6)
+
+
+def _check_prepare_kernel(cuda, eng, rng, b, rtol=2e-6):
+    q = (rng.normal(size=(b, eng.D)) * 3 + 1).astype(np.float32)
+    qd = torch.from_numpy(q).to(cuda)
+    b_pad = -(-b // 128) * 128
+    build.reset_launch_counts()
+    t, qop, q2 = fk.fused_prepare(qd, eng.codewords, eng.mu_dev, b_pad,
+                                  eng._operand_layout())
+    torch.cuda.synchronize()
+    assert build.launch_counts()["prepare"] == 1
+    tr, qopr, q2r = fk.fused_prepare_ref(qd, eng.codewords, eng.mu_dev,
+                                         b_pad, eng._operand_layout())
+    host = eng._prepare_on_host(q)[1]
+    assert torch.equal(qop.view(torch.int16), qopr.view(torch.int16))
+    assert torch.equal(qop.view(torch.int16), host.view(torch.int16))
+    M, K, Ds = eng.M, eng.K, eng.Ds
+    qs = torch.zeros((b_pad, M * Ds), dtype=torch.float64, device=cuda)
+    qs[:b] = qd.to(torch.float64)
+    q2_bm = (qs.view(b_pad, M, Ds) ** 2).sum(-1)
+    c2_mk = (eng.codewords.to(torch.float64) ** 2).sum(-1)
+    scale = q2_bm[:, :, None] + c2_mk[None]
+    assert bool(((t.double() - tr.double()).abs() <= rtol * scale).all())
+    assert bool(((q2 - q2r).abs() <= 2e-6 * q2r.abs()).all())
+
+
+@pytest.mark.parametrize("shape", sorted(PREPARE_SHAPES))
+def test_prepare_engine_answers(cuda, shape):
+    """A bf16 engine on the kernel's route: one prepare launch a batch,
+    distances bit-equal to ``adc_query_topk`` over the engine's own table,
+    ids equal to the host route's up to ties."""
+    from _torch_port import assert_ids_up_to_ties
+
+    cw, codes, rng = _prepare_case(cuda, shape, n=20000)
+    M, K, Ds = PREPARE_SHAPES[shape]
+    eng = FusedCompressedEngine(cw, codes, precision="bf16", device=cuda)
+    q = (rng.normal(size=(300, M * Ds)) * 3 + 1).astype(np.float32)
+    top_k = 10 if shape == "sift" else 100
+    build.reset_launch_counts()
+    d, i = eng.query(q, top_k=top_k)
+    assert build.launch_counts()["prepare"] == 1
+    table = eng.prepare(q)[0][:len(q)]
+    scan = decode_stream_tiles(eng.tiles)
+    dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(scan, 1024))
+                           .to(cuda), len(scan), top_k, 1024)
+    assert np.array_equal(d, dr.cpu().numpy())
+    th, qh, uh, ch, bh = eng._prepare_on_host(q)
+    mins, echo = eng.scan(qh, uh)
+    dh, ih = eng.select(th, ch, mins, echo, bh, top_k)
+    np.testing.assert_allclose(d, dh.numpy(), rtol=1e-5, atol=1e-4)
+    assert_ids_up_to_ties(th[:len(q)].cpu().numpy(), scan, i, ih.numpy(),
+                          top_k)
+
+
+def test_prepare_sharded_engine(cuda):
+    """The sharded engine on one card: its first shard's prepare takes the
+    kernel once a batch, every shard scans that table and operand.  Each
+    shard's ``calibrate`` queries the shard alone, so each prepares on its
+    own route too."""
+    from deltapq_tpu_torch.parallel import make_mesh
+    from deltapq_tpu_torch.parallel.fused_sharded import (
+        ShardedCompressedEngine)
+
+    cw, codes, rng = _prepare_case(cuda, "sift", n=20000)
+    e = ShardedCompressedEngine(cw, codes, make_mesh(2, device=cuda))
+    build.reset_launch_counts()
+    e.calibrate(top_k=10)
+    assert build.launch_counts()["prepare"] >= 2
+    q = (rng.normal(size=(200, 128)) * 3 + 1).astype(np.float32)
+    build.reset_launch_counts()
+    d, _ = e.query(q, top_k=10)
+    assert build.launch_counts()["prepare"] == 1
+    table = e.shards[0][0].prepare(q)[0][:len(q)]
+    dr, _ = adc_query_topk(table, torch.from_numpy(pad_codes(codes, 1024))
+                           .to(cuda), len(codes), 10, 1024)
+    assert np.array_equal(d, dr.cpu().numpy())
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8", "int16"])
+def test_prepare_launches_per_batch(cuda, precision):
+    """``launch_counts()['prepare']``: one a batch at bf16, none on the
+    int8 and int16 host route."""
+    eng, rng = _prepare_engine(cuda, "sift", "codes", precision)
+    build.reset_launch_counts()
+    for b in (1, 300, 512):
+        eng.query((rng.normal(size=(b, eng.D)) * 3).astype(np.float32))
+    assert build.launch_counts()["prepare"] == (3 if precision == "bf16"
+                                                else 0)

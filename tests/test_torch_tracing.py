@@ -243,7 +243,7 @@ def test_back_dated_span_is_in_the_registry_only():
 def test_launch_counts_as_before():
     build.reset_launch_counts()
     counts = build.launch_counts()
-    assert set(counts) == set(build.LAUNCHES) and len(counts) == 23
+    assert set(counts) == set(build.LAUNCHES) and len(counts) == 24
     assert not any(counts.values())
     build.count("rerank")
     build.count("rerank")
