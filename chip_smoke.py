@@ -1,236 +1,99 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch + CUDA port's main path on one card.
+"""Checks of the PyTorch + CUDA port on one card, and its kernels' times.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a host with
 one CUDA card (Hopper, sm_90a) and nvcc.  Without a card it exits
 non-zero and prints no result.  It imports nothing of JAX.
 
-Phases, each timed:
+What it checks.  Every query path answers as the plain exact scan
+``adc_query_topk`` over the same table: distances bit-equal (or within a
+stated tolerance), ids equal up to f64-audited ties.  Every kernel equals
+its plain PyTorch version: bit for bit, or within the bound of its mode
+(int16 scans 4e-6 * (max pre + 2 max|u*cross|), bf16 scans 2e-5 *
+(max pre + 2 sqrt(max pre) max ||q||)).  Launch counts show that each
+path ran its own kernels.  The phases, on synthetic data made from seeds:
 
 1. device: the card's name and power limit, CUDA and nvcc versions;
-2. kernel build: nvcc builds ``deltapq_tpu_torch/csrc/*.cu`` afresh, and
-   g++ the host library ``deltapq_tpu_torch/native/dtc_native.cpp`` (the
-   DFS layout and the DTC and diff-index codecs of phases 3, 15 and 18);
+2. kernel build: nvcc builds ``deltapq_tpu_torch/csrc/*.cu`` afresh (ptxas
+   registers and spills printed), and g++ the host library
+   ``native/dtc_native.cpp``;
 3. data and index: the sift_like workload at N = 1,048,576, D=128, M=8,
-   K=256 -- PQ learn + encode on the card, DeltaTree (method 1), DFS
-   order, stream tiles; prints the distinct-code count and B/vec;
-4. each kernel against its plain PyTorch version on the full tiles at
-   B=512: the codes echo exact, the subtile mins within
-   4e-6 * (max pre + 2 max|u*cross|), the rerank bit-equal on a
-   cap-rung-sized candidate set (S = 65,536), beside its library
-   yardstick ``embedding_bag`` (a bag of M table entries a candidate);
-   times from CUDA events; B1 also at B=64 on the same tiles (one query
-   block: a block's fixed work is all there is to hide), its mins equal
-   to the first 64 columns;
-5. engine: ``FusedCompressedEngine(precision="int16")``, warmup, then
-   timed batches of 512 top-10 queries, each held to the plain exact
-   scan ``adc_query_topk`` over the same table: distances bit-equal, ids
-   equal up to f64-audited ties.  B1 and the per-query ladder's two
-   kernels (``ladder_mins``, ``ladder``) must have launched in this
-   phase, B2 not.  Then one batch through the batch ladder with B2
-   (``fused_select_esc``), its rungs forced to 1, 2 and 4 units, so the
-   later rungs and the terminal exact scan run; it is timed and held to
-   the same checks.  Then, on that batch's minima, the ladder's kernels
-   against their plain versions (minima bit-equal; distances and status
-   equal to ``fused_ladder_ref``, rows up to ties), each timed beside its
-   plain version and its bound (``ladder``, ``ladder_mins``);
-6. kernels of the index tiers, on the same data at B=512: the bf16 mode
-   of the stream kernel on the stream tiles, the codes kernel (bf16 and
-   int16) on the scan-ordered codes, the decoded kernel on the bf16
-   decoded tiles (8192 rows a tile) and the ADC top-k kernel B6 in its
-   three modes (top-10, 4096-row tiles; the merged f32 distances
-   bit-equal to ``adc_query_topk``; each mode beside its bound and the
-   shared-memory floor of its N B M lookups), each against its plain
-   version (bf16 scans within
-   2e-5 * (max pre + 2 sqrt(max pre) max ||q||), int16 within 4e-6 *
-   (max pre + 2 max|u*cross|), echoes exact, ADC top-k bit-equal) and
-   timed with CUDA events beside the plain version, the bound and B1's
-   time in the same mode on the same rows (phases 4 and 6); B1's int16
-   mins equal B3's bit for bit (both on ``mma.sync``, B3 without the
-   decode); B4 beside one ``torch.mm`` of the same operands
-   (``library_ms``: the cross product alone);
-7. index: ``DeltaPQIndex`` over phase 3's codewords and codes (no second
-   learn), five timed B=512 top-10 batches each for ``auto`` (->
-   ``fused_compressed`` at bf16), ``fused``, ``fused_codes`` and
-   ``pallas``, plus the codes tier at int16 through
-   ``FusedCodesEngine``; ``stats()``; a save/load round trip; a
-   dup_heavy index whose ``auto`` resolves to ``fused_dedup``.  Every
-   batch is held to ``adc_query_topk`` as in phase 5.  The launch counts
-   are set to 0 before each path and read after it: each path must have
-   launched its own scan kernel, and every fused tier the ladder kernel;
-8. int8 and slot-tile kernels on phase 3's codes at B=512: B1 and B3 in
-   int8 mode against their plain versions (mins bit-equal, echo exact)
-   and against each other (bit for bit),
-   B5 on the slot tiles of the same DFS order at int8 (bit-equal), int16
-   and bf16 (within the bounds of phases 4 and 6), its echo equal to the
-   codes, its mins equal to B1's on the same rows bit for bit at int8 and
-   int16; each timed beside its plain version, its bound and B1's time in
-   the same mode; the slot tiles' S, Cap and B/vec; then the int8 codes
-   tier through ``FusedCodesEngine``;
-9. slot-tile engine: ``FusedCompressedEngine(fmt="slots")`` at int16 and
-   int8, warmup then five timed B=512 top-10 batches each, and two at
-   bf16, every batch held to ``adc_query_topk``; a ``save`` ->
-   ``convert.load_jax_engine`` round trip of a slot file with ``fmt`` and
-   with the key removed, both answering as the engine does;
-10. big N at int8: 8,388,608 sift_like vectors made and encoded chunk by
-   chunk (chunk c from seed c, so chunk 0 is phase 3's data; phase 3's
-   codewords, no second learn) by ``encode_stream``;
-   ``BigCompressedIndex(n_parts=8, precision="int8", chunk_rows=
-   2,097,152)`` -> four resident chunks; warmup, five timed B=128 top-10
-   batches held to ``adc_query_topk`` over all 8,388,608 codes; ``save``
-   -> ``from_saved(mmap=True, resident=False)``, two checked batches with
-   the per-batch upload time; ``DedupCompressedEngine`` at its default
-   (int8) over phase 3's codes, two checked batches.
+   K=256; PQ learn + encode on the card, DeltaTree (method 1), DFS order,
+   stream tiles (lossless); distinct codes and B/vec;
+4. B1 (int16, B=512 and B=64) and B2 (cap-rung-sized candidates, beside
+   one ``embedding_bag``) against their plain versions;
+5. the int16 stream engine: warmup, N_BATCHES checked batches of 512
+   top-10 queries, ``query`` equal to its stages, B1 and the per-query
+   ladder launched and B2 not; the batch ladder forced to rungs 1, 2, 4
+   into the terminal scan; the ladder's two kernels against their plain
+   versions at the rungs ``rung_plan`` gives the engine;
+6. the index tiers' kernels against their plain versions: B1 bf16, B3
+   bf16 / int16 (int16 equal to B1 bit for bit), B4 (beside one
+   ``torch.mm``), B6 f32, and the bf16 prepare kernel (its operand
+   bit-equal to the host path's);
+7. ``DeltaPQIndex`` over phase 3's codes: checked batches for ``auto``
+   (-> ``fused_compressed`` bf16), ``fused``, ``fused_codes`` and
+   ``pallas``, ``FusedCodesEngine`` int16, ``stats()``, save / load, and
+   a dup_heavy index whose ``auto`` resolves to ``fused_dedup``;
+8. B1 and B3 at int8 and B5 in three modes against their plain versions
+   and against each other (bit for bit at int8 and int16), the slot
+   tiles lossless; the int8 codes tier's checked batches;
+9. the slot-tile engine at int16, int8 and bf16, checked batches, and a
+   slot file saved with and without ``fmt`` reloading as the engine;
+10. big N at int8: 8,388,608 rows through ``encode_stream`` and
+    ``BigCompressedIndex`` (four resident chunks), checked batches over
+    every code; ``from_saved(mmap=True, resident=False)``;
+    ``DedupCompressedEngine``'s int8 inner engine;
+11. the plain-scan kernels against their plain versions at N =
+    1,048,576, B=512: B8 (beside ``embedding_bag``), B6 bf16 / bf16x2, B9
+    in three precisions, B10 on the dup_heavy codes (its keys equal to
+    B9's f32 keys);
+12. the plain-scan engines at B=128 and 512, exact ones bit-equal and
+    rounded ones by recall@10, their peak device memory;
+    ``TileDictEngine``; ``DecodedEngine`` save and load;
+13. B7 at int8 and bf16 equal to B1 bit for bit and to its plain
+    version; the ``pipelined=True`` engines' checked batches, B7 launched
+    and B1 not;
+14. the GIST shape (M=16, Ds=60, D=960, top-100, B=500) at N =
+    1,000,000: B1, B3, B5 in three modes and B4 against their plain
+    versions and B3 / B5 against B1; every engine verified as
+    ``bench_gist.verify`` does; ``DeltaPQIndex(auto)`` over these codes
+    and over 250,000 near-distinct codes (-> ``fused_compressed``); B3
+    against B1 on the near-distinct codes;
+15. the CLI end to end on a SIFT1M-shaped fvecs dataset: every task
+    through ``cli.main`` (its wall and printed lines logged), the code
+    file byte-equal to ``pq_encode``, each of the eight engines held to
+    the exact scan (decoded by recall@10), recall equal to
+    ``recall_at_k``, the DTC lossless, ``query -shards 4``, the
+    ContinuousBatcher at depth 1 and 2 equal, and ``query_compressed`` in
+    a fresh interpreter; then each kernel the CLI launched against its
+    plain version (``<name>@cli``);
+16. sharded on one card: ``ShardedCompressedEngine`` over 1, 2 and 4
+    shards (B5 and the ladder once a shard a batch), its kernels on shard
+    0 of 4 against their plain versions (``@sharded``);
+    ``sharded_query_plain``, ``pipelined_query``,
+    ``sharded_query_decoded``, ``sharded_query_compressed``,
+    ``make_dp_lloyd_step``, ``init_distributed`` (NCCL, world 1), the
+    chunked and dedup tiers on a mesh, ``dryrun_multichip(4)``;
+17. serving: ``CoalescingServer`` over phase 5's engine at three wave
+    widths, every served wave checked; ``query_coalesced``;
+18. the rest of the package: the native library against the Python
+    loops (layout, DTC, diff index), ``scan_query_native``, the exact-MST
+    tree (cut to 262,144 rows), ``rotate_tree`` and the bit format (cut
+    to 65,536), the row store, the legacy prefix tree (cut to 16,384),
+    ``make_sharded_delta_query_fn`` at ``rung_plan``'s first rung (at
+    least ``SHARDED_MIN_OK`` certified), ``entry()``.
 
-11. the plain-scan kernel family against its plain versions, timed with
-   CUDA events, on the engine benchmark's workload
-   (``bench_engines.workload``) at N = 1,048,576, B=512, top-10: the
-   distance matrix B8 (bit-equal, compared in row chunks; its library
-   yardstick ``embedding_bag``), B6 at f32, bf16 and bf16x2 (each
-   beside its bound and the shared-memory floor of its N B M lookups, as
-   in phase 6), B9 at f32, bf16
-   and bf16x2 (tile 4096; each beside the same floor and its time over
-   B6's in the mode: one warp kernel, two selections), and B10 (tile
-   2048; B9's warp kernel over compact tables) on phase 7's dup_heavy
-   codes in DeltaTree-DFS order, where the dictionary fits (its width is
-   printed), its keys equal to B9's f32 keys on the same rows and B9
-   f32's time there printed beside B10's.  Every one bit-equal to its
-   plain version;
-12. the plain-scan engines at B=128 and B=512: the gather scan, the
-   distance matrix with ``smallest_k``, argmin at f32 / bf16 / bf16x2,
-   packed at f32 / bf16 / bf16x2 and the decoded engine at bf16x2 with
-   and without rerank and at bf16 on the benchmark's workload, and
-   ``TileDictEngine`` on the dup_heavy codes: ms/batch, QPS, launches of
-   the engine's own kernel, and against the exact scan: the exact
-   engines bit-equal (the packed keys' truncated 12 bits audited in
-   f64), the rounded ones by recall@10; ``DecodedEngine`` save and load
-   on the card and its peak device memory.
-
-13. the pipelined stream kernel B7 on phase 3's tiles at B=512, int8 and
-   bf16: codes and mins equal to B1's bit for bit in both modes (the two
-   run one ``mma.sync`` tail), and held to the plain
-   version (int8 bit-equal, bf16 within the bound of phase 6), timed in
-   turns with B1 (B1, B7, B7, B1); then ``FusedCompressedEngine(
-   pipelined=True)`` at int8 and bf16, warmup and five timed batches each,
-   every batch held to ``adc_query_topk``; on that path the pipelined
-   kernel's launch count must be > 0 and the serial stream kernel's 0;
-14. the GIST shape at full width (M=16, K=256, Ds=60, D=960, top-100,
-   B=500, which the engines pad to 512): ``synth.make_gist_workload`` at
-   N = 1,000,000, the M=16 DeltaTree, its DFS order, B/vec (DFS, lexsort,
-   plain 16); B1, B3 and B5 in their three modes and B4 against their
-   plain versions (codes exact, int8 bit-equal, int16 and bf16 within the
-   bounds of phases 4 and 6), timed, B4 beside its ``torch.mm`` yardstick;
-   B1, B3 and B5 all run the gathered ``wgmma`` tail there (B1 and B5
-   with their own decodes), and B3 and B5 are held to B1 on the same rows
-   bit for bit at int8 and int16; then B3 and B1 again on the
-   near-distinct code set below (lexsort order), timed, B3 against its
-   plain version and bit for bit against B1;
-   every one of those engines then
-   answers the benchmark's batch through ``query`` and is verified as
-   ``bench_gist.verify`` does (distances allclose to ``adc_query_topk``,
-   ids up to f64-audited ties, 0 real divergences), and the decoded,
-   codes, stream (bf16, int16, int8) and slot (bf16) engines are timed;
-   ``DeltaPQIndex(engine="auto")`` over these codes (whatever it resolves
-   to) and over a second, near-distinct GIST-shape code set of 250,000
-   rows, where it must resolve to ``fused_compressed`` and run.  The
-   kernels of this phase are listed as ``<name>@gist``;
-15. the CLI end to end (``deltapq_tpu_torch.cli``): a SIFT1M-shaped
-   dataset directory (base 1,000,000, learn 100,000 and query 10,000 x
-   128 fvecs, one ``workload_vectors`` draw of the sift_like recipe cut
-   three ways, so the files share cluster centres) in a temporary
-   directory; then, each task in this process through ``cli.main(argv)``
-   with ``-m 8 -k 256 -topk 10 -query_size 1000 -batch 512`` and its
-   wall time, printed lines and launches logged: learn (-train_size
-   20000), encode (the code file equal to ``pq_encode`` byte for byte),
-   groundtruth, query with each of the eight engines (pallas, auto,
-   fused, fused_codes, fused_compressed and fused_dedup held to
-   ``adc_query_topk`` as in phase 5; xla is that scan; decoded by its
-   recall@10 against it), recall (equal to ``recall_at_k`` of the
-   groundtruth file), approx_tree (its DTC decoded losslessly to the
-   code file), query_compressed auto (B1 bf16 + the ladder: distances
-   bit-equal to xla) and xla (the level-wise query: rtol 1e-5, atol 1e-4),
-   diff_index, diff_scan -engine pallas (its decode checked by the task,
-   distances bit-equal to xla), mAP and update, query -shards 4 (the
-   plain scan sharded over 4 shards of the card: distances bit-equal to
-   xla, ids up to audited ties); query_compressed once
-   more as ``python3 -m deltapq_tpu_torch.cli`` in a fresh interpreter.
-   Each path must launch its kernels (B6 for pallas, B4 for fused, B3 for
-   fused_codes, B1 bf16 and the ladder for fused_compressed and
-   query_compressed auto).  The ContinuousBatcher behind query past ``-batch`` runs the
-   whole query file at depth 1 and 2 in turns, equal results, wall times
-   logged.  Then each kernel the CLI launched, against its plain version
-   on engines built as the CLI builds them from its files, B=512 of its
-   queries, timed; listed as ``<name>@cli`` (B1 bf16 on fused_compressed's
-   lexsort order as ``stream_mins_bf16@cli_lexsort``).
-16. sharded on one card (runs after phase 13; no scaling is claimed:
-   the shards of one card run one after the other): on phase 3's rows
-   (DFS order) at B=512, top-10, ``ShardedCompressedEngine`` over meshes
-   of 1, 2 and 4 shards of ``cuda:0`` at bf16 and of 4 at int16, warmup
-   and five timed batches each (host wall, QPS, first-shot fraction),
-   every batch held to ``adc_query_topk`` (distances bit-equal, ids up
-   to audited ties), B5 and the ladder's two kernels launched once a
-   shard a batch; B5 bf16 and the ladder's kernels on shard 0 of 4
-   against their plain versions (``delta_mins_bf16@sharded``,
-   ``ladder@sharded``, ``ladder_mins@sharded``, bound on the shard's
-   valid rows); then at S=4 ``sharded_query_plain`` (equal to
-   ``query_plain(engine="xla")``), ``pipelined_query`` over four batches
-   (each equal to ``sharded_query_plain``), ``sharded_query_decoded``
-   (equal to ``DecodedEngine``) and ``sharded_query_compressed`` (four
-   DeltaTrees from a spawn pool; allclose to ``adc_query_topk``);
-   ``make_dp_lloyd_step`` at S=4 on the learn pool against one
-   single-shard step (centres where the labels cannot differ,
-   distortion rtol 1e-5); ``init_distributed`` at world size 1 over NCCL
-   and the S=2 engine through the group's gather (same arrays as without
-   it); ``ChunkedCompressedEngine(mesh=S2)`` at ``chunk_rows=2**19``, its
-   ``save`` and ``from_saved(mmap=True, mesh=S2)``, both exact;
-   ``DedupCompressedEngine(mesh=S2)`` on phase 7's dup_heavy codes,
-   exact; ``parallel.dryrun.dryrun_multichip(4)``;
-17. serving (runs after phase 16): ``CoalescingServer`` over phase 5's
-   int16 stream engine at ``wave_rows`` 512, 1024 and 2048,
-   ``max_wait_ms=2``.  At each width: the engine's direct QPS over 256
-   back-to-back batches of that width; then a started server, warmed by
-   four dispatches' worth of waves, serves 256 dispatches' worth of
-   128-row waves (rows drawn from a pool of 10,000 queries drawn as in
-   phase 5) from eight client threads, each keeping four waves in
-   flight: served QPS over that window (first submit to last result),
-   dispatches and rows a dispatch, wave latency p50 / p99, and served /
-   direct.  Every served wave is held to ``adc_query_topk`` on its rows
-   (distances bit-equal, ids up to audited ties); ``query_coalesced``
-   over 64 waves equals the per-wave queries.
-18. the rest of the package (runs after phase 17, on phase 3's data):
-   the native library must have built; ``build_layout`` on phase 3's
-   edges with the native and the Python DFS (every array equal), the
-   DTC parse and decode and the diff-index decode of the N-row streams
-   native and Python (byte-equal), each wall printed;
-   ``scan_query_native`` for 8 queries against ``adc_query_topk``
-   (distances rtol 1e-5, ids up to audited ties); the exact-MST tree on
-   the first 262,144 rows (cut: the NumPy rounds and the depth repair
-   would take most of the phase at N): spanning, no more diffs than the
-   approximate tree, lossless through ``serialize_dtc``'s repair, its
-   B/vec, and an int16 engine over its DFS order for 2 checked batches
-   (B1 and the ladder launched); ``tree_height`` / ``rotate_tree`` and the bit
-   format on 65,536 rows (cut: Python loops), ``query_bits`` at B=512;
-   ``block_aware_size`` of phase 3's tree; the row store at N with 128
-   raw bytes a row, lossless, ``query_row_store`` at B=512 (raw rows =
-   ``raw[ids]``); the legacy prefix tree on 16,384 rows (cut: a query
-   expands up to 256 children a node a level, and at 65,536 rows one
-   query in 16 took 72 s on a CPU): ``dichotomize_codewords`` on the
-   card, a re-encode, ``BitVecsStore`` and 16 ``prefix_tree_query`` top-1
-   within 1e-3 of ``query_plain``; ``make_sharded_delta_query_fn`` over
-   phase 8's slot tiles on 1, 2 and 4 shards, and over a codebook learned
-   on D=108 (not divisible by M; Ds 14, zero-padded) on 16,384 rows, for
-   queries drawn as database rows plus noise (B5 once a shard, B2 at
-   least as often; where certified equal to ``ShardedCompressedEngine``;
-   every row its own exact distance and no j-th distance below the exact
-   j-th; at least ``SHARDED_MIN_OK[D][S]`` certified);
-   ``entry()``'s flagship step (B5 and B2 launched; certified distances
-   bit-equal to ``adc_query_topk``).
-
-Every kernel's entry in the ``kernels`` line carries ``bound_ms``: the
-least time the card could take for the same work, the larger of the
-bytes it must move (each input read once, each output written once) over
-3.35 TB/s and its operations over the published peak of their type (67
-TFLOP/s f32 outside the tensor cores, 989 bf16, 1,979 TOP/s int8).
+What it times.  Each kernel and its plain version with CUDA events (one
+line a kernel, and the ``kernels`` JSON line: ms, plain_ms, bound_ms,
+bound_by, library_ms, launches on its path).  ``bound_ms`` is the least
+time the card could take for the same work, the benchmark's
+``benchmark/roofline.py`` arithmetic: the bytes it must move (each input
+read once, each output written once) over the HBM rate, or its
+operations over the peak of their type, whichever is larger.  Set-up
+steps (build, data, trees, warmups, files, CLI tasks) and phase 18's
+codecs, native beside Python, print their host wall.  No query path's
+rate is measured here: ``python3 -m benchmark.run`` measures them.
 
 Any failed check raises, so the script exits non-zero without the last
 line.  Its last two lines are a JSON object of per-kernel measurements
@@ -252,6 +115,7 @@ import time
 import numpy as np
 import torch
 
+from benchmark.roofline import bound_s, scan_ops, scan_peak_kind
 from deltapq_tpu_torch import bench_engines, bench_gist, bench_stream, cli
 from deltapq_tpu_torch import entry as flagship
 from deltapq_tpu_torch.bigscale import (BigCompressedIndex,
@@ -282,8 +146,7 @@ from deltapq_tpu_torch.ops.fused import (DedupCompressedEngine,
                                          FusedCodesEngine,
                                          FusedCompressedEngine,
                                          FusedDecodedEngine,
-                                         _default_n_sub, _pool_for,
-                                         _rung_sizes, fused_select_esc)
+                                         fused_select_esc, rung_plan)
 from deltapq_tpu_torch.ops.kmeans import pq_learn
 from deltapq_tpu_torch.ops.stream_tiles import (build_stream_tiles,
                                                 decode_stream_tiles)
@@ -379,10 +242,6 @@ SOURCES = {
     "ladder_mins": "deltapq_tpu_torch/csrc/ladder.cu",
     "prepare": "deltapq_tpu_torch/csrc/prepare.cu",
 }
-#: published peaks of one H100 SXM at its full power limit (NVIDIA's data
-#: sheet): device memory bytes/s; operations/s by type
-HBM_BPS = 3.35e12
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 #: shared memory serves 32 four-byte words a clock on each SM; the H100
 #: SXM's boost clock (data sheet)
 SMEM_WORDS_PER_CLOCK = 32
@@ -462,23 +321,17 @@ def nbytes(*tensors):
 
 
 def bound(n_bytes, ops, kind):
-    """The least ms the card could take: bytes over the memory rate or
-    operations over the peak rate of their type, whichever is larger."""
-    t_bytes = n_bytes / HBM_BPS * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+    """A kernel's ``bound_ms`` and ``bound_by`` fields: the benchmark's
+    ``roofline.bound_s`` in ms."""
+    s, by = bound_s(n_bytes, ops, kind)
+    return dict(bound_ms=s * 1e3, bound_by=by, library_ms=None)
 
 
 def scan_bound(mode, n_rows, b, d, inputs, outputs):
     """Bound of a scan kernel over ``n_rows`` valid rows (not the tiles'
-    padding): its products are matrix products, 2 N B D operations
-    (int16: four int8 digit products), at the tensor cores' rate for
-    their type."""
-    ops = 2 * n_rows * b * d * (4 if mode == "int16" else 1)
-    return bound(nbytes(*inputs, *outputs), ops,
-                 "bf16" if mode == "bf16" else "int8")
+    padding): ``roofline.scan_ops`` at the peak of ``scan_peak_kind``."""
+    return bound(nbytes(*inputs, *outputs), scan_ops(n_rows, b, d, mode),
+                 scan_peak_kind(mode))
 
 
 def engine_operands(e, qop, uq):
@@ -625,65 +478,35 @@ def main() -> int:
         eng.warmup(batch_sizes=(B,), top_k=TOP_K)
         torch.cuda.synchronize()
         log(f"warmup (calibrate + one batch): "
-            f"{time.perf_counter() - t:.2f} s, ns_hint "
-            f"{getattr(eng, 'ns_hint', None)}")
-        split = np.zeros(3)
-        walls, fracs = [], []
-        for i in range(N_BATCHES):
-            q = rng.normal(size=(B, D)).astype(np.float32)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ev[0].record()
-            table, qop, uq, cert, b = eng.prepare(q)
-            ev[1].record()
-            mins, echo = eng.scan(qop, uq)
-            ev[2].record()
-            d, ids = eng.select(table, cert, mins, echo, b, TOP_K)
-            ev[3].record()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-            split += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
-            fracs.append(eng.last_exact_frac)
-            check_batch(table[:b], codes_db, codes_db64, d, ids)
-        # the user entry point once: same distances as the staged run
+            f"{time.perf_counter() - t:.2f} s, ns_hint {eng.ns_hint}")
+        checked_batches("int16 stream engine", eng, B, N_BATCHES, rng,
+                        codes_db, codes_db64, N)
+        # the user entry point once: same distances as the stages
+        q = rng.normal(size=(B, D)).astype(np.float32)
+        table, qop, uq, (q2, err_r, scale2), b = eng.prepare(q)
+        mins, echo = eng.scan(qop, uq)
+        d, _ = eng.select(table, (q2, err_r, scale2), mins, echo, b, TOP_K)
         dq, _ = eng.query(q, top_k=TOP_K)
         check(np.array_equal(dq, d.cpu().numpy()), "query() != stages")
         counts = build.launch_counts()
-        split /= N_BATCHES
-        wall = float(np.mean(walls))
-        log(f"{tag} ms/batch (B={B}, top-{TOP_K}, N={N}): "
-            f"table+quantize {split[0]:.4f}, B1 scan {split[1]:.4f}, "
-            f"epilogue+ladder+terminal {split[2]:.4f}; host wall "
-            f"{wall * 1e3:.4f} ms -> {B / wall:.1f} QPS")
-        log(f"{tag} certified first-shot fraction "
-            f"{float(np.mean(fracs)):.4f} over {N_BATCHES} batches")
         log(f"{tag} kernel launches in this phase: {counts}")
         check(counts["stream_mins"] > 0 and counts["ladder_mins"] > 0
               and counts["ladder"] > 0 and counts["rerank"] == 0,
               f"the main path launched {counts}")
-        log(f"all {N_BATCHES} batches: distances bit-equal to "
-            f"adc_query_topk, ids equal up to audited ties")
 
-        # the later rungs and the terminal exact scan, forced
-        table, qop, uq, (q2, err_r, scale2), b = eng.prepare(q)
-        mins, echo = eng.scan(qop, uq)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+        # the later rungs and the terminal exact scan, forced, on the
+        # same minima
         d, rows, ok, _ = fused_select_esc(
             mins, q2, table, echo, N, TOP_K, (1, 2, 4),
-            _pool_for(mins.shape[0]), err_r=err_r, scale2=scale2,
-            final_exact=True)
-        torch.cuda.synchronize()
-        forced_ms = (time.perf_counter() - t) * 1e3
+            rung_plan(mins.shape[0], TOP_K, B).pool, err_r=err_r,
+            scale2=scale2, final_exact=True)
         n_term = int((~ok).sum())
         check(n_term > 0, "the forced ladder never reached the terminal scan")
         ids = torch.where(rows >= 0, eng.row_to_db[rows.clamp(0, N - 1)]
                           .to(rows.dtype), rows)
         check_batch(table[:b], codes_db, codes_db64, d[:b], ids[:b])
-        log(f"{tag} forced ladder (rungs 1, 2, 4 units) with the terminal "
-            f"exact scan for {n_term} of {B} queries: epilogue "
-            f"{forced_ms:.4f} ms (host wall); distances bit-equal to "
+        log(f"forced ladder (rungs 1, 2, 4 units) with the terminal exact "
+            f"scan for {n_term} of {B} queries: distances bit-equal to "
             f"adc_query_topk, ids equal up to audited ties")
         # B1 and both ladders' kernels, as this phase's paths launched them
         counts = build.launch_counts()
@@ -696,8 +519,7 @@ def main() -> int:
     phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels)
     # stream_mins, rerank and the ladder's kernels keep their counts from
     # phase 5's paths
-    counts7, dup = phase7_index(dev, tag, cw, codes, codes_db, codes_db64,
-                                rng)
+    counts7, dup = phase7_index(dev, cw, codes, codes_db, codes_db64, rng)
     launches.update(counts7)
     dt = phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
                                       kernels, codes_db, codes_db64,
@@ -706,16 +528,16 @@ def main() -> int:
                       codes_db64, launches)
     phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                     launches, codes_db, codes_db64, dup)
-    phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64)
+    phase17_serving(dev, cw, eng, rng, codes_db, codes_db64)
     phase18_rest(dev, tag, cw, codes, order, res, tree, eng.bytes_per_vec(),
                  dt, legacy_x, codes_db, codes_db64)
     del eng, learn, legacy_x, res, tree
-    phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
+    phase9_slot_engine(dev, cw, order, dt, rng, codes_db, codes_db64,
                        launches)
-    phase10_big_n(dev, tag, cw, codes, rng, launches)
+    phase10_big_n(dev, cw, codes, rng, launches)
     del codes_db, codes_db64
     tde = phase11_adc_family_kernels(dev, tag, rng, kernels, dup)
-    phase12_plain_scan_engines(dev, tag, rng, dup, tde, launches)
+    phase12_plain_scan_engines(dev, rng, dup, tde, launches)
     del tde, dup
     phase14_gist(dev, tag, kernels, launches)
     phase15_cli(dev, tag, kernels, launches)
@@ -776,21 +598,19 @@ def rerank_vs_plain(tag, label, key, kernels, table, mins, echo):
 def ladder_vs_plain(tag, label, suffix, kernels, e, table, mins, echo,
                     cert):
     """The per-query ladder's two kernels on a scan's own minima, at the
-    rungs ``_select_with_escalation`` gives engine ``e``: ``ladder_mins``
-    bit-equal to ``pool_mins_nb`` (times scale2); the ladder's distances
-    and status bytes equal to ``fused_ladder_ref``'s, its scan rows equal
-    up to ties at equal distance, each carrying its distance.  Each timed
+    rungs ``rung_plan`` gives engine ``e`` (its ``ns_hint``):
+    ``ladder_mins`` bit-equal to ``pool_mins_nb`` (times scale2); the
+    ladder's distances and status bytes equal to ``fused_ladder_ref``'s,
+    its scan rows equal up to ties at equal distance, each carrying its
+    distance.  Each timed
     beside its plain version and bound by the bytes it must move (the
     ladder: minima, tables, q2, err_r, the codes of the units of each
     row's deepest rung, its outputs; ``ladder_mins``: minima in and out).
     Entries ``ladder<suffix>`` and ``ladder_mins<suffix>``."""
     q2, err_r, scale2 = cert
     b_, m_, _ = table.shape
-    pool = _pool_for(mins.shape[0])
-    n_units, unit = -(-mins.shape[0] // pool), fk.SUB * pool
-    ns = (getattr(e, "ns_hint", None)
-          or _default_n_sub(TOP_K, n_units, unit))
-    rungs = _rung_sizes(ns, n_units, unit, b_)
+    pool, _, rungs = rung_plan(mins.shape[0], TOP_K, b_, e.ns_hint)
+    unit = fk.SUB * pool
 
     def plain_mins():
         out = fk.pool_mins_nb(mins, pool)
@@ -980,18 +800,6 @@ def phase6_tier_kernels(dev, tag, cw, codes, order, eng, rng, kernels):
         b6_modes(tag, "index tier codes", tab, codes_p, kernels, ("f32",))
 
 
-def host_ms(fn, reps):
-    """Mean host-wall ms of ``fn`` with the card synchronised after each
-    call: the latency a serial caller sees."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t) / reps * 1e3
-
-
 def device_ms(fn, reps):
     """Mean device ms per call of a launcher whose host side outlasts
     its kernels: the stream is held busy (``torch.cuda._sleep``, about
@@ -1015,9 +823,7 @@ def prepare_vs_plain(tag, suffix, kernels, e, q):
     the batch ``q``: qop bit-equal to the plain version and to the host
     path; the table and q2 within 2e-6 of their terms' magnitude (the
     order of f32 sums, as tests/test_torch_cuda.py holds them); the
-    kernel timed beside its plain version, and the whole stage (pinned
-    copy + kernel) beside the host route it replaced, on the host's
-    clock."""
+    kernel timed beside its plain version."""
     b = len(q)
     b_pad = -(-b // 128) * 128
     M_, K_, Ds_ = e.codewords.shape
@@ -1040,8 +846,6 @@ def prepare_vs_plain(tag, suffix, kernels, e, q):
     n_diff = int((t != tr).sum())
     ms = device_ms(lambda: fk.fused_prepare(*args), 50)
     plain_ms = device_ms(lambda: fk.fused_prepare_ref(*args), 20)
-    stage_ms = host_ms(lambda: e._prepare_on_card(q), 50)
-    host_route_ms = host_ms(lambda: e._prepare_on_host(q), 20)
     kernels["prepare" + suffix] = dict(
         max_abs_err=float((t - tr).abs().max()), ms=ms, plain_ms=plain_ms,
         **bound(nbytes(qd, e.codewords, e.mu_dev, t, qop, q2),
@@ -1052,34 +856,27 @@ def prepare_vs_plain(tag, suffix, kernels, e, q):
         f"({kernels['prepare' + suffix]['bound_by']}); qop bit-equal to "
         f"the plain version and the host path; table entries != "
         f"adc_table's {n_diff} of {t.numel()} (max {rel:.3g} of q2 + c2), "
-        f"q2 max rel {rel_q2:.3g}; the stage, host wall synchronised: "
-        f"pinned copy + kernel {stage_ms:.4f} ms, the host route "
-        f"{host_route_ms:.4f} ms")
+        f"q2 max rel {rel_q2:.3g}")
 
 
-def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
+def search_batches(index, label, cw, codes_db, codes_db64, rng, n,
                    kernels=()):
-    """One untimed search (it builds the engine), then N_BATCHES timed
-    B=512 top-10 searches, each held to the plain exact scan over the
-    table the engine builds.  The launch counts are set to 0 just before
-    the first search and read after the last, before the checks (whose
-    tables launch ``prepare`` again); each kernel in ``kernels`` must have
-    been launched, and ``prepare``, where it was, once a search: as often
-    as the path's scan, ``kernels[0]``.  Returns this path's launch
+    """One search (it builds the engine), then N_BATCHES B=512 top-10
+    searches, each held to the plain exact scan over the table the engine
+    builds.  The launch counts are set to 0 just before the first search
+    and read after the last, before the checks (whose tables launch
+    ``prepare`` again); each kernel in ``kernels`` must have been
+    launched, and ``prepare``, where it was, once a search: as often as
+    the path's scan, ``kernels[0]``.  Returns this path's launch
     counts."""
     q = rng.normal(size=(B, D)).astype(np.float32)
     build.reset_launch_counts()
-    t = time.perf_counter()
     index.search(q, TOP_K)
-    first = time.perf_counter() - t
-    walls, fracs, batches = [], [], []
+    fracs, batches = [], []
     eng = index._fused_engine
     for _ in range(N_BATCHES):
         q = rng.normal(size=(B, D)).astype(np.float32)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         d, ids = index.search(q, TOP_K)
-        walls.append(time.perf_counter() - t)
         batches.append((q, d, ids))
         if hasattr(eng, "prepare"):
             fracs.append(eng.last_exact_frac)
@@ -1089,14 +886,12 @@ def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
                  adc_table(cw, torch.from_numpy(q).to(cw.device)))
         check_batch(table, codes_db, codes_db64, torch.from_numpy(d).to(
             cw.device), torch.from_numpy(ids).to(cw.device), n)
-    wall = float(np.mean(walls))
     resolved = index._engine_resolved or index.engine
     frac = (f", certified first-shot {float(np.mean(fracs)):.4f}"
             if fracs else "")
-    log(f"{tag} index {label} (-> {resolved}): first search {first:.2f} s; "
-        f"{N_BATCHES} batches of B={B}, top-{TOP_K}: host wall "
-        f"{wall * 1e3:.4f} ms/batch -> {B / wall:.1f} QPS{frac}; distances "
-        f"bit-equal to adc_query_topk, ids equal up to audited ties")
+    log(f"index {label} (-> {resolved}): {N_BATCHES} batches of B={B}, "
+        f"top-{TOP_K}{frac}; distances bit-equal to adc_query_topk, ids "
+        f"equal up to audited ties")
     log(f"  launches on the {label} path: "
         f"{({k: v for k, v in counts.items() if v})}")
     for k in kernels:
@@ -1108,7 +903,7 @@ def search_batches(index, label, tag, cw, codes_db, codes_db64, rng, n,
     return counts
 
 
-def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
+def phase7_index(dev, cw, codes, codes_db, codes_db64, rng):
     """The index API on the card; returns, for each kernel of the index
     tiers, its launch count on its own path."""
     launches = {}
@@ -1117,7 +912,7 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
         idx = DeltaPQIndex(cw, codes)
         log(f"DeltaPQIndex(cw, codes): tree, table-driven layout, DTC "
             f"stream: {time.perf_counter() - t:.1f} s")
-        counts = search_batches(idx, "auto", tag, cw, codes_db, codes_db64,
+        counts = search_batches(idx, "auto", cw, codes_db, codes_db64,
                                 rng, N, ("stream_mins_bf16", "ladder",
                                          "prepare"))
         check(idx._engine_resolved == "fused_compressed"
@@ -1129,7 +924,7 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
                           ("fused_codes", ("codes_mins", "ladder")),
                           ("pallas", ("adc_topk",))):
             other = DeltaPQIndex(cw, codes, engine=name, build_tree=False)
-            counts = search_batches(other, name, tag, cw, codes_db,
+            counts = search_batches(other, name, cw, codes_db,
                                     codes_db64, rng, N, own)
             launches[own[0]] = counts[own[0]]
             del other
@@ -1182,7 +977,7 @@ def phase7_index(dev, tag, cw, codes, codes_db, codes_db64, rng):
             f"{N / n_distinct:.2f}x), learn + encode + index "
             f"{time.perf_counter() - t:.1f} s")
         cdb = torch.from_numpy(pad_codes(codes_d, 16384)).to(dev)
-        search_batches(idx_d, "dup_heavy auto", tag, cw_d, cdb,
+        search_batches(idx_d, "dup_heavy auto", cw_d, cdb,
                        cdb[:N].to(torch.int64), rng, N)
         check(idx_d._engine_resolved == "fused_dedup",
               "dup_heavy auto did not resolve to fused_dedup")
@@ -1307,42 +1102,23 @@ def phase8_int8_and_slot_kernels(dev, tag, cw, codes, order, eng, rng,
     return dt
 
 
-def timed_batches(tag, label, e, b, n_batches, rng, codes_db, codes_db64,
-                  n):
+def checked_batches(label, e, b, n_batches, rng, codes_db, codes_db64, n):
     """``n_batches`` top-10 queries of ``b`` through the staged engine
-    (prepare, scan, select timed with CUDA events), each held to the
-    plain exact scan.  Returns the mean certified first-shot fraction."""
-    split = np.zeros(3)
-    walls, fracs = [], []
+    (prepare, scan, select), each held to the plain exact scan."""
+    fracs = []
     for _ in range(n_batches):
         q = rng.normal(size=(b, D)).astype(np.float32)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ev[0].record()
         table, qop, uq, cert, bq = e.prepare(q)
-        ev[1].record()
         mins, echo = e.scan(qop, uq)
-        ev[2].record()
         d, ids = e.select(table, cert, mins, echo, bq, TOP_K)
-        ev[3].record()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        split += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
         fracs.append(e.last_exact_frac)
         check_batch(table[:bq], codes_db, codes_db64, d, ids, n)
-    split /= n_batches
-    wall = float(np.mean(walls))
-    log(f"{tag} {label} ms/batch (B={b}, top-{TOP_K}, N={n}): "
-        f"table+quantize {split[0]:.4f}, scan {split[1]:.4f}, "
-        f"epilogue+ladder+terminal {split[2]:.4f}; host wall "
-        f"{wall * 1e3:.4f} ms -> {b / wall:.1f} QPS; certified first-shot "
+    log(f"{label} (B={b}, top-{TOP_K}, N={n}): certified first-shot "
         f"{float(np.mean(fracs)):.4f}; {n_batches} batches bit-equal to "
         f"adc_query_topk, ids equal up to audited ties")
-    return float(np.mean(fracs))
 
 
-def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
+def phase9_slot_engine(dev, cw, order, dt, rng, codes_db, codes_db64,
                        launches):
     """The slot-tile engine at int16, int8 and bf16, and its files."""
     with Phase("9 slot-tile engine"):
@@ -1356,9 +1132,9 @@ def phase9_slot_engine(dev, tag, cw, order, dt, rng, codes_db, codes_db64,
             e.warmup(batch_sizes=(B,), top_k=TOP_K)
             torch.cuda.synchronize()
             log(f"slots {prec}: warmup {time.perf_counter() - t:.2f} s, "
-                f"ns_hint {getattr(e, 'ns_hint', None)}")
-            timed_batches(tag, f"slot engine {prec}", e, B, n_batches, rng,
-                          codes_db, codes_db64, N)
+                f"ns_hint {e.ns_hint}")
+            checked_batches(f"slot engine {prec}", e, B, n_batches, rng,
+                            codes_db, codes_db64, N)
             counts = build.launch_counts()
             check(counts[key] > 0 and counts["ladder"] > 0,
                   f"slot engine {prec} never launched {key}")
@@ -1444,9 +1220,9 @@ def phase13_pipelined(dev, tag, cw, order, eng, rng, kernels, codes_db,
             e7.warmup(batch_sizes=(B,), top_k=TOP_K)
             torch.cuda.synchronize()
             log(f"pipelined {prec}: warmup {time.perf_counter() - t:.2f} s, "
-                f"ns_hint {getattr(e7, 'ns_hint', None)}")
-            timed_batches(tag, f"pipelined stream engine {prec}", e7, B,
-                          N_BATCHES, rng, codes_db, codes_db64, N)
+                f"ns_hint {e7.ns_hint}")
+            checked_batches(f"pipelined stream engine {prec}", e7, B,
+                            N_BATCHES, rng, codes_db, codes_db64, N)
             counts = build.launch_counts()
             serial = fk._launch_name("stream_mins", prec)
             check(counts[key] > 0 and counts["ladder"] > 0
@@ -1533,24 +1309,20 @@ def phase14_gist(dev, tag, kernels, launches):
             return FusedCodesEngine(cw, codes_scan, precision=prec)
 
         tols = {"int8": None, "int16": int16_tol, "bf16": bf16_tol}
-        # (label, kernel key, engine, timed through query())
-        specs = [("B1 stream_mins (wgmma)", "stream_mins", stream, "int16",
-                  True),
-                 ("B1 stream_mins (wgmma)", "stream_mins", stream, "int8",
-                  True),
-                 ("B1 stream_mins (wgmma)", "stream_mins", stream, "bf16",
-                  True),
-                 ("B3 codes_mins", "codes_mins", codes_eng, "bf16", True),
-                 ("B3 codes_mins", "codes_mins", codes_eng, "int16", False),
-                 ("B3 codes_mins", "codes_mins", codes_eng, "int8", False),
-                 ("B5 delta_mins", "delta_mins", slots, "int16", False),
-                 ("B5 delta_mins", "delta_mins", slots, "int8", False),
-                 ("B5 delta_mins", "delta_mins", slots, "bf16", True),
+        # (label, kernel key, engine)
+        specs = [("B1 stream_mins (wgmma)", "stream_mins", stream, "int16"),
+                 ("B1 stream_mins (wgmma)", "stream_mins", stream, "int8"),
+                 ("B1 stream_mins (wgmma)", "stream_mins", stream, "bf16"),
+                 ("B3 codes_mins", "codes_mins", codes_eng, "bf16"),
+                 ("B3 codes_mins", "codes_mins", codes_eng, "int16"),
+                 ("B3 codes_mins", "codes_mins", codes_eng, "int8"),
+                 ("B5 delta_mins", "delta_mins", slots, "int16"),
+                 ("B5 delta_mins", "delta_mins", slots, "int8"),
+                 ("B5 delta_mins", "delta_mins", slots, "bf16"),
                  ("B4 decoded_mins", "decoded_mins",
-                  lambda prec: FusedDecodedEngine(cw, codes_scan), "bf16",
-                  True)]
+                  lambda prec: FusedDecodedEngine(cw, codes_scan), "bf16")]
         b1_mins = {}      # B1's mins a mode, on the same wgmma tail
-        for label, kernel, make, prec, timed in specs:
+        for label, kernel, make, prec in specs:
             e = make(prec)
             key = (kernel if kernel == "decoded_mins"
                    else fk._launch_name(kernel, prec))
@@ -1578,18 +1350,12 @@ def phase14_gist(dev, tag, kernels, launches):
             build.reset_launch_counts()
             res = bench_gist.verify(e, f"{label} {prec}", queries, table,
                                     d_ref, ids_ref, codes_scan)
-            line = ""
-            if timed:
-                ms_batch, _ = bench_gist.time_engine(e, queries)
-                line = (f"; {ms_batch:.4f} ms/batch -> "
-                        f"{GIST_B / ms_batch * 1e3:.1f} QPS (host wall, "
-                        f"B={GIST_B}, top-{top_k})")
             counts = build.launch_counts()
             check(counts[key] > 0 and counts["ladder"] > 0,
                   f"GIST {label} {prec}: the engine launched {counts}")
             launches[name] = counts[key]
             # prepare on one batch of the engine's own path, without the
-            # check's and the timing's own prepares: once at bf16
+            # check's own prepares: once at bf16
             build.reset_launch_counts()
             e.query(queries, top_k=top_k)
             one = build.launch_counts()["prepare"]
@@ -1597,10 +1363,10 @@ def phase14_gist(dev, tag, kernels, launches):
                   f"GIST {label} {prec}: {one} prepare launches a batch")
             if "prepare@gist" in kernels and "prepare@gist" not in launches:
                 launches["prepare@gist"] = one
-            log(f"{tag} GIST engine {type(e).__name__} "
+            log(f"GIST engine {type(e).__name__} "
                 f"{getattr(e, 'fmt', '')} {prec}: id agreement "
                 f"{res['id_agree']:.4f}, {res['flips']} tie flips, 0 real "
-                f"divergences, first-shot {res['first_shot']:.4f}{line}; "
+                f"divergences, first-shot {res['first_shot']:.4f}; "
                 f"launches {({k: v for k, v in counts.items() if v})}")
             del e
 
@@ -1635,20 +1401,14 @@ def phase14_gist(dev, tag, kernels, launches):
         log(f"DeltaPQIndex(cw, codes) at M={Mg}: "
             f"{time.perf_counter() - t:.1f} s")
         build.reset_launch_counts()
-        t = time.perf_counter()
-        d, ids = idx.search(q2, top_k)
-        first = time.perf_counter() - t
+        idx.search(q2, top_k)
         # the bf16 engine's own table (csrc/prepare.cu)
         own = idx._fused_engine.prepare(q2)[0][:GIST_B]
         tab2, dr2, ir2 = bench_gist.exact_reference(cw, codes2, q2, dev,
                                                     table=own)
         dr2, ir2 = dr2.cpu().numpy(), ir2.cpu().numpy()
-        walls = []
         for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             d, ids = idx.search(q2, top_k)
-            walls.append(time.perf_counter() - t)
             agree, flips = gist_check("index auto (near-distinct)", d, ids,
                                       tab2, dr2, ir2, codes2)
         counts = build.launch_counts()
@@ -1658,14 +1418,11 @@ def phase14_gist(dev, tag, kernels, launches):
               and counts["stream_mins_bf16"] > 0 and counts["ladder"] > 0,
               f"auto at M=16 resolved to {idx._engine_resolved}, launches "
               f"{counts}")
-        wall = float(np.mean(walls))
-        log(f"{tag} DeltaPQIndex(auto) at M={Mg}, N={GIST_IDX_N} -> "
-            f"{idx._engine_resolved} (bf16, 2 mask planes): first search "
-            f"{first:.2f} s; {wall * 1e3:.4f} ms/batch -> "
-            f"{GIST_B / wall:.1f} QPS (B={GIST_B}, top-{top_k}); distances "
-            f"match, id agreement {agree:.4f}, {flips} tie flips, 0 real "
-            f"divergences; first-shot {e.last_exact_frac:.4f}; "
-            f"stats {idx.stats()}; launches "
+        log(f"DeltaPQIndex(auto) at M={Mg}, N={GIST_IDX_N} -> "
+            f"{idx._engine_resolved} (bf16, 2 mask planes), B={GIST_B}, "
+            f"top-{top_k}: distances match, id agreement {agree:.4f}, "
+            f"{flips} tie flips, 0 real divergences; first-shot "
+            f"{e.last_exact_frac:.4f}; stats {idx.stats()}; launches "
             f"{({k: v for k, v in counts.items() if v})}")
         del idx
 
@@ -1797,7 +1554,7 @@ def phase15_cli(dev, tag, kernels, launches):
         log("query -shards 4 (the plain scan on 4 shards of the card): "
             "distances bit-equal to -engine xla and adc_query_topk, ids "
             "equal up to audited ties")
-        batcher_depths(dev, tag, cw_t, codes, parts["query"])
+        batcher_depths(dev, cw_t, codes, parts["query"])
         _, m, _ = run("recall")
         gt_ids, _ = read_groundtruth(os.path.join(
             root, "groundtruth", f"N{CLI_N}Top{TOP_K}.txt"))
@@ -1867,12 +1624,11 @@ def phase15_cli(dev, tag, kernels, launches):
             launches[name] = counts[name]
 
 
-def batcher_depths(dev, tag, cw_t, codes, queries):
+def batcher_depths(dev, cw_t, codes, queries):
     """The ContinuousBatcher's double buffering on the card: the plain
     query as ``query -engine pallas`` runs it past ``-batch`` (B6 f32),
-    over every query file row in batches of B, one batch at a time
-    (depth 1) and two in flight (depth 2), in turns 1, 2, 2, 1 after an
-    untimed warm-up run; the results equal, the wall times logged."""
+    over every query file row in batches of B, two batches in flight
+    (depth 2) and one at a time (depth 1), the results equal."""
     codes_dev = torch.from_numpy(codes).to(dev)
 
     def fn(b):
@@ -1884,20 +1640,12 @@ def batcher_depths(dev, tag, cw_t, codes, queries):
             batch_iterator(queries, B)))
         return [np.concatenate([o[j] for o in outs]) for j in (0, 1)]
 
-    ref, ms = once(2), {1: [], 2: []}
-    for depth in (1, 2, 2, 1):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = once(depth)
-        ms[depth].append((time.perf_counter() - t) * 1e3)
-        check(all(np.array_equal(a, r) for a, r in zip(out, ref)),
-              f"ContinuousBatcher depth {depth} results differ")
-    n_b = -(-len(queries) // B)
-    log(f"{tag} ContinuousBatcher, {len(queries)} queries in {n_b} "
-        f"batches of {B} (B6 f32, N={len(codes)}): depth 1 "
-        f"{ms[1][0]:.2f} / {ms[1][1]:.2f} ms, depth 2 {ms[2][0]:.2f} / "
-        f"{ms[2][1]:.2f} ms wall (depth 2 / depth 1 = "
-        f"{sum(ms[2]) / sum(ms[1]):.4f}); results equal")
+    ref = once(2)
+    check(all(np.array_equal(a, r) for a, r in zip(once(1), ref)),
+          "ContinuousBatcher depth 1 results differ from depth 2")
+    log(f"ContinuousBatcher, {len(queries)} queries in "
+        f"{-(-len(queries) // B)} batches of {B} (B6 f32, N={len(codes)}): "
+        f"depth 1 and depth 2 results equal")
     del codes_dev
 
 
@@ -1964,7 +1712,7 @@ def sift_chunks(n_chunks):
         yield workload_vectors(N, seed=c, **WORKLOADS["sift_like"])
 
 
-def phase10_big_n(dev, tag, cw, codes, rng, launches):
+def phase10_big_n(dev, cw, codes, rng, launches):
     """BigCompressedIndex at int8 over 8,388,608 rows in four resident
     chunks, its mmap reload, and the dedup tier's int8 inner engine."""
     with Phase("10 big N at int8"):
@@ -1998,25 +1746,19 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
         torch.cuda.synchronize()
         log(f"warmup (calibrate chunk 0 + one batch a chunk): "
             f"{time.perf_counter() - t:.2f} s, ns_hint "
-            f"{getattr(eng.chunks[0], 'ns_hint', None)}")
-        walls, fracs = [], []
+            f"{eng.chunks[0].ns_hint}")
+        fracs = []
         for _ in range(N_BATCHES):
             q = rng.normal(size=(BIG_B, D)).astype(np.float32)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             d, ids = idx.query(q, top_k=TOP_K)
-            walls.append(time.perf_counter() - t)
             fracs.append(eng.last_exact_fracs)
             big_check(cw, q, cdb, cdb64, d, ids, n_big)
         counts = build.launch_counts()
         check(counts["stream_mins_int8"] > 0 and counts["ladder"] > 0,
               "the big-N int8 path never launched stream_mins_int8")
         launches["stream_mins_int8"] = counts["stream_mins_int8"]
-        wall = float(np.mean(walls))
-        log(f"{tag} big-N int8 (N={n_big}, B={BIG_B}, top-{TOP_K}): "
-            f"host wall {wall * 1e3:.4f} ms/batch -> {BIG_B / wall:.1f} "
-            f"QPS; first-shot per chunk "
-            f"{np.round(np.mean(fracs, axis=0), 4).tolist()}; "
+        log(f"big-N int8 (N={n_big}, B={BIG_B}, top-{TOP_K}): first-shot "
+            f"per chunk {np.round(np.mean(fracs, axis=0), 4).tolist()}; "
             f"{N_BATCHES} batches bit-equal to adc_query_topk over all "
             f"{n_big} codes, ids equal up to audited ties")
         log(f"  launches on the big-N path: "
@@ -2031,16 +1773,10 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
                 f"{time.perf_counter() - t:.1f} s")
             for _ in range(2):
                 q = rng.normal(size=(BIG_B, D)).astype(np.float32)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
                 d, ids = back.query(q, top_k=TOP_K)
-                wall = time.perf_counter() - t
                 big_check(cw, q, cdb, cdb64, d, ids, n_big)
-                up = back.last_upload_s
-                log(f"{tag} mmap batch: host wall {wall * 1e3:.4f} ms: "
-                    f"uploads (pageable host -> card, {len(back._host)} "
-                    f"chunks) {up * 1e3:.4f} ms, scans and selection "
-                    f"{(wall - up) * 1e3:.4f} ms; first-shot "
+                log(f"mmap batch ({len(back._host)} chunks uploaded from "
+                    f"pageable host memory): first-shot "
                     f"{np.round(back.last_exact_fracs, 4).tolist()}; "
                     f"bit-equal to adc_query_topk")
             del back
@@ -2058,13 +1794,9 @@ def phase10_big_n(dev, tag, cw, codes, rng, launches):
         cdb64 = cdb[:N].to(torch.int64)
         for _ in range(2):
             q = rng.normal(size=(B, D)).astype(np.float32)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             d, ids = de.query(q, top_k=TOP_K)
-            wall = time.perf_counter() - t
             big_check(cw, q, cdb, cdb64, d, ids, N)
-            log(f"{tag} dedup int8 batch (B={B}): host wall "
-                f"{wall * 1e3:.4f} ms, first-shot "
+            log(f"dedup int8 batch (B={B}): first-shot "
                 f"{de.engine.last_exact_frac:.4f}; bit-equal to "
                 f"adc_query_topk")
 
@@ -2263,14 +1995,7 @@ def check_packed(table, codes_pad, d, ids, n):
     return n_audit
 
 
-def time_engine(fn, q, reps):
-    """(ms/batch, results) of ``fn(q)``: one warm call, then ``reps``
-    synchronised calls between CUDA events."""
-    res = fn(q)
-    return cuda_ms(lambda: fn(q), reps), res
-
-
-def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
+def phase12_plain_scan_engines(dev, rng, dup, eng, launches):
     """The plain-scan engine family through its entry points; ``eng`` is
     phase 11's ``TileDictEngine``."""
     own_kernel = {
@@ -2303,9 +2028,7 @@ def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
             for name, fn in engs.items():
                 build.reset_launch_counts()
                 torch.cuda.reset_peak_memory_stats()
-                ms, (d, ids) = time_engine(
-                    fn, q, 2 if name in ("xla-gather",
-                                         "dists-smallest_k") else 5)
+                d, ids = fn(q)
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
                 counts = build.launch_counts()
                 ids = ids.to(torch.int64)
@@ -2330,8 +2053,7 @@ def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
                 if key:
                     check(counts[key] > 0, f"{name} never launched {key}")
                     launches[key] = launches.get(key, 0) + counts[key]
-                log(f"{tag} {name} (B={b}): {ms:.4f} ms/batch -> "
-                    f"{b / ms * 1e3:.1f} QPS; {note}; launches "
+                log(f"{name} (B={b}): {note}; launches "
                     f"{({k: v for k, v in counts.items() if v})}; peak "
                     f"device memory {peak:.2f} GiB")
         del engs, codes_p, codes_p64
@@ -2344,13 +2066,7 @@ def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
         for b in ENGINE_BS:
             q = rng.normal(size=(b, D)).astype(np.float32)
             build.reset_launch_counts()
-            eng.query(q, top_k=TOP_K)
-            walls = []
-            for _ in range(N_BATCHES):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                d, ids = eng.query(q, top_k=TOP_K)
-                walls.append(time.perf_counter() - t)
+            d, ids = eng.query(q, top_k=TOP_K)
             counts = build.launch_counts()
             check(counts["adc_topk_tiledict"] > 0,
                   "TileDictEngine never launched adc_topk_tiledict")
@@ -2362,12 +2078,10 @@ def phase12_plain_scan_engines(dev, tag, rng, dup, eng, launches):
                                    torch.from_numpy(d).to(dev),
                                    torch.from_numpy(ids).to(dev).to(
                                        torch.int64), N)
-            wall = float(np.mean(walls))
-            log(f"{tag} TileDictEngine (dup_heavy, DFS order, width "
-                f"{eng.dict_width}, B={b}): host wall {wall * 1e3:.4f} "
-                f"ms/batch -> {b / wall:.1f} QPS; exact distances; ids "
-                f"equal to adc_query_topk but for {n_audit} queries inside "
-                f"the key's 12 truncated bits; launches "
+            log(f"TileDictEngine (dup_heavy, DFS order, width "
+                f"{eng.dict_width}, B={b}): exact distances; ids equal to "
+                f"adc_query_topk but for {n_audit} queries inside the key's "
+                f"12 truncated bits; launches "
                 f"{({k: v for k, v in counts.items() if v})}")
         del eng, codes_d
 
@@ -2399,7 +2113,7 @@ SHARDS = (1, 2, 4)     # phase 16: shards of the one card
 SERVE_ROWS, SERVE_POOL = 128, 10_000    # phase 17: rows a wave, the pool
 SERVE_CLIENTS, SERVE_DEPTH = 8, 4       # client threads, waves in flight
 SERVE_WAVE_ROWS = (512, 1024, 2048)
-SERVE_DISPATCHES = 256                  # the timed window, in dispatches
+SERVE_DISPATCHES = 256                  # the served window, in dispatches
 SERVE_COALESCED = 64                    # waves through query_coalesced
 
 
@@ -2409,25 +2123,19 @@ def free_port():
         return s.getsockname()[1]
 
 
-def sharded_batches(tag, label, e, rng, codes_db, codes_db64, n, key):
-    """Warmup, then N_BATCHES timed top-10 queries of B through a sharded
+def sharded_batches(label, e, rng, codes_db, codes_db64, n, key):
+    """Warmup, then N_BATCHES top-10 queries of B through a sharded
     engine, the launch counts set to 0 just before the first and read
     after the last; each batch then held to ``adc_query_topk`` (the
     checks launch no kernel).  The scan kernel ``key`` must have run
     once a non-empty shard a batch, and so must the ladder's two kernels.
     Returns the counts."""
-    t = time.perf_counter()
     e.warmup(batch_sizes=(B,), top_k=TOP_K)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t
     build.reset_launch_counts()
-    walls, fracs, got = [], [], []
+    fracs, got = [], []
     for _ in range(N_BATCHES):
         q = rng.normal(size=(B, D)).astype(np.float32)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         d, ids = e.query(q, top_k=TOP_K)
-        walls.append(time.perf_counter() - t)
         fracs.append(e.last_exact_frac)
         got.append((q, d, ids))
     counts = build.launch_counts()
@@ -2440,13 +2148,10 @@ def sharded_batches(tag, label, e, rng, codes_db, codes_db64, n, key):
           f"{live * N_BATCHES}")
     check(counts["ladder"] == counts["ladder_mins"] == live * N_BATCHES,
           f"{label}: the ladder launched {counts['ladder']} times")
-    wall = float(np.mean(walls))
-    log(f"{tag} {label}: warmup {warm:.2f} s; {N_BATCHES} batches of "
-        f"B={B}, top-{TOP_K}: host wall {wall * 1e3:.4f} ms/batch -> "
-        f"{B / wall:.1f} QPS; certified first-shot (every shard) "
-        f"{float(np.mean(fracs)):.4f}; launches {key} {counts[key]}, ladder "
-        f"{counts['ladder']}; distances bit-equal to adc_query_topk, ids "
-        f"equal up to audited ties")
+    log(f"{label}: {N_BATCHES} batches of B={B}, top-{TOP_K}: certified "
+        f"first-shot (every shard) {float(np.mean(fracs)):.4f}; launches "
+        f"{key} {counts[key]}, ladder {counts['ladder']}; distances "
+        f"bit-equal to adc_query_topk, ids equal up to audited ties")
     return counts
 
 
@@ -2469,8 +2174,8 @@ def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                 f"{time.perf_counter() - t:.1f} s, "
                 f"{e.bytes_per_vec():.4f} B/vec")
             key = fk._launch_name("delta_mins", prec)
-            counts = sharded_batches(tag, f"sharded engine S={S} {prec}", e,
-                                     rng, codes_db, codes_db64, N, key)
+            counts = sharded_batches(f"sharded engine S={S} {prec}", e, rng,
+                                     codes_db, codes_db64, N, key)
             if (S, prec) == (4, "bf16"):
                 launches["delta_mins_bf16@sharded"] = counts[key]
                 launches["ladder@sharded"] = counts["ladder"]
@@ -2492,23 +2197,18 @@ def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
 
         mesh4 = make_mesh(4, device=dev)
         q = rng.normal(size=(B, D)).astype(np.float32)
-        t = time.perf_counter()
         d, ids = sharded_query_plain(cw, q, codes, top_k=TOP_K, mesh=mesh4)
-        t_sh = time.perf_counter() - t
         dx, _ = query_plain_tensors(cw, q, codes_db[:N], top_k=TOP_K,
                                     engine="xla", device=dev)
         check(np.array_equal(d, dx.cpu().numpy()),
               "sharded_query_plain distances != query_plain xla")
         big_check(cw, q, codes_db, codes_db64, d, ids, N)
-        log(f"{tag} sharded_query_plain S=4 (B={B}): {t_sh:.3f} s host "
-            f"wall; distances bit-equal to query_plain(engine='xla') and "
-            f"adc_query_topk, ids up to audited ties")
+        log(f"sharded_query_plain S=4 (B={B}): distances bit-equal to "
+            f"query_plain(engine='xla') and adc_query_topk, ids up to "
+            f"audited ties")
         qs = rng.normal(size=(4 * B, D)).astype(np.float32)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         pd, pi = pipelined_query(cw, qs, codes, mesh4, top_k=TOP_K,
                                  batch_size=B)
-        t_pipe = time.perf_counter() - t
         for b0 in range(0, 4 * B, B):
             sd, si = sharded_query_plain(cw, qs[b0:b0 + B], codes,
                                          top_k=TOP_K, mesh=mesh4)
@@ -2516,33 +2216,27 @@ def phase16_sharded(dev, tag, cw, codes, order, learn, rng, kernels,
                   and np.array_equal(pi[b0:b0 + B], si),
                   "pipelined_query != sharded_query_plain on a batch")
             big_check(cw, qs[b0:b0 + B], codes_db, codes_db64, sd, si, N)
-        log(f"{tag} pipelined_query S=4, 4 batches of {B}: {t_pipe:.3f} s "
-            f"host wall; each batch equal to sharded_query_plain, distances "
-            f"bit-equal to adc_query_topk")
-        t = time.perf_counter()
+        log(f"pipelined_query S=4, 4 batches of {B}: each batch equal to "
+            f"sharded_query_plain, distances bit-equal to adc_query_topk")
         dd, di = sharded_query_decoded(cw_np, q, codes, top_k=TOP_K,
                                        mesh=mesh4)
-        t_dec = time.perf_counter() - t
         big_check(cw, q, codes_db, codes_db64, dd, di, N)
         de, _ = DecodedEngine(cw_np, codes, device=dev).query(q, top_k=TOP_K)
         check(np.array_equal(np.asarray(de), dd),
               "sharded_query_decoded != DecodedEngine")
-        log(f"{tag} sharded_query_decoded S=4 bf16x2 (B={B}): {t_dec:.3f} s "
-            f"host wall with the decoded cache build; distances equal to "
-            f"DecodedEngine's and bit-equal to adc_query_topk")
-        t = time.perf_counter()
+        log(f"sharded_query_decoded S=4 bf16x2 (B={B}): distances equal "
+            f"to DecodedEngine's and bit-equal to adc_query_topk")
         dc, ic = sharded_query_compressed(cw_np, codes, q, top_k=TOP_K,
                                           mesh=mesh4, workers=4)
-        t_cmp = time.perf_counter() - t
         dr, ir = adc_query_topk(adc_table(cw, torch.from_numpy(q).to(dev)),
                                 codes_db, N, TOP_K, 16384)
         dr = dr.cpu().numpy()
         check(np.allclose(dc, dr, rtol=1e-5, atol=1e-4),
               "sharded_query_compressed out of tolerance")
-        log(f"{tag} sharded_query_compressed S=4 (four DeltaTrees on a "
-            f"spawn pool of 4, level-wise query, B={B}): {t_cmp:.2f} s host "
-            f"wall; max |d - adc_query_topk| {float(np.abs(dc - dr).max()):.3g}"
-            f", id agreement {float(np.mean(ic == ir.cpu().numpy())):.4f}")
+        log(f"sharded_query_compressed S=4 (four DeltaTrees on a spawn pool "
+            f"of 4, level-wise query, B={B}): max |d - adc_query_topk| "
+            f"{float(np.abs(dc - dr).max()):.3g}, id agreement "
+            f"{float(np.mean(ic == ir.cpu().numpy())):.4f}")
 
         M_, K_, Ds_ = cw_np.shape
         x = torch.from_numpy(np.ascontiguousarray(
@@ -2648,29 +2342,18 @@ def serve_window(srv, pool, idx):
     (round-robin over the clients) through the started server ``srv``,
     each client keeping ``SERVE_DEPTH`` waves in flight: it submits the
     next as soon as its oldest resolves.  Returns the results in wave
-    order, the host clock at each wave's submit and at its resolution
-    (stamped by the server's thread: read them after it has stopped),
-    and the window's host wall (first submit to last result)."""
+    order."""
     n = len(idx)
     out, errs = [None] * n, []
-    sent, done = np.zeros(n), np.zeros(n)
-    go = threading.Barrier(SERVE_CLIENTS + 1)
-
-    def stamp(w):
-        return lambda _: done.__setitem__(w, time.perf_counter())
 
     def client(c):
         try:
-            go.wait()
             live = collections.deque()
             for w in range(c, n, SERVE_CLIENTS):
                 if len(live) == SERVE_DEPTH:
                     v, f = live.popleft()
                     out[v] = f.result(timeout=120)
-                sent[w] = time.perf_counter()
-                f = srv.submit(pool[idx[w]])
-                f.add_done_callback(stamp(w))
-                live.append((w, f))
+                live.append((w, srv.submit(pool[idx[w]])))
             for v, f in live:
                 out[v] = f.result(timeout=120)
         except Exception as e:  # reported below
@@ -2680,21 +2363,17 @@ def serve_window(srv, pool, idx):
                for c in range(SERVE_CLIENTS)]
     for th in threads:
         th.start()
-    go.wait()
-    t = time.perf_counter()
     for th in threads:
         th.join(timeout=600)
-    wall = time.perf_counter() - t
     check(not errs and all(o is not None for o in out),
           f"serving: {errs[:1]}")
-    return out, (sent, done), wall
+    return out
 
 
-def phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64):
+def phase17_serving(dev, cw, eng, rng, codes_db, codes_db64):
     """``CoalescingServer`` over phase 5's int16 stream engine at three
-    dispatch widths: the engine's direct QPS over ``SERVE_DISPATCHES``
-    batches, then a started, warm server over ``SERVE_DISPATCHES``
-    dispatches' worth of waves from closed-loop clients; every served
+    dispatch widths: a started, warm server over ``SERVE_DISPATCHES``
+    dispatches' worth of waves from closed-loop clients, every served
     wave held to ``adc_query_topk``; then ``query_coalesced``."""
     with Phase("17 serving"):
         pool = rng.normal(size=(SERVE_POOL, D)).astype(np.float32)
@@ -2721,40 +2400,24 @@ def phase17_serving(dev, tag, cw, eng, rng, codes_db, codes_db64):
                             ref=(ref_d[rows], ref_i[rows]))
 
         for rows in SERVE_WAVE_ROWS:
-            batches = [pool[rng.integers(0, SERVE_POOL, rows)]
-                       for _ in range(SERVE_DISPATCHES)]
-            eng.query(batches[0], top_k=TOP_K)         # this width, warm
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for qb in batches:
-                eng.query(qb, top_k=TOP_K)
-            direct = SERVE_DISPATCHES * rows / (time.perf_counter() - t)
-            del batches
             per = rows // SERVE_ROWS                  # waves a dispatch
             idx = rng.integers(0, SERVE_POOL,
                                (SERVE_DISPATCHES * per, SERVE_ROWS))
             with CoalescingServer(eng, wave_rows=rows, max_wait_ms=2.0,
                                   top_k=TOP_K) as srv:
-                warm, _, _ = serve_window(srv, pool, idx[:4 * per])
+                warm = serve_window(srv, pool, idx[:4 * per])
                 k0, r0 = srv.dispatches, srv.rows_served
-                out, (sent, done), wall = serve_window(srv, pool, idx)
+                out = serve_window(srv, pool, idx)
                 k, r = srv.dispatches - k0, srv.rows_served - r0
-            lat = done - sent
             check(r == idx.size, f"served {r} rows, not {idx.size}")
             check_waves(idx[:4 * per], warm)
             check_waves(idx, out)
-            served = idx.size / wall
-            log(f"{tag} CoalescingServer wave_rows={rows}, max_wait_ms=2, "
+            log(f"CoalescingServer wave_rows={rows}, max_wait_ms=2, "
                 f"{SERVE_CLIENTS} clients x {SERVE_DEPTH} waves of "
-                f"{SERVE_ROWS} in flight, {len(idx)} waves after "
-                f"{4 * per} warm: {served:.1f} served QPS ({wall:.4f} s "
-                f"wall), {k} dispatches, {r / max(k, 1):.1f} rows a "
-                f"dispatch, wave latency p50 "
-                f"{np.percentile(lat, 50) * 1e3:.4f} / p99 "
-                f"{np.percentile(lat, 99) * 1e3:.4f} ms; direct B={rows} "
-                f"over {SERVE_DISPATCHES} batches {direct:.1f} QPS; served "
-                f"/ direct {served / direct:.4f}; every wave bit-equal to "
-                f"adc_query_topk, ids up to audited ties")
+                f"{SERVE_ROWS} in flight, {len(idx)} waves after {4 * per} "
+                f"warm: {k} dispatches, {r / max(k, 1):.1f} rows a "
+                f"dispatch; every wave bit-equal to adc_query_topk, ids up "
+                f"to audited ties")
         waves = [pool[i] for i in idx[:SERVE_COALESCED]]
         got = query_coalesced(eng, waves, top_k=TOP_K, wave_rows=1024)
         for w, (d, _) in zip(waves, got):
@@ -2841,14 +2504,6 @@ TREE_FIELDS = ("vec_id", "parent_pos", "depth", "diff_num", "diff_off",
                "max_dist", "max_dist2p")
 
 
-def synced(dev, fn, *a):
-    """fn(*a), the card synchronised after it."""
-    out = fn(*a)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return out
-
-
 def timed(fn, *a, **k):
     """(fn's result, host wall s)."""
     t = time.perf_counter()
@@ -2856,7 +2511,7 @@ def timed(fn, *a, **k):
     return out, time.perf_counter() - t
 
 
-def sharded_step_case(dev, tag, label, cw, codes_scan, order, q, codes_db,
+def sharded_step_case(dev, label, cw, codes_scan, order, q, codes_db,
                       codes_db64, n, tiles=None):
     """``make_sharded_delta_query_fn`` at the engine's first rung on 1, 2
     and 4 shards of ``dev`` over the slot tiles of ``codes_scan`` (row i
@@ -2894,14 +2549,13 @@ def sharded_step_case(dev, tag, label, cw, codes_scan, order, q, codes_db,
     check(tiles.n_tiles % max(SHARDS) == 0,
           f"{label}: {tiles.n_tiles} tiles do not split over the shards")
     for S in SHARDS:
-        ns_total = tiles.n_tiles // S * (fk.TILE // fk.SUB)
-        pool = _pool_for(ns_total)
-        ns = _default_n_sub(TOP_K, -(-ns_total // pool), fk.SUB * pool)
+        plan = rung_plan(tiles.n_tiles // S * (fk.TILE // fk.SUB), TOP_K,
+                         len(q))
+        ns = plan.rungs[0]
         fn = make_sharded_delta_query_fn(make_mesh(S, device=dev), TOP_K,
-                                         ns, pool, tiles.S, Ds=Dsc)
+                                         ns, plan.pool, tiles.S, Ds=Dsc)
         build.reset_launch_counts()
-        (d, rows, ok), t_fn = timed(synced, dev, fn, qk, q2, table, cwbd,
-                                    rd_t, ovf_t, n)
+        d, rows, ok = fn(qk, q2, table, cwbd, rd_t, ovf_t, n)
         counts = build.launch_counts()
         live = sum(1 for g in range(S)
                    if g * (tiles.n_tiles // S) * fk.TILE < n)
@@ -2923,8 +2577,8 @@ def sharded_step_case(dev, tag, label, cw, codes_scan, order, q, codes_db,
         okf = float(ok.float().mean())
         check(okf >= SHARDED_MIN_OK[q.shape[1]][S],
               f"{label} S={S}: only {okf:.4f} of the queries certified")
-        log(f"{tag} make_sharded_delta_query_fn {label} N={n} S={S} (n_sub "
-            f"{ns}, pool {pool}): {t_fn:.4f} s host wall, ok {okf:.4f}; B5 "
+        log(f"make_sharded_delta_query_fn {label} N={n} S={S} (n_sub {ns}, "
+            f"pool {plan.pool}): ok {okf:.4f}; B5 "
             f"{counts['delta_mins_bf16']}, B2 {counts['rerank']}; certified "
             f"rows equal to ShardedCompressedEngine (ids up to audited "
             f"ties), every row its own exact distance, none below the "
@@ -2983,18 +2637,16 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
         table = adc_table(cw, torch.from_numpy(q8).to(dev))
         dr, ir = adc_query_topk(table, codes_db, N, TOP_K, 16384)
         tab_np = table.cpu().numpy()
-        t = time.perf_counter()
         scans = [scan_query_native(stream, N, M, K, tab_np[b], TOP_K)
                  for b in range(8)]
-        t_scan = time.perf_counter() - t
         d_n = np.stack([s[0] for s in scans])
         ids_n = np.stack([tn.vec_id[s[1]] for s in scans]).astype(np.int64)
         check(np.allclose(d_n, dr.cpu().numpy(), rtol=1e-5, atol=0),
               "scan_query_native distances vs adc_query_topk")
         audit_ties(table, codes_db64, torch.from_numpy(ids_n).to(dev), ir,
                    rtol=1e-5)
-        log(f"{tag} scan_query_native, 8 queries over the DTC stream: "
-            f"{t_scan:.4f} s; distances within rtol 1e-5 of adc_query_topk "
+        log(f"scan_query_native, 8 queries over the DTC stream: distances "
+            f"within rtol 1e-5 of adc_query_topk "
             f"(max |d| diff {float(np.abs(d_n - dr.cpu().numpy()).max()):.3g}"
             f"), ids up to audited ties")
         del tp, pn, pp, dn, dp, ds, xn, xp
@@ -3072,12 +2724,12 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
         check(np.array_equal(cb, cr[tb.vec_id.astype(np.int64)]),
               "the bit format is not lossless")
         q = rng.normal(size=(B, D)).astype(np.float32)
-        (d, ids), t_qb = timed(query_bits, bs, n_bits, ROTATE_N, M, cw_np,
-                               q, tb.vec_id, top_k=TOP_K, device=dev)
+        d, ids = query_bits(bs, n_bits, ROTATE_N, M, cw_np, q, tb.vec_id,
+                            top_k=TOP_K, device=dev)
         big_check(cw, q, codes_db, codes_db64[:ROTATE_N], d, ids, ROTATE_N)
         log(f"{tag} bit format (N={ROTATE_N}, cut): {n_bits} bits, write "
             f"{t_bs:.2f} s, read {t_bd:.2f} s, lossless; query_bits B={B} "
-            f"{t_qb:.3f} s, bit-equal to adc_query_topk")
+            f"bit-equal to adc_query_topk")
 
         # -- row store --------------------------------------------------
         raw = rng.integers(0, 256, (N, RAW_D), dtype=np.uint8)
@@ -3088,13 +2740,13 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
         check(np.array_equal(cr_, codes[order])
               and np.array_equal(raw_r, raw[order]),
               "the row store is not lossless")
-        (d, ids, rows), t_qr = timed(query_row_store, rs, N, M, RAW_D, cw_np,
-                                     q, tree.vec_id, top_k=TOP_K, device=dev)
+        d, ids, rows = query_row_store(rs, N, M, RAW_D, cw_np, q,
+                                       tree.vec_id, top_k=TOP_K, device=dev)
         big_check(cw, q, codes_db, codes_db64, d, ids, N)
         check(np.array_equal(rows, raw[ids]), "row store: raw rows")
         log(f"{tag} row store (N={N}, {RAW_D} raw B a row): {len(rs)} "
             f"bytes, write {t_rw:.2f} s, read {t_rr:.2f} s, lossless; "
-            f"query_row_store B={B} {t_qr:.3f} s, distances bit-equal to "
+            f"query_row_store B={B} distances bit-equal to "
             f"adc_query_topk, raw rows = raw[ids]")
         del rs, raw, raw_r, cr_, stream
 
@@ -3110,7 +2762,6 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
         ql = legacy_x[rng.integers(0, LEGACY_N, 16)] + 0.02
         d1, _ = query_plain(cw2, ql, codes2, top_k=1, engine="xla",
                             device=dev)
-        t = time.perf_counter()
         nodes = []
         for b in range(len(ql)):
             _, dist, st = prefix_tree_query(store, cw2, ql[b],
@@ -3118,16 +2769,14 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
             check(abs(dist - float(d1[b, 0])) < 1e-3,
                   f"prefix_tree_query top-1 {dist} != {float(d1[b, 0])}")
             nodes.append(st["nodes_expanded"])
-        t_pq = time.perf_counter() - t
         log(f"{tag} legacy (N={LEGACY_N}, cut): dichotomize_codewords on "
-            f"the card {t_dich:.2f} s; 16 prefix_tree_query {t_pq:.3f} s, "
-            f"nodes expanded {min(nodes)}-{max(nodes)}; top-1 within 1e-3 "
-            f"of query_plain")
+            f"the card {t_dich:.2f} s; 16 prefix_tree_query, nodes expanded "
+            f"{min(nodes)}-{max(nodes)}; top-1 within 1e-3 of query_plain")
 
         # -- the one-rung sharded step over phase 8's slot tiles --------
         ql = (legacy_x[rng.integers(0, LEGACY_N, B)]
               + rng.normal(size=(B, D)).astype(np.float32) * QUERY_SIGMA)
-        sharded_step_case(dev, tag, f"D={D}", cw, codes[order], order, ql,
+        sharded_step_case(dev, f"D={D}", cw, codes[order], order, ql,
                           codes_db, codes_db64, N, tiles=dt)
         # D not divisible by M: pq_learn pads D up to M*Ds with zeros, so
         # the block-diagonal codebook's last columns are zero
@@ -3144,14 +2793,14 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
         db_o = torch.from_numpy(pad_codes(codes_o, 16384)).to(dev)
         qo = (xs[rng.integers(0, LEGACY_N, B)]
               + rng.normal(size=(B, ODD_D)).astype(np.float32) * QUERY_SIGMA)
-        sharded_step_case(dev, tag, f"D={ODD_D} (Ds {Ds_o}, zero-padded)",
+        sharded_step_case(dev, f"D={ODD_D} (Ds {Ds_o}, zero-padded)",
                           cw_o, codes_o[order_o], order_o, qo, db_o,
                           db_o[:LEGACY_N].to(torch.int64), LEGACY_N)
 
         # -- entry ------------------------------------------------------
         fwd, args = flagship.entry(device=dev)
         build.reset_launch_counts()
-        (d, rows), t_e = timed(fwd, *args)
+        d, rows = fwd(*args)
         counts = build.launch_counts()
         check(counts["delta_mins_bf16"] > 0 and counts["rerank"] > 0,
               f"entry's fwd: {counts}")
@@ -3168,8 +2817,8 @@ def phase18_rest(dev, tag, cw, codes, order, res, tree, bpv3, dt, legacy_x,
         check(ok.any() and torch.equal(d[ok], dr[ok]),
               "entry: certified distances != adc_query_topk")
         audit_ties(te[ok], ce_t.to(torch.int64), rows[ok], ir[ok])
-        log(f"{tag} entry(): fwd {t_e:.4f} s host wall (first call), ok "
-            f"{float(ok.float().mean()):.4f}; B5 {counts['delta_mins_bf16']},"
+        log(f"entry(): ok {float(ok.float().mean()):.4f}; B5 "
+            f"{counts['delta_mins_bf16']},"
             f" B2 {counts['rerank']}; certified distances bit-equal to "
             f"adc_query_topk, rows up to audited ties")
 

@@ -211,6 +211,9 @@ class ChunkedCompressedEngine:
 
     #: default rows per chunk (multiple of the kernel TILE)
     CHUNK_ROWS = 16 * 1024 * 1024
+    #: the first rung the non-resident chunks share: chunk 0's calibrated
+    #: one, carried from each batch's engine to the next
+    ns_hint: Optional[int] = None
 
     def __init__(self, codewords, codes_scan: np.ndarray,
                  row_to_db: Optional[np.ndarray] = None,
@@ -340,7 +343,7 @@ class ChunkedCompressedEngine:
             e0 = self.chunks[0]
             if calibrate:
                 e0.calibrate(top_k=top_k)
-                hint = getattr(e0, "ns_hint", None)
+                hint = e0.ns_hint
                 if hint:
                     for e in self.chunks[1:]:
                         e.ns_hint = hint
@@ -350,7 +353,7 @@ class ChunkedCompressedEngine:
             eng = self._upload(*self._host[0])
             if calibrate:
                 eng.calibrate(top_k=top_k)
-                self.ns_hint = getattr(eng, "ns_hint", None)
+                self.ns_hint = eng.ns_hint
             eng.warmup(batch_sizes, top_k=top_k, calibrate=False)
 
     def query(self, queries: np.ndarray, top_k: int = 10
@@ -360,7 +363,7 @@ class ChunkedCompressedEngine:
         parts_d, parts_i = [], []
         self.last_exact_fracs = []
         self.last_upload_s = 0.0
-        hint = getattr(self, "ns_hint", None)
+        hint = self.ns_hint
         for c in range(len(self.chunks) if self.resident
                        else len(self._host)):
             if self.resident:
@@ -379,7 +382,7 @@ class ChunkedCompressedEngine:
             self.last_exact_fracs.append(eng.last_exact_frac)
             if not self.resident:
                 # carry the adaptation across the per-batch engines
-                hint = self.ns_hint = getattr(eng, "ns_hint", hint)
+                hint = self.ns_hint = eng.ns_hint
             parts_d.append(d)
             parts_i.append(i)
         d_all = np.concatenate(parts_d, axis=1)

@@ -54,11 +54,10 @@
 //     H100 (kernels/ablate_adc.py): 8- and 16-byte groups, which serve more
 //     queries a load, leave fewer warps to hide the loads' latency and ran
 //     slower.  So did, for B9, the lanes of a warp on one row and many
-//     queries (lookups without bank conflicts, a selection per lane;
-//     kernels/adc_topk_rows.cu, kernels/ablate_packed.py): no faster at f32
-//     and bf16x2, slower at bf16.  Where two bf16 tables of a warp do not
-//     fit (B9 takes 2*M*K up to 160 KB), B9 runs 2-byte groups, one query a
-//     warp.
+//     queries (lookups without bank conflicts, a selection per lane): no
+//     faster at f32 and bf16x2, slower at bf16.  Where two bf16 tables of a
+//     warp do not fit (B9 takes 2*M*K up to 160 KB), B9 runs 2-byte groups,
+//     one query a warp.
 //   * The tile's codes are staged once a block for all its warps, word by
 //     word, transposed to [word][row] so that a warp's 32 rows read 32
 //     consecutive words; a chunk of at most 32 KB at a time.

@@ -21,7 +21,7 @@ from . import resolve_device
 from .ops import fused_kernels as fk
 from .ops.adc import adc_table
 from .ops.delta_tiles import build_delta_tiles
-from .ops.fused import _default_n_sub, _pool_for
+from .ops.fused import rung_plan
 
 M, K, Ds = 8, 256, 16
 B, N, TOP_K = 128, 16384, 10
@@ -34,9 +34,7 @@ def step(cw_t, q_t, qc_t, cwbd_t, rd, ovf):
     from the tile arrays, as ``entry`` builds them."""
     n_pad = rd.shape[0] * fk.TILE
     S = rd.shape[1] - (M + 7) // 8
-    ns_total = n_pad // fk.SUB
-    pool = _pool_for(ns_total)
-    ns = _default_n_sub(TOP_K, -(-ns_total // pool), fk.SUB * pool)
+    plan = rung_plan(n_pad // fk.SUB, TOP_K, B)
     table = adc_table(cw_t, q_t)
     q2 = torch.sum(qc_t * qc_t, dim=1)
     compact = (fk.compact_codebook(cwbd_t, M, Ds, "bf16")
@@ -45,7 +43,7 @@ def step(cw_t, q_t, qc_t, cwbd_t, rd, ovf):
         qc_t.to(torch.bfloat16).t().contiguous(), cwbd_t, rd, ovf, N, S,
         compact=compact, mode="bf16")
     return fk.select_rerank(mins.t().contiguous(), q2, table, echo, N,
-                            TOP_K, ns, pool)
+                            TOP_K, plan.rungs[0], plan.pool)
 
 
 def entry(device=None):

@@ -49,7 +49,7 @@ the sharded one.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +101,35 @@ def _default_n_sub(top_k: int, n_units: int, unit: int) -> int:
     least 512 rows), bounded to the database."""
     want = -(-max(50 * top_k, 512) // unit)
     return int(max(2, min(want, max(n_units - 1, 1))))
+
+
+class RungPlan(NamedTuple):
+    """The ladder's sizing over one scan: the min-pool factor, the
+    candidate units (``SUB * pool`` rows each) and the rungs in units,
+    ascending and distinct."""
+    pool: int
+    n_units: int
+    rungs: Tuple[int, ...]
+
+
+def rung_plan(ns_total: int, top_k: int, b_cols: int,
+              first: Optional[int] = None) -> RungPlan:
+    """The ladder's sizing over ``ns_total`` 32-row subtiles for a batch
+    of ``b_cols`` columns: the pool (``_pool_for``), the units, and the
+    rungs (first, 2 first, 8 first, cap), each within the units.  The
+    first rung is ``first`` (an engine's ``ns_hint``), else
+    ``_default_n_sub``'s.  The cap rung's rows shrink as the batch grows
+    (its [B, S] intermediates); a first rung above them raises the cap to
+    it."""
+    pool = _pool_for(ns_total)
+    n_units = -(-ns_total // pool)
+    unit = fk.SUB * pool
+    top = max(n_units - 1, 1)
+    ns = min(first or _default_n_sub(top_k, n_units, unit), top)
+    cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
+    cap = min(top, max(ns, cap_rows // unit))
+    return RungPlan(pool, n_units, tuple(dict.fromkeys(
+        [ns, min(ns * 2, cap), min(ns * 8, cap), cap])))
 
 
 def _all_ok(ok: torch.Tensor) -> bool:
@@ -200,18 +229,6 @@ ADAPT_GROW_BELOW = 0.35
 ADAPT_TARGET = 0.6
 
 
-def _rung_sizes(ns: int, n_units: int, unit: int, b_cols: int
-                ) -> Tuple[int, ...]:
-    """The ladder's rungs in units, ascending and distinct: (ns, 2ns, 8ns,
-    cap), each within the units; the cap rung's rows shrink as the batch
-    (``b_cols`` columns) grows."""
-    ns = min(ns, max(n_units - 1, 1))
-    cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
-    ns_cap = min(max(n_units - 1, 1), max(ns, cap_rows // unit))
-    return tuple(dict.fromkeys(
-        [ns, min(ns * 2, ns_cap), min(ns * 8, ns_cap), ns_cap]))
-
-
 def _per_query_route(mins_nb, table, codes_dev, top_k, n_units, rungs
                      ) -> bool:
     """The per-query ladder's route: CUDA tensors of a shape the ladder
@@ -221,15 +238,11 @@ def _per_query_route(mins_nb, table, codes_dev, top_k, n_units, rungs
 
 
 def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
-                            top_k, n_sub=None, err_r=None, scale2=None,
-                            engine=None, b=None, row_to_db=None,
-                            count_rows=True):
+                            top_k, first=None, err_r=None, scale2=None,
+                            b=None, row_to_db=None, count_rows=True):
     """Select + rerank with the full ladder (ns, 2ns, 8ns, cap) and the
-    terminal exact scan.  The first rung comes from ``n_sub``, else
-    ``engine.ns_hint`` (per-index calibration), else
-    ``_default_n_sub``; ``ns_hint`` doubles when the first-shot rate
-    collapses.  The cap rung's rows shrink as B grows (its [B, S]
-    intermediates).
+    terminal exact scan, at the rungs ``rung_plan`` gives the scan's
+    shape and ``first`` (None: the default first rung).
 
     The route follows the input.  CUDA tensors of a shape the ladder
     kernel takes (``fk.ladder_takes``: u8 codes, M <= 16, top_k <= 128)
@@ -240,25 +253,17 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     rung that some row needs).  The rows that fail every rung take the
     terminal exact scan either way.
 
-    The first-shot certificate is read once: its rate over every row,
-    padding included, drives the ``ns_hint`` rule.  ``b`` is the caller's
-    real rows (the first ``b``): the per-query ladder's ``rungs`` and
-    ``rung_rows`` count them alone, and ``real_rows`` and
-    ``first_shot_rows`` (those of them certified at rung 1) grow by them
-    unless ``count_rows`` is false (a shard of a sharded engine, which
-    counts its merged certificate itself).  Returns (d, rows, ok1,
-    first_frac), each on the host: rows as database ids through
-    ``row_to_db`` where given, ``ok1`` [B] the first-shot certificate,
-    ``first_frac`` its rate."""
-    ns_total = mins_nb.shape[0]
-    pool = _pool_for(ns_total)
-    n_units = -(-ns_total // pool)
-    unit = fk.SUB * pool
-    hint = getattr(engine, "ns_hint", None) if engine is not None \
-        else None
-    ns = n_sub or hint or _default_n_sub(top_k, n_units, unit)
-    rungs = _rung_sizes(ns, n_units, unit, int(mins_nb.shape[1]))
-    ns, ns_cap = rungs[0], rungs[-1]
+    The first-shot certificate is read once; its rate is over every row,
+    padding included.  ``b`` is the caller's real rows (the first ``b``):
+    the per-query ladder's ``rungs`` and ``rung_rows`` count them alone,
+    and ``real_rows`` and ``first_shot_rows`` (those of them certified at
+    rung 1) grow by them unless ``count_rows`` is false (a shard of a
+    sharded engine, which counts its merged certificate itself).  Returns
+    (d, rows, ok1, first_frac), each on the host: rows as database ids
+    through ``row_to_db`` where given, ``ok1`` [B] the first-shot
+    certificate, ``first_frac`` its rate."""
+    pool, n_units, rungs = rung_plan(mins_nb.shape[0], top_k,
+                                     int(mins_nb.shape[1]), first)
     if _per_query_route(mins_nb, table, codes_dev, top_k, n_units, rungs):
         d, rows, ok1 = _per_query_ladder(
             mins_nb, q2, table, codes_dev, n_valid, top_k, rungs, pool,
@@ -276,9 +281,6 @@ def _select_with_escalation(mins_nb, q2, table, codes_dev, n_valid,
     if b is not None and count_rows:
         tracing.count("real_rows", b)
         tracing.count("first_shot_rows", int(np.count_nonzero(ok1[:b])))
-    if (engine is not None and n_sub is None
-            and first_frac < ADAPT_GROW_BELOW and ns < ns_cap):
-        engine.ns_hint = min(ns * 2, ns_cap)
     return d, rows, torch.from_numpy(ok1), first_frac
 
 
@@ -437,6 +439,9 @@ class _FusedEngine:
     defines ``scan``."""
 
     row_to_db: Optional[torch.Tensor] = None
+    #: the first rung in units: None takes ``rung_plan``'s default;
+    #: ``calibrate`` sizes it and ``grow_hint`` grows it
+    ns_hint: Optional[int] = None
 
     def _query_operands(self, qc: np.ndarray):
         """Centered padded queries [B_pad, d_pad] -> (q operand, u,
@@ -490,12 +495,34 @@ class _FusedEngine:
         and the copy back.  Returns (dists [b, top_k] f32, ids [b, top_k]
         int64) on the host."""
         with tracing.span("engine.select"):
-            q2, err_r, scale2 = cert
-            d, rows, _, self.last_exact_frac = _select_with_escalation(
-                mins, q2, table, codes_echo, self.n_valid, top_k, n_sub,
-                err_r=err_r, scale2=scale2, engine=self, b=b,
-                row_to_db=self.row_to_db)
+            d, rows, _, self.last_exact_frac = self.ladder(
+                table, cert, mins, codes_echo, b, top_k, n_sub)
             return d[:b], rows[:b]
+
+    def ladder(self, table, cert, mins, codes_echo, b: int, top_k: int,
+               n_sub: Optional[int] = None, count_rows: bool = True):
+        """``_select_with_escalation`` over this engine's rows, its first
+        rung ``n_sub``, else ``ns_hint``; without ``n_sub``, a first-shot
+        rate below ``ADAPT_GROW_BELOW`` grows ``ns_hint``.  Returns (d,
+        rows, ok1, first_frac) on the host, rows as database ids."""
+        q2, err_r, scale2 = cert
+        d, rows, ok1, first_frac = _select_with_escalation(
+            mins, q2, table, codes_echo, self.n_valid, top_k,
+            n_sub or self.ns_hint, err_r=err_r, scale2=scale2, b=b,
+            row_to_db=self.row_to_db, count_rows=count_rows)
+        if n_sub is None and first_frac < ADAPT_GROW_BELOW:
+            self.grow_hint(mins.shape[0], top_k, mins.shape[1])
+        return d, rows, ok1, first_frac
+
+    def grow_hint(self, ns_total: int, top_k: int, b_cols: int) -> bool:
+        """The first rung's growth: ``ns_hint`` doubles toward the cap
+        rung of ``rung_plan(ns_total, top_k, b_cols, ns_hint)`` while it
+        lies below it.  Returns whether it grew."""
+        rungs = rung_plan(ns_total, top_k, b_cols, self.ns_hint).rungs
+        if rungs[0] >= rungs[-1]:
+            return False
+        self.ns_hint = min(2 * rungs[0], rungs[-1])
+        return True
 
     def query(self, queries: np.ndarray, top_k: int = 10,
               n_sub: Optional[int] = None
@@ -529,22 +556,16 @@ class _FusedEngine:
         q = self._warmup_queries(b, seed=17)
         frac = 0.0
         for _ in range(rounds):
-            before = getattr(self, "ns_hint", None)
+            before = self.ns_hint
             self.query(q, top_k=top_k)
             frac = self.last_exact_frac
             if frac >= target:
                 break
-            if getattr(self, "ns_hint", None) in (None, before):
-                # the adaptive step did not fire: take one doubling
-                ns_total = -(-self.n_valid // fk.SUB)
-                pool = _pool_for(ns_total)
-                n_units = -(-ns_total // pool)
-                unit = fk.SUB * pool
-                cur = before or _default_n_sub(top_k, n_units, unit)
-                cap = min(max(n_units - 1, 1), max(cur, 65536 // unit))
-                if cur >= cap:
-                    break
-                self.ns_hint = min(cur * 2, cap)
+            # the adaptive step did not fire: take one doubling, toward
+            # the cap over the valid rows' subtiles
+            if self.ns_hint == before and not self.grow_hint(
+                    -(-self.n_valid // fk.SUB), top_k, -(-b // 128) * 128):
+                break
         return frac
 
     def warmup(self, batch_sizes=(512,), top_k: int = 10,

@@ -11,9 +11,9 @@ device), then on each shard:
 
 1. ``fused_delta_mins`` scans the shard's tiles (kernel B5,
    ``csrc/delta_mins.cu``, on a card);
-2. ``ops.fused._select_with_escalation`` selects and reranks over the
-   shard's codes echo, with the port's ladder and terminal exact scan,
-   and the shard's own first-rung hint (on a card the per-query ladder
+2. the shard engine's ``ladder`` selects and reranks over the shard's
+   codes echo, with the port's ladder and terminal exact scan, and the
+   shard's own first-rung hint (on a card the per-query ladder
    kernel, ``csrc/ladder.cu``; the batch ladder with B2,
    ``csrc/rerank.cu``, otherwise), its results on the host;
 3. the shard's row base is added to its rows;
@@ -45,7 +45,7 @@ import torch
 from .. import tracing
 from ..ops import fused_kernels as fk
 from ..ops.delta_tiles import DeltaTiles, TILE, _full_planes, build_delta_tiles
-from ..ops.fused import FusedCompressedEngine, _np_f32, _select_with_escalation
+from ..ops.fused import FusedCompressedEngine, _np_f32
 from .mesh import Mesh, all_gather, gather_topk, make_mesh, shard_rows
 
 
@@ -131,6 +131,10 @@ class ShardedCompressedEngine:
     ``n_valid``.  Each local shard is a ``FusedCompressedEngine`` over its
     tile range (``self.shards``: (engine, global row base))."""
 
+    #: each shard's engine keeps its own first rung; this one stays None,
+    #: so a chunked engine over a mesh seeds no chunk with it
+    ns_hint = None
+
     def __init__(self, codewords, codes_scan: np.ndarray,
                  mesh: Optional[Mesh] = None,
                  row_to_db: Optional[np.ndarray] = None,
@@ -196,9 +200,8 @@ class ShardedCompressedEngine:
                 continue
             with _current(dev):
                 mins, echo = eng.scan(qo, u)
-                d, r, ok1, _ = _select_with_escalation(
-                    mins, q2, t, echo, eng.n_valid, top_k, err_r=err_r,
-                    scale2=scale2, engine=eng, b=b, count_rows=False)
+                d, r, ok1, _ = eng.ladder(t, (q2, err_r, scale2), mins,
+                                          echo, b, top_k, count_rows=False)
             ds.append(d)
             rows.append(torch.where(r >= 0, r.to(torch.int64) + base, -1))
             oks.append(ok1)

@@ -211,12 +211,10 @@ def test_ladder_kernel_matches_plain(cuda, shape, precision, forced):
     table, qop, uq, (q2, err_r, scale2), b = eng.prepare(q)
     assert b == B
     mins, echo = eng.scan(qop, uq)
-    ns_total = mins.shape[0]
-    pool = pfused._pool_for(ns_total)
+    pool, n_units, rungs = pfused.rung_plan(mins.shape[0], top_k,
+                                            table.shape[0],
+                                            1 if forced else None)
     assert pool == (2 if shape == "pool2" else 1)
-    n_units, unit = -(-ns_total // pool), fk.SUB * pool
-    ns = 1 if forced else pfused._default_n_sub(top_k, n_units, unit)
-    rungs = pfused._rung_sizes(ns, n_units, unit, table.shape[0])
     assert fk.ladder_takes(table, echo, top_k, n_units, rungs)
     mins_bn = fk.pool_mins_nb(mins, pool)
     if scale2 is not None:
@@ -1333,7 +1331,7 @@ def test_sharded_delta_step_d_not_divisible_by_m(cuda, S):
     exact scan's."""
     from deltapq_tpu_torch.ops.delta_tiles import build_delta_tiles
     from deltapq_tpu_torch.ops.encode import pq_encode
-    from deltapq_tpu_torch.ops.fused import _default_n_sub, _pool_for
+    from deltapq_tpu_torch.ops.fused import rung_plan
     from deltapq_tpu_torch.ops.kmeans import pq_learn
     from deltapq_tpu_torch.parallel import make_mesh
     from deltapq_tpu_torch.parallel.fused_sharded import \
@@ -1358,11 +1356,10 @@ def test_sharded_delta_step_d_not_divisible_by_m(cuda, S):
     qc = q - mu[None, :]
     qk = torch.from_numpy(fk.pack_query_grouped(qc, M, Ds)).to(cuda)
     table = adc_table(cw, torch.from_numpy(q).to(cuda))
-    ns_total = tiles.n_tiles // S * fk.TILE // fk.SUB
-    pool = _pool_for(ns_total)
-    ns = _default_n_sub(k, -(-ns_total // pool), fk.SUB * pool)
-    fn = make_sharded_delta_query_fn(make_mesh(S, device=cuda), k, ns,
-                                     pool, tiles.S, Ds=Ds)
+    plan = rung_plan(tiles.n_tiles // S * fk.TILE // fk.SUB, k, B)
+    fn = make_sharded_delta_query_fn(make_mesh(S, device=cuda), k,
+                                     plan.rungs[0], plan.pool, tiles.S,
+                                     Ds=Ds)
     d, rows, ok = fn(qk.to(torch.bfloat16).t().contiguous(),
                      torch.from_numpy((qc * qc).sum(axis=1)).to(cuda),
                      table,

@@ -354,3 +354,75 @@ def test_calibrate_grows_a_too_small_first_rung(case):
     d, _ = eng.query(case["queries"], top_k=TOPK)
     dr, _ = peng.query(case["queries"], top_k=TOPK)
     assert np.array_equal(d, dr)
+
+
+
+def _parent_rungs(ns_total, top_k, b_cols, first):
+    """The ladder's sizing as the engines derived it before ``rung_plan``:
+    pool, units, first rung (``n_sub or ns_hint or _default_n_sub``) and
+    the rungs (ns, 2ns, 8ns, cap), written out."""
+    pool = (1 if ns_total <= 32768 else 2 if ns_total <= 131072
+            else 4 if ns_total <= 1048576 else 8)
+    n_units = -(-ns_total // pool)
+    unit = 32 * pool
+    top = max(n_units - 1, 1)
+    want = -(-max(50 * top_k, 512) // unit)
+    ns = min(first or int(max(2, min(want, top))), top)
+    cap_rows = max(8192, 65536 * 512 // max(b_cols, 512))
+    ns_cap = min(top, max(ns, cap_rows // unit))
+    rungs = tuple(dict.fromkeys(
+        [ns, min(ns * 2, ns_cap), min(ns * 8, ns_cap), ns_cap]))
+    return pool, n_units, rungs
+
+
+@pytest.mark.parametrize("ns_total", [1, 32, 32768, 32769, 131073, 1048577])
+@pytest.mark.parametrize("top_k", [1, 10, 100, 128])
+def test_rung_plan_is_the_parents_recipe(ns_total, top_k):
+    """``rung_plan`` gives the integers the engines, the sharded step,
+    ``entry`` and the tools each derived for themselves before: across
+    the pool boundaries, the batch widths that shrink the cap rung, and a
+    first rung of the default, of one unit and above the cap."""
+    assert fk.SUB == 32                 # the recipe's subtile rows
+    for b_cols in (128, 512, 1024, 4096):
+        cap = _parent_rungs(ns_total, top_k, b_cols, None)[2][-1]
+        for first in (None, 1, cap + 5):
+            plan = pfused.rung_plan(ns_total, top_k, b_cols, first)
+            want = _parent_rungs(ns_total, top_k, b_cols, first)
+            assert tuple(plan) == want, (b_cols, first)
+            assert plan.rungs == tuple(sorted(set(plan.rungs)))
+
+
+def test_calibrate_hint_sequence_is_the_parents(case):
+    """The forced case of ``test_calibrate_grows_a_too_small_first_rung``
+    walks the first rungs it walked before the growth rule moved into
+    ``grow_hint``: the hint each calibration round starts from, then the
+    last one."""
+    peng = case["peng"]
+    eng = FusedCompressedEngine.from_tiles(case["cw"], peng.tiles,
+                                           row_to_db=case["order"], device=CPU)
+    eng.ns_hint = 1
+    seen = []
+    query = eng.query
+
+    def traced(*a, **k):
+        seen.append(eng.ns_hint)
+        return query(*a, **k)
+
+    eng.query = traced
+    eng.calibrate(top_k=TOPK)
+    seen.append(eng.ns_hint)
+    parent = {(4, 32): [1, 2, 4, 8, 8], (8, 256): [1, 2, 4, 8, 8],
+              (16, 16): [1, 2, 4, 8, 16, 16]}
+    assert seen == parent[case["M"], case["K"]]
+
+
+def test_calibrate_cap_is_the_parents_at_b128():
+    """``calibrate`` takes its cap from ``rung_plan`` at its b=128: the
+    fixed 65,536 rows it used before, at every pool."""
+    for ns_total in (188, 32768, 32769, 131073, 1048577):
+        pool, n_units, _ = pfused.rung_plan(ns_total, TOPK, 128)
+        unit = fk.SUB * pool
+        for first in (1, 7, 2048, 10 ** 6):
+            rungs = pfused.rung_plan(ns_total, TOPK, 128, first).rungs
+            assert rungs[-1] == min(max(n_units - 1, 1),
+                                    max(rungs[0], 65536 // unit))

@@ -550,7 +550,7 @@ def _delta_fn_operands(data, S, n_rows):
     from deltapq_tpu_torch.ops import fused_kernels as fk
     from deltapq_tpu_torch.ops.delta_tiles import (TILE, _full_planes,
                                                    build_delta_tiles)
-    from deltapq_tpu_torch.ops.fused import _default_n_sub, _pool_for
+    from deltapq_tpu_torch.ops.fused import rung_plan
 
     codes = data["codes"][:n_rows]
     order = np.lexsort(codes.T[::-1])
@@ -572,9 +572,7 @@ def _delta_fn_operands(data, S, n_rows):
     qc = q - mu[None, :]
     qk = fk.pack_query_grouped(qc[:, :D], M, DS)
     table = adc_table(torch.from_numpy(cw), torch.from_numpy(q[:, :D]))
-    ns_total = nt_pad // S * TILE // fk.SUB
-    pool = _pool_for(ns_total)
-    ns = _default_n_sub(TOPK, -(-ns_total // pool), fk.SUB * pool)
+    plan = rung_plan(nt_pad // S * TILE // fk.SUB, TOPK, 128)
     port = (torch.from_numpy(qk).to(torch.bfloat16).t().contiguous(),
             torch.from_numpy((qc * qc).sum(axis=1)), table,
             fk.build_blockdiag_codebook(cw, center=mu[:D]), rd, ovf,
@@ -584,7 +582,7 @@ def _delta_fn_operands(data, S, n_rows):
                jax.numpy.asarray(table.numpy()),
                jax.numpy.asarray(jfp.build_blockdiag_codebook(
                    cw, center=mu[:D])), rd, ovf, tiles.n_valid)
-    return codes, order, tiles.S, ns, pool, port, jax_ops
+    return codes, order, tiles.S, plan.rungs[0], plan.pool, port, jax_ops
 
 
 @pytest.mark.parametrize("S", SHARDS)

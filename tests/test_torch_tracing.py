@@ -343,9 +343,8 @@ def test_first_shot_rows_leave_out_padding(data):
     assert (b, table.shape[0]) == (100, 128)
     mins, echo = eng.scan(qop, uq)
     tracing.reset()
-    _, _, ok1, first_frac = pfused._select_with_escalation(
-        mins, q2, table, echo, eng.n_valid, 10, err_r=err_r,
-        scale2=scale2, engine=eng, b=b)
+    _, _, ok1, first_frac = eng.ladder(table, (q2, err_r, scale2), mins,
+                                       echo, b, 10)
     counts = tracing.snapshot()["counters"]
     assert counts["real_rows"] == 100
     # the 28 padding rows (all certified here) are left out; the rate
@@ -393,7 +392,7 @@ def test_sharded_per_query_ladder_counts_real_rows(data, monkeypatch):
         mins_bn = fk.pool_mins_nb(mins, 1)
         if scale2 is not None:
             mins_bn = mins_bn * scale2
-        rungs = pfused._rung_sizes(1, mins.shape[0], fk.SUB, 128)
+        rungs = pfused.rung_plan(mins.shape[0], 10, 128, first=1).rungs
         assert rungs == (1, 2, 8, 63)               # 64 units of 32 rows
         _, _, st = fk.fused_ladder_ref(mins_bn, q2, table, echo, s.n_valid,
                                        10, rungs, 1, err_r=err_r)

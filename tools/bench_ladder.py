@@ -76,12 +76,8 @@ def measure(s, reps: int) -> dict:
     table, qop, uq, cert, bq = eng.prepare(s.queries[:b])
     q2, err_r, scale2 = cert
     mins, echo = eng.scan(qop, uq)
-    ns_total = mins.shape[0]
-    pool = pfused._pool_for(ns_total)
-    n_units, unit = -(-ns_total // pool), fk.SUB * pool
-    ns = (getattr(eng, "ns_hint", None)
-          or pfused._default_n_sub(s.top_k, n_units, unit))
-    rungs = pfused._rung_sizes(ns, n_units, unit, table.shape[0])
+    pool, n_units, rungs = pfused.rung_plan(mins.shape[0], s.top_k,
+                                            table.shape[0], eng.ns_hint)
 
     def plain_mins():
         m = fk.pool_mins_nb(mins, pool)
